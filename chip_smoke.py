@@ -5,20 +5,39 @@
 
 Phases, each failing loudly (any failure exits nonzero):
   1. the card's name and power limit (nvidia-smi);
-  2. build every CUDA kernel of the forward path from the sources here;
+  2. build every CUDA kernel from the sources here (render_fwd.cu: B1 and
+     B3; render_bwd.cu: B2 and B4), one nvcc per source, in parallel;
   3. each kernel against its plain PyTorch version on the card, on the
      scene-0 fixture at 64x64/4 spp/8 bounces: external uniforms with quirks
      on and off, the fused RNG, a specular (Ks > 0) variant and a small
-     vertex-normal mesh (rtol 1e-4, atol 1e-5, equal ray counts; the
-     vertex-normal scene under the knife-edge bound of the JAX tests);
-  4. the main path, render_samples on scene 0 at 512x512, 64 spp, 16
-     bounces (the bench configuration), fused RNG: launch counts, then one
-     warm-up and 3 runs timed with CUDA events, rays/s with rays = segments
-     + shadow rays;
+     vertex-normal mesh.  Radiance and records rtol 1e-4 / atol 1e-5 and
+     equal ray counts; B3's radiance and counts equal B1's; gradients rtol
+     1e-4 with an absolute floor of 1e-6 of the largest entry (the kernels
+     and the plain one-hot contraction sum in different orders); the
+     vertex-normal scene under the knife-edge bounds of the JAX tests;
+  4. the forward main path, render_samples on scene 0 at 512x512, 64 spp,
+     16 bounces (the bench configuration), fused RNG: launch counts, then
+     one warm-up and 3 runs timed with CUDA events, rays/s with rays =
+     segments + shadow rays;
   5. the golden gate: scene 0 at 500x500/100 spp/16 bounces with the
      reference cube Kd against artifacts/bench_golden_0.png (mean |d| <
      5/255, p99 < 25/255);
-  6. per-kernel timing at the main path's launch shape beside its bound.
+  6. the fwd+bwd main path: the same configuration, loss =
+     tonemap_mean(vals, spp).mean() (bench.py:148-151), loss.backward()
+     through B1 and B2: launch counts, a finite nonzero gradient, 1 warm-up
+     and 3 timed runs, rays/s, a profile;
+  7. loss_and_grad_range (B3 + B4) on the same configuration with a
+     per-launch loss that sums to the loss above: its gradient equals
+     autograd's (rtol 1e-5); timed;
+  8. the finite-difference gate of bench.py:196-236: 64x64/16 spp/8
+     bounces, fused RNG, eps 2e-2 along the gradient: ratio in (0.98,
+     1.02); a random direction's ratio is printed;
+  9. recovery: recover_materials on scene 0 at 64x64/8 spp/8 bounces, 30
+     Adam steps at lr 0.1 against a render at the true Kd with another key:
+     last loss < 0.75 x first and Kd error < 0.7 x the start's
+     (tests/test_utils.py:66-71); ms per step;
+ 10. per-kernel timing at the main path's launch shape beside its bound and
+     its plain version.
 
 The line before the last is a JSON object of the kernels; the last line is
 {"ok": true, "device": {...}}.  Needs CUDA; exits nonzero without it.
@@ -48,11 +67,31 @@ EDGE_PLANE_OPS = 5 + 6 + 2
 CHECK = dict(width=64, height=64, spp=4, max_bounces=8)
 MAIN = dict(width=512, height=512, spp=64, max_bounces=16)
 GOLDEN = dict(width=500, height=500, spp=100, max_bounces=16)
+FD = dict(width=64, height=64, spp=16, max_bounces=8, tile_size=1 << 14)
+RECOVER = dict(width=64, height=64, spp=8, max_bounces=8)
+# Kernel name -> (source, the TPU kernel it replaces).
+KERNELS = {
+    "render_fwd": ("render_fwd.cu", "inverse_path_tracer_tpu/ops/pallas/render_kernel.py:1440"),
+    "render_fwd_rec": ("render_fwd.cu",
+                       "inverse_path_tracer_tpu/ops/pallas/render_kernel.py:1571"),
+    "render_bwd_grad": ("render_bwd.cu",
+                        "inverse_path_tracer_tpu/ops/pallas/render_kernel.py:1505"),
+    "render_bwd_reverse": ("render_bwd.cu",
+                           "inverse_path_tracer_tpu/ops/pallas/render_kernel.py:1640"),
+}
+# f32 operations of the suffix recursion per reached bounce (render_bwd.cu
+# reverse_path): ct = pm*suf*(coeff/pi) + g*pm*nee (3+3+1+3+3+3), suf =
+# g*c + f*suf (9), and the 3 adds of the warp sum into d materials.
+RECURSION_OPS = 28
 GOLDEN_PNG = os.path.join(REPO, "artifacts", "bench_golden_0.png")
 
 
 def log(*a):
     print(*a, flush=True)
+
+
+def shape(cfg) -> str:
+    return f"{cfg.width}x{cfg.height}/{cfg.spp}spp/{cfg.max_bounces}b"
 
 
 def card_line() -> str:
@@ -137,12 +176,40 @@ def tile_inputs(scene, cfg, key, n, device, external):
     return args
 
 
+def grad_close(got, want) -> bool:
+    import torch
+
+    return bool(torch.allclose(got, want, rtol=1e-4, atol=1e-6 * float(want.abs().max())))
+
+
+def vn_grad_close(got, want) -> bool:
+    """The JAX tests' bound for a vertex-normal scene's gradient
+    (tests/test_pallas.py:263-270): at most 6 triangle rows differ, the
+    totals agree to 1e-3 and the L1 difference is under 1e-2 of the L1 mass."""
+    import torch
+
+    rows_off = int((~torch.isclose(got, want, rtol=2e-4, atol=1e-7).all(dim=1)).sum())
+    totals = torch.allclose(got.sum(0), want.sum(0), rtol=1e-3)
+    bulk = float((got - want).abs().sum()) <= 1e-2 * float(want.abs().sum()) + 1e-6
+    return rows_off <= 6 and totals and bulk
+
+
 def check_kernel_vs_plain(device):
-    """Phase 3: render_tile (kernel) against render_tile_plain on the card."""
+    """Phase 3: every kernel against its plain version on the card.  Returns
+    the largest |kernel - plain| of each kernel over the flat cases."""
     import torch
 
     from inverse_path_tracer_torch import RenderConfig
-    from inverse_path_tracer_torch.ops.kernels.render_kernel import render_tile, render_tile_plain
+    from inverse_path_tracer_torch.ops.kernels.render_kernel import (
+        grad_tile,
+        grad_tile_plain,
+        render_tile,
+        render_tile_plain,
+        render_tile_rec,
+        render_tile_rec_plain,
+        reverse_tile,
+        reverse_tile_plain,
+    )
 
     cfg0 = RenderConfig(**CHECK)
     scene0, mats0 = fixture(device)
@@ -152,31 +219,54 @@ def check_kernel_vs_plain(device):
         ("fused", scene0, mats0, cfg0, False),
     ]
     cases += [(name, s, m, cfg0, False) for name, s, m in variant_scenes(device)]
-    worst = 0.0
+    worst = dict.fromkeys(KERNELS, 0.0)
     for name, scene, mats, cfg, external in cases:
         a = tile_inputs(scene, cfg, 11, cfg.n_samples, device, external)
+        g = torch.rand((3, cfg.n_samples), generator=torch.Generator().manual_seed(3)).to(device)
         rk, sk = render_tile(mats, scene, cfg, **a)
         rp, sp = render_tile_plain(mats, scene, cfg, **a)
+        rr, sr, rec = render_tile_rec(mats, scene, cfg, **a)
+        _, _, rec_p = render_tile_rec_plain(mats, scene, cfg, **a)
+        dk = grad_tile(mats, scene, cfg, g=g, **a)
+        dp = grad_tile_plain(mats, scene, cfg, g=g, **a)
+        d4 = reverse_tile(scene.n_tri, cfg, rec, g)
+        d4p = reverse_tile_plain(scene.n_tri, cfg, rec, g)
         torch.cuda.synchronize()
-        if not (torch.isfinite(rk).all() and torch.isfinite(rp).all()):
-            raise AssertionError(f"{name}: non-finite radiance")
-        err = float((rk - rp).abs().max())
+        if not all(bool(torch.isfinite(t).all()) for t in (rk, rp, rec, dk, dp, d4, d4p)):
+            raise AssertionError(f"{name}: non-finite output")
+        errs = {"render_fwd": float((rk - rp).abs().max()),
+                "render_fwd_rec": float((rec - rec_p).abs().max()),
+                "render_bwd_grad": float((dk - dp).abs().max()),
+                "render_bwd_reverse": float((d4 - d4p).abs().max())}
         seg_k, seg_p = float(sk[0].sum()), float(sp[0].sum())
+        # B3 runs B1's arithmetic; B4 runs B2's recursion on the same records.
+        same = torch.equal(rr, rk) and torch.equal(sr, sk)
+        b4_is_b2 = bool(torch.allclose(d4, dk, rtol=1e-5, atol=0))
+        b4_ok = grad_close(d4, d4p) and b4_is_b2
         if name == "vertex_normals":
             # Knife-edge bound (tests/test_pallas.py:219-223): grazing hits on
             # curved geometry may resolve differently within an ulp.
             close = torch.isclose(rk, rp, rtol=1e-4, atol=1e-5).all(dim=0).float().mean()
+            rec_close = torch.isclose(rec, rec_p, rtol=1e-4, atol=1e-5).all(dim=0).float().mean()
             mean_d = float((rk - rp).abs().mean())
-            ok = close >= 0.97 and mean_d < 0.02 and abs(seg_k - seg_p) <= 1e-3 * seg_p + 8
-            detail = f"close lanes {float(close):.5f}, mean |d| {mean_d:.3e}"
+            ok = (close >= 0.97 and rec_close >= 0.97 and mean_d < 0.02
+                  and abs(seg_k - seg_p) <= 1e-3 * seg_p + 8 and vn_grad_close(dk, dp))
+            detail = (f"close lanes {float(close):.5f}, record lanes {float(rec_close):.5f}, "
+                      f"mean |d| {mean_d:.3e}")
         else:
-            ok = torch.allclose(rk, rp, rtol=1e-4, atol=1e-5) and torch.equal(sk, sp)
+            ok = (torch.allclose(rk, rp, rtol=1e-4, atol=1e-5) and torch.equal(sk, sp)
+                  and torch.allclose(rec, rec_p, rtol=1e-4, atol=1e-5) and grad_close(dk, dp))
             detail = f"counts equal {torch.equal(sk, sp)}"
-            worst = max(worst, err)
-        log(f"check {name}: max |kernel - plain| {err:.3e}, segments {seg_k:.0f} vs "
-            f"{seg_p:.0f}, {detail} -> {'OK' if ok else 'FAIL'}")
+            for k, e in errs.items():
+                worst[k] = max(worst[k], e)
+        ok = ok and same and b4_ok
+        log(f"check {name}: max |kernel - plain| B1 {errs['render_fwd']:.3e}, B3 records "
+            f"{errs['render_fwd_rec']:.3e}, B2 {errs['render_bwd_grad']:.3e}, B4 "
+            f"{errs['render_bwd_reverse']:.3e}; segments {seg_k:.0f} vs {seg_p:.0f}, {detail}, "
+            f"B3 = B1 {same}, B4 = B2 within 1e-5 {b4_is_b2} (bit-equal {torch.equal(d4, dk)})"
+            f" -> {'OK' if ok else 'FAIL'}")
         if not ok:
-            raise AssertionError(f"kernel disagrees with its plain version on {name}")
+            raise AssertionError(f"a kernel disagrees with its plain version on {name}")
     return worst
 
 
@@ -186,6 +276,7 @@ def main_path(device):
 
     from inverse_path_tracer_torch import RenderConfig, render_samples
     from inverse_path_tracer_torch.ops.kernels.render_kernel import render_tile
+    from inverse_path_tracer_torch.render.forward import camera_rays
 
     cfg = RenderConfig(**MAIN)
     scene, mats = fixture(device)
@@ -200,7 +291,7 @@ def main_path(device):
     mean = float(vals.mean())
     if not 0.05 < mean < 50.0:
         raise AssertionError(f"implausible mean radiance {mean}")
-    log(f"main path 512x512/64spp/16b: {launches} launches of render_fwd, "
+    log(f"main path {shape(cfg)}: {launches} launches of render_fwd, "
         f"segments {int(stats.segments)}, shadow rays {int(stats.shadow_rays)}, "
         f"mean radiance {mean:.5f}")
     render_samples(mats, scene, 1, cfg, device=device)  # warm-up
@@ -210,18 +301,6 @@ def main_path(device):
         st = out[0][1]
         rays = int(st.segments) + int(st.shadow_rays)
         log(f"main path run {k}: {t:.3f} ms, rays {rays}, {rays / (t / 1e3):.6e} rays/s")
-    breakdown(mats, scene, cfg, device)
-    return launches
-
-
-def breakdown(mats, scene, cfg, device):
-    """Where the main path's time goes: the camera rays alone (CUDA events),
-    and device time by kernel from torch.profiler over one render."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    from inverse_path_tracer_torch import render_samples
-    from inverse_path_tracer_torch.render.forward import camera_rays
 
     def rays_only():
         for lo in range(0, cfg.n_samples, cfg.tile_size):
@@ -229,9 +308,18 @@ def breakdown(mats, scene, cfg, device):
             camera_rays(scene, cfg, 7, idx)
 
     log(f"camera rays alone: {cuda_ms(rays_only, 3):.3f} ms per render")
+    profile_once("one render", lambda: render_samples(mats, scene, 7, cfg, device=device))
+    return launches
+
+
+def profile_once(what, fn):
+    """Device time by kernel from torch.profiler over one call of fn."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        render_samples(mats, scene, 7, cfg, device=device)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = {
@@ -243,10 +331,163 @@ def breakdown(mats, scene, cfg, device):
     if busy <= 0:
         log("profile: the profiler recorded no device time (device busy share not measured)")
         return
-    log(f"profile (one render, profiler on): wall {wall_ms:.3f} ms, device busy "
+    log(f"profile ({what}, profiler on): wall {wall_ms:.3f} ms, device busy "
         f"{busy:.3f} ms ({100 * busy / wall_ms:.1f}%)")
     for name, (ms, count) in sorted(kernels.items(), key=lambda kv: -kv[1][0])[:8]:
         log(f"  {ms:10.3f} ms  x{count:<5d} {name[:100]}")
+
+
+def fwd_bwd_path(device):
+    """Phase 6: loss.backward() through render_samples at the bench
+    configuration (bench.py:147-171).  Returns the launch counts of B1 and
+    B2 and the gradient at key 0."""
+    import torch
+
+    from inverse_path_tracer_torch import RenderConfig, render_samples
+    from inverse_path_tracer_torch.ops.kernels.render_kernel import grad_tile, render_tile
+    from inverse_path_tracer_torch.ops.tonemap import tonemap_mean
+
+    cfg = RenderConfig(**MAIN)
+    scene, mats = fixture(device)
+
+    def fwd_bwd(key):
+        m = mats.clone().requires_grad_()
+        vals, stats = render_samples(m, scene, key, cfg, device=device)
+        tonemap_mean(vals, cfg.spp).mean().backward()
+        return m.grad, stats
+
+    render_tile.launches = grad_tile.launches = 0
+    grad, stats = fwd_bwd(0)
+    torch.cuda.synchronize()
+    launches = {"render_fwd": render_tile.launches, "render_bwd_grad": grad_tile.launches}
+    if min(launches.values()) == 0:
+        raise AssertionError(f"the fwd+bwd path did not launch every kernel: {launches}")
+    if not bool(torch.isfinite(grad).all()) or float(grad.abs().sum()) == 0.0:
+        raise AssertionError("the gradient is not finite and nonzero")
+    log(f"fwd+bwd {shape(cfg)}: {launches['render_fwd']} launches of render_fwd, "
+        f"{launches['render_bwd_grad']} of render_bwd grad_tile; |grad|_1 "
+        f"{float(grad.abs().sum()):.6e}, {int((grad != 0).any(dim=1).sum())} of {scene.n_tri} "
+        f"triangles nonzero")
+    fwd_bwd(1)  # warm-up
+    for k in range(3):
+        out = []
+        t = cuda_ms(lambda: out.append(fwd_bwd(k + 2)), 1)
+        st = out[0][1]
+        rays = int(st.segments) + int(st.shadow_rays)
+        log(f"fwd+bwd run {k}: {t:.3f} ms, forward rays {rays}, {rays / (t / 1e3):.6e} rays/s")
+    profile_once("one fwd+bwd", lambda: fwd_bwd(7))
+    return launches, grad
+
+
+def loss_and_grad_path(device, grad_ref):
+    """Phase 7: loss_and_grad_range (B3 then B4 per launch) on the fwd+bwd
+    configuration, with a per-launch loss whose sum is tonemap_mean(vals,
+    spp).mean(); its gradient must equal autograd's."""
+    import torch
+
+    from inverse_path_tracer_torch import RenderConfig, loss_and_grad_range
+    from inverse_path_tracer_torch.ops.kernels.render_kernel import render_tile_rec, reverse_tile
+    from inverse_path_tracer_torch.ops.tonemap import tonemap_mean
+
+    cfg = RenderConfig(**MAIN)
+    scene, mats = fixture(device)
+    n_values = cfg.width * cfg.height * 3
+
+    def tile_post(vals, start):
+        return tonemap_mean(vals, cfg.spp).sum() / n_values
+
+    def run(key):
+        return loss_and_grad_range(mats, scene, key, cfg, 0, cfg.n_samples, tile_post,
+                                   device=device)
+
+    render_tile_rec.launches = reverse_tile.launches = 0
+    loss, grad, stats = run(0)
+    torch.cuda.synchronize()
+    launches = {"render_fwd_rec": render_tile_rec.launches,
+                "render_bwd_reverse": reverse_tile.launches}
+    if min(launches.values()) == 0:
+        raise AssertionError(f"loss_and_grad_range did not launch every kernel: {launches}")
+    err = float(((grad - grad_ref).abs() / grad_ref.abs().clamp_min(1e-30)).max())
+    ok = bool(torch.allclose(grad, grad_ref, rtol=1e-5, atol=0))
+    log(f"loss_and_grad_range: {launches['render_fwd_rec']} launches of render_fwd_rec, "
+        f"{launches['render_bwd_reverse']} of render_bwd reverse_tile; loss {float(loss):.7f}; "
+        f"max rel |grad - autograd's| {err:.3e} (bit-equal {torch.equal(grad, grad_ref)}) "
+        f"-> {'OK' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("loss_and_grad_range's gradient differs from autograd's")
+    run(1)  # warm-up
+    for k in range(3):
+        out = []
+        t = cuda_ms(lambda: out.append(run(k + 2)), 1)
+        st = out[0][2]
+        rays = int(st.segments) + int(st.shadow_rays)
+        log(f"loss_and_grad_range run {k}: {t:.3f} ms, {rays / (t / 1e3):.6e} rays/s")
+    profile_once("one loss_and_grad_range", lambda: run(7))
+    return launches
+
+
+def fd_gate(device):
+    """Phase 8: central finite differences along the gradient
+    (bench.py:196-236): ratio = <g, v> / FD_v in (0.98, 1.02)."""
+    import torch
+
+    from inverse_path_tracer_torch import RenderConfig, render_samples
+    from inverse_path_tracer_torch.ops.tonemap import tonemap_mean
+
+    cfg = RenderConfig(**FD)
+    scene, mats = fixture(device)
+
+    def loss(m):
+        vals, _ = render_samples(m, scene, 7, cfg, device=device)
+        return tonemap_mean(vals, cfg.spp).mean()
+
+    m = mats.clone().requires_grad_()
+    loss(m).backward()
+    g = m.grad
+    eps = 2e-2
+
+    def ratio(v):
+        v = v / torch.linalg.norm(v)
+        with torch.no_grad():
+            fd = (float(loss(mats + eps * v)) - float(loss(mats - eps * v))) / (2 * eps)
+        an = float((g * v).sum())
+        return (an / fd if fd != 0 else float("inf")), an, fd
+
+    r, an, fd = ratio(g)
+    v_rand = torch.randn(mats.shape, generator=torch.Generator().manual_seed(12)).to(device)
+    r_rand, _, _ = ratio(v_rand)
+    ok = 0.98 < r < 1.02
+    log(f"grad FD gate {shape(cfg)} fused: along g analytic {an:.6e} fd {fd:.6e} ratio "
+        f"{r:.5f}; random direction ratio {r_rand:.5f} -> {'OK' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"grad FD ratio {r:.5f} outside (0.98, 1.02)")
+    return r, r_rand
+
+
+def recovery(device):
+    """Phase 9: recover_materials on scene 0 against a render at the true Kd
+    (tests/test_utils.py:52-71 at 64x64/8 spp/8 bounces)."""
+    import torch
+
+    from inverse_path_tracer_torch import RenderConfig, recover_materials, render_image
+
+    cfg = RenderConfig(**RECOVER)
+    scene, mats = fixture(device)
+    target = render_image(mats, scene, 100, cfg, device=device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rec, losses = recover_materials(scene, target, cfg, steps=30, lr=0.1, key=1, device=device)
+    torch.cuda.synchronize()
+    ms_step = (time.perf_counter() - t0) * 1e3 / 30
+    err0 = float((0.5 - mats).abs().mean())
+    err = float((rec - mats).abs().mean())
+    ok = losses[-1] < 0.75 * losses[0] and err < 0.7 * err0
+    log(f"recovery {shape(cfg)}, 30 steps lr 0.1: loss {losses[0]:.5f} -> {losses[-1]:.5f} "
+        f"({losses[-1] / losses[0]:.3f}x), Kd error {err0:.5f} -> {err:.5f} "
+        f"({err / err0:.3f}x), {ms_step:.2f} ms per step -> {'OK' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("recovery missed its criteria")
+    return ms_step
 
 
 def golden(device):
@@ -276,61 +517,130 @@ def golden(device):
     return mean, p99
 
 
-def kernel_timing(device, launches):
-    """Phase 6: render_fwd at the main path's launch shape (the first
-    cfg.tile_size samples of the bench render) beside its plain version and
-    its bound."""
+def bound(t_ops, t_bytes):
+    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def kernel_timing(device, launches, check_err):
+    """Phase 10: every kernel at the main path's launch shape (the first
+    cfg.tile_size samples of the bench render, fused RNG) against its plain
+    version, its time beside the plain version's and its bound.  `launches`
+    and `check_err` come from the earlier phases."""
     import torch
 
     from inverse_path_tracer_torch import RenderConfig
-    from inverse_path_tracer_torch.ops.kernels.render_kernel import render_tile, render_tile_plain
+    from inverse_path_tracer_torch.ops.kernels.render_kernel import (
+        grad_tile,
+        grad_tile_plain,
+        render_tile,
+        render_tile_plain,
+        render_tile_rec,
+        render_tile_rec_plain,
+        reverse_tile,
+        reverse_tile_plain,
+    )
 
     cfg = RenderConfig(**MAIN)
     scene, mats = fixture(device)
     n = min(cfg.tile_size, cfg.n_samples)
     a = tile_inputs(scene, cfg, 0, n, device, external=False)
+    g = torch.rand((3, n), generator=torch.Generator().manual_seed(5)).to(device)
+    nt = scene.n_tri
     rk, sk = render_tile(mats, scene, cfg, **a)
     rp, sp = render_tile_plain(mats, scene, cfg, **a)
+    rr, sr, rec = render_tile_rec(mats, scene, cfg, **a)
+    _, _, rec_p = render_tile_rec_plain(mats, scene, cfg, **a)
+    dk = grad_tile(mats, scene, cfg, g=g, **a)
+    dp = grad_tile_plain(mats, scene, cfg, g=g, **a)
+    d4 = reverse_tile(nt, cfg, rec, g)
+    d4p = reverse_tile_plain(nt, cfg, rec, g)
     torch.cuda.synchronize()
-    err = float((rk - rp).abs().max())
-    if not (torch.allclose(rk, rp, rtol=1e-4, atol=1e-5) and torch.equal(sk, sp)):
-        raise AssertionError(f"render_fwd disagrees with its plain version at full shape ({err})")
-    ms = cuda_ms(lambda: render_tile(mats, scene, cfg, **a), 20)
-    plain_ms = cuda_ms(lambda: render_tile_plain(mats, scene, cfg, **a), 2)
-    # Bound: the closest-hit sweeps this launch's rays needed, over the f32
-    # peak.  A live primary ray is swept once before the loop; every segment
-    # that hits sweeps twice (shadow ray and next ray, both before roulette),
-    # and on a scene with emitters the hit segments are the shadow-ray count;
-    # escaping segments sweep nothing.  Each (ray, triangle) pair needs the
-    # face-plane test; the edge-plane tests run only for candidates, which
-    # the run does not count, so they are left out and the bound is a floor.
-    # The full four-plane test on every pair is printed beside it.  Bytes: p,
-    # d, alive, orig in; radiance, stats out.
+    err = {"render_fwd": float((rk - rp).abs().max()),
+           "render_fwd_rec": float((rec - rec_p).abs().max()),
+           "render_bwd_grad": float((dk - dp).abs().max()),
+           "render_bwd_reverse": float((d4 - d4p).abs().max())}
+    ok = (torch.allclose(rk, rp, rtol=1e-4, atol=1e-5) and torch.equal(sk, sp)
+          and torch.equal(rr, rk) and torch.equal(sr, sk)
+          and torch.allclose(rec, rec_p, rtol=1e-4, atol=1e-5)
+          and grad_close(dk, dp) and grad_close(d4, d4p))
+    log(f"full shape (3, {n}): max |kernel - plain| " +
+        ", ".join(f"{k} {e:.3e}" for k, e in err.items()) + f" -> {'OK' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("a kernel disagrees with its plain version at full shape")
+    del rec_p
+    timed = {
+        "render_fwd": (lambda: render_tile(mats, scene, cfg, **a),
+                       lambda: render_tile_plain(mats, scene, cfg, **a)),
+        "render_fwd_rec": (lambda: render_tile_rec(mats, scene, cfg, **a),
+                           lambda: render_tile_rec_plain(mats, scene, cfg, **a)),
+        "render_bwd_grad": (lambda: grad_tile(mats, scene, cfg, g=g, **a),
+                            lambda: grad_tile_plain(mats, scene, cfg, g=g, **a)),
+        "render_bwd_reverse": (lambda: reverse_tile(nt, cfg, rec, g),
+                               lambda: reverse_tile_plain(nt, cfg, rec, g)),
+    }
+    ms = {k: cuda_ms(fn, 10) for k, (fn, _) in timed.items()}
+    plain_ms = {k: cuda_ms(fn, 2) for k, (_, fn) in timed.items()}
+
+    # Bounds, from this launch's rays.  Operations: the closest-hit sweeps the
+    # rays needed, over the f32 peak.  A live primary ray is swept once before
+    # the loop; every segment that hits sweeps twice (shadow ray and next ray,
+    # both before roulette), and on a scene with emitters the hit segments
+    # are the shadow-ray count; escaping segments sweep nothing.  Each (ray,
+    # triangle) pair needs the face-plane test; the edge-plane tests run only
+    # for candidates, which the run does not count, so they are left out and
+    # the bound is a floor (the full four-plane test on every pair is printed
+    # beside it).  The recursion adds RECURSION_OPS per reached bounce
+    # (segment).  Bytes: each input read once, each output written once: p,
+    # d, alive, orig in and radiance, stats out (B1); plus the whole record
+    # array out (B3); p, d, alive, orig, g in (B2); for B4 the records of the
+    # reached bounces, one flag pair (hit, esc) where a ray stopped before
+    # max_bounces, and g.  d materials out is nT*3 floats.
     if scene.n_emissive == 0:
         raise AssertionError("the bound counts hit segments by shadow rays")
-    primaries, shadows = float(a["alive"].sum()), float(sk[1].sum())
-    pairs = (primaries + 2 * shadows) * scene.n_tri
-    t_ops = pairs * FACE_PLANE_OPS / PEAK_F32_OPS * 1e3
-    t_full = pairs * (FACE_PLANE_OPS + 3 * EDGE_PLANE_OPS) / PEAK_F32_OPS * 1e3
-    t_bytes = n * (3 + 3 + 1 + 1 + 3 + 2) * 4 / PEAK_BYTES * 1e3
-    log(f"render_fwd at (3, {n}): {ms:.4f} ms (plain {plain_ms:.3f} ms), "
-        f"{float(sk[0].sum()):.0f} segments, {shadows:.0f} shadow rays, {pairs:.0f} "
-        f"(ray, triangle) pairs, bound {max(t_ops, t_bytes):.4f} ms "
-        f"({'operations' if t_ops >= t_bytes else 'bytes'}: ops {t_ops:.4f}, bytes {t_bytes:.4f}; "
-        f"full four-plane test on every pair {t_full:.4f})")
-    return {
-        "name": "render_fwd",
-        "route": "cuda",
-        "source": "inverse_path_tracer_torch/ops/kernels/render_fwd.cu",
-        "replaces": "inverse_path_tracer_tpu/ops/pallas/render_kernel.py:1440",
-        "launches": launches,
-        "max_abs_err": err,
-        "ms": ms,
-        "plain_ms": plain_ms,
-        "bound_ms": max(t_ops, t_bytes),
-        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-        "library_ms": None,
+    primaries, segments, shadows = (float(a["alive"].sum()), float(sk[0].sum()),
+                                    float(sk[1].sum()))
+    stopped_early = float((sk[0] < cfg.max_bounces).sum())
+    pairs = (primaries + 2 * shadows) * nt
+    f_ops = lambda ops: ops / PEAK_F32_OPS * 1e3
+    f_bytes = lambda nbytes: nbytes / PEAK_BYTES * 1e3
+    t_sweep = f_ops(pairs * FACE_PLANE_OPS)
+    t_full = f_ops(pairs * (FACE_PLANE_OPS + 3 * EDGE_PLANE_OPS))
+    t_rec = f_ops(segments * RECURSION_OPS)
+    rec_bytes = rec.numel() * 4
+    out_bytes = nt * 3 * 4
+    bounds = {
+        "render_fwd": bound(t_sweep, f_bytes(n * (3 + 3 + 1 + 1 + 3 + 2) * 4)),
+        "render_fwd_rec": bound(t_sweep, f_bytes(n * (3 + 3 + 1 + 1 + 3 + 2) * 4 + rec_bytes)),
+        "render_bwd_grad": bound(t_sweep + t_rec, f_bytes(n * (3 + 3 + 1 + 1 + 3) * 4 + out_bytes)),
+        "render_bwd_reverse": bound(t_rec, f_bytes(segments * 16 * 4 + stopped_early * 2 * 4
+                                                   + n * 3 * 4 + out_bytes)),
     }
+    log(f"launch (3, {n}): {segments:.0f} segments, {shadows:.0f} shadow rays, {pairs:.0f} "
+        f"(ray, triangle) pairs, {stopped_early:.0f} rays stopped before {cfg.max_bounces} "
+        f"bounces; sweep floor {t_sweep:.4f} ms (full four-plane test on every pair "
+        f"{t_full:.4f} ms), recursion {t_rec:.4f} ms, record array {rec_bytes} bytes "
+        f"({f_bytes(rec_bytes):.4f} ms to move once)")
+    kernels = []
+    for k, (src, replaces) in KERNELS.items():
+        b_ms, b_by = bounds[k]
+        log(f"{k} at (3, {n}): {ms[k]:.4f} ms (plain {plain_ms[k]:.3f} ms), bound {b_ms:.4f} ms "
+            f"({b_by}), {100 * b_ms / ms[k]:.1f}% of bound, {launches[k]} launches on its path")
+        kernels.append({
+            "name": k,
+            "route": "cuda",
+            "source": f"inverse_path_tracer_torch/ops/kernels/{src}",
+            "replaces": replaces,
+            "launches": launches[k],
+            "max_abs_err": max(err[k], check_err[k]),
+            "ms": ms[k],
+            "plain_ms": plain_ms[k],
+            "bound_ms": b_ms,
+            "bound_by": b_by,
+            # No single PyTorch call computes a bounce loop or its suffix
+            # recursion.
+            "library_ms": None,
+        })
+    return kernels
 
 
 def main() -> int:
@@ -360,14 +670,19 @@ def main() -> int:
                 log(f"  ptxas {name}: {line.strip()}")
 
     check_err = check_kernel_vs_plain(device)
-    launches = main_path(device)
+    launches = {"render_fwd": main_path(device)}
     golden(device)
-    k = kernel_timing(device, launches)
-    k["max_abs_err"] = max(k["max_abs_err"], check_err)
-    if not all(math.isfinite(float(v)) for v in (k["ms"], k["plain_ms"], k["bound_ms"])):
-        raise AssertionError(f"non-finite timing {k}")
+    fb_launches, grad = fwd_bwd_path(device)
+    launches["render_bwd_grad"] = fb_launches["render_bwd_grad"]
+    launches.update(loss_and_grad_path(device, grad))
+    fd_gate(device)
+    recovery(device)
+    kernels = kernel_timing(device, launches, check_err)
+    for k in kernels:
+        if not all(math.isfinite(float(k[f])) for f in ("ms", "plain_ms", "bound_ms")):
+            raise AssertionError(f"non-finite timing {k}")
 
-    print(json.dumps({"kernels": [k]}), flush=True)
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -1,8 +1,10 @@
 """PyTorch + CUDA port of inverse_path_tracer_tpu, for NVIDIA Hopper.
 
-This slice holds the forward render: scene loading, the plain PyTorch ops,
-the hand-written CUDA megakernel of the bounce loop (ops/kernels) and the
-render entry points.  float32 throughout: TF32 is switched off for matmuls
+It holds the forward render and its material gradient: scene loading, the
+plain PyTorch ops, the hand-written CUDA kernels of the bounce loop and of
+its backward (ops/kernels), the render entry points (render_range is
+differentiable in the materials; loss_and_grad_range is the training path)
+and single-device material recovery (models/recover.py).  float32 throughout: TF32 is switched off for matmuls
 and convolutions when the package is imported.
 """
 
@@ -13,9 +15,12 @@ torch.backends.cudnn.allow_tf32 = False
 
 from inverse_path_tracer_torch.config import CameraConfig, RenderConfig  # noqa: E402
 from inverse_path_tracer_torch.convert import materials_from_numpy, scene_from_numpy  # noqa: E402
+from inverse_path_tracer_torch.models.recover import recover_materials  # noqa: E402
 from inverse_path_tracer_torch.render.forward import (  # noqa: E402
     RenderStats,
     camera_rays,
+    grad_range,
+    loss_and_grad_range,
     render_image,
     render_range,
     render_samples,
@@ -38,8 +43,11 @@ __all__ = [
     "SceneData",
     "build_scene",
     "camera_rays",
+    "grad_range",
     "load_scene",
+    "loss_and_grad_range",
     "materials_from_numpy",
+    "recover_materials",
     "render_image",
     "render_range",
     "render_samples",

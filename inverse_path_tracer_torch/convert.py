@@ -1,15 +1,18 @@
-"""Carry a scene and its materials across from numpy arrays.
+"""Carry a scene, its materials and an optimizer state across from numpy
+arrays.
 
 `scene_from_numpy` takes the leaves of the JAX package's SceneData as numpy
 arrays (for example ``{k: np.asarray(v) for k, v in scene._asdict().items()}``)
 and returns the port's SceneData, so that both packages render bit-identical
 scenes.  Fields the port does not have (the optional BVH) are ignored.
+`adam_state_from_numpy` turns optax.adam's (mu, nu, count) into a
+torch.optim.Adam state entry, so both packages can start from one state.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Mapping
+from typing import Dict, Mapping
 
 import numpy as np
 import torch
@@ -34,3 +37,14 @@ def materials_from_numpy(materials: np.ndarray, device="cpu") -> torch.Tensor:
     if m.ndim != 2 or m.shape[1] != 3:
         raise ValueError(f"materials must be (nT, 3), got {m.shape}")
     return torch.from_numpy(m).to(device)
+
+
+def adam_state_from_numpy(mu: np.ndarray, nu: np.ndarray, count: int,
+                          device="cpu") -> Dict[str, torch.Tensor]:
+    """optax.adam's first and second moments and step count -> the state
+    entry torch.optim.Adam keeps for one parameter (``opt.state[param] =
+    ...``).  Both optimizers then take the same next step: update = -lr *
+    mu_hat / (sqrt(nu_hat) + eps) with the bias corrections of step count+1."""
+    as_t = lambda a: torch.from_numpy(np.array(a, dtype=np.float32)).to(device)
+    return {"step": torch.tensor(float(count), dtype=torch.float32),
+            "exp_avg": as_t(mu), "exp_avg_sq": as_t(nu)}

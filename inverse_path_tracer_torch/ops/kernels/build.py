@@ -2,9 +2,10 @@
 
 Each source is compiled on first use into a shared library with a plain C
 interface, under ``build/kernels/`` at the repository root (listed in
-.gitignore).  The library's file name carries a hash of the source and the
-flags, so an edited source is rebuilt and an unchanged one is reused.  All
-sources that are missing are compiled at once, one nvcc process each.
+.gitignore).  The library's file name carries a hash of the source, of
+every header (``*.cuh``) of this directory and of the flags, so an edited
+source or header is rebuilt and an unchanged one is reused.  All sources
+that are missing are compiled at once, one nvcc process each.
 """
 
 from __future__ import annotations
@@ -29,7 +30,7 @@ NVCC_FLAGS = (
     "-Xptxas", "-v",
 )
 
-SOURCES = {"render_fwd": "render_fwd.cu"}
+SOURCES = {"render_fwd": "render_fwd.cu", "render_bwd": "render_bwd.cu"}
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 build_log: Dict[str, str] = {}  # kernel name -> nvcc output of this process's build
@@ -45,10 +46,12 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> str:
-    with open(os.path.join(HERE, SOURCES[name]), "rb") as f:
-        src = f.read()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return os.path.join(BUILD_DIR, f"lib{name}_{digest}.so")
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(HERE) if f.endswith(".cuh"))
+    for fname in [SOURCES[name], *headers]:
+        with open(os.path.join(HERE, fname), "rb") as f:
+            h.update(fname.encode() + b"\0" + f.read())
+    return os.path.join(BUILD_DIR, f"lib{name}_{h.hexdigest()[:16]}.so")
 
 
 def build(names: Iterable[str] = tuple(SOURCES)) -> Dict[str, float]:

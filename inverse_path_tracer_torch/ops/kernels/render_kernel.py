@@ -1,8 +1,15 @@
-"""Forward megakernel wrapper (render_tile) and its plain PyTorch version
-(render_tile_plain).
+"""Wrappers of the render kernels and their plain PyTorch versions.
 
-Both take the same arguments and return the same outputs as the JAX
-package's render_tile_pallas (ops/pallas/render_kernel.py:1440):
+    render_tile / render_tile_plain          B1, the forward megakernel
+    render_tile_rec / render_tile_rec_plain  B3, B1 that also writes records
+    grad_tile / grad_tile_plain              B2, the fused backward (replay +
+                                             suffix recursion)
+    reverse_tile / reverse_tile_plain        B4, the suffix recursion on B3's
+                                             records
+
+They take the arguments and return the outputs of the JAX package's
+render_tile_pallas, render_tile_pallas_rec, grad_tile_pallas and
+reverse_tile_pallas (ops/pallas/render_kernel.py:1440, :1571, :1505, :1640):
 
     p, d      (3, n) float32 ray origins / directions
     alive     (1, n) float32 0/1 initial alive mask
@@ -10,12 +17,15 @@ package's render_tile_pallas (ops/pallas/render_kernel.py:1440):
     uniforms  (max_bounces*8, n) float32: rows b*8 + [pick, r1, r2, rr, phi,
               theta, -, -] of bounce b (external RNG), or None
     keys      (k0, k1) uint32 key words (fused RNG), or None
-    -> radiance (3, n) float32, stats (2, n) float32 per-lane segment and
-       shadow-ray counts.
+    g         (3, n) float32 radiance cotangent
+    rec       (max_bounces*16, n) float32 records (render/diff.py REC_ROWS)
+    -> radiance (3, n), stats (2, n) per-lane segment and shadow-ray counts,
+       records, or the material cotangent (nT, 3).
 
-render_tile launches the CUDA kernel (render_fwd.cu) for CUDA tensors and
-runs render_tile_plain for CPU tensors; it never falls back from one to the
-other on a CUDA tensor.  render_tile.launches counts kernel launches.
+Each wrapper launches its CUDA kernel (render_fwd.cu, render_bwd.cu) for
+CUDA tensors and runs its plain version for CPU tensors; it never falls
+back from one to the other on a CUDA tensor.  `<wrapper>.launches` counts
+kernel launches.
 """
 
 from __future__ import annotations
@@ -42,9 +52,20 @@ from inverse_path_tracer_torch.ops.sampling import (
     sample_next_dir,
 )
 from inverse_path_tracer_torch.ops.vec import dot3, normalize3
+from inverse_path_tracer_torch.render.diff import (
+    REC_ROWS,
+    BounceRecords,
+    backward_from_records,
+)
 from inverse_path_tracer_torch.scene.build import SceneData
 
 Keys = Tuple[int, int]
+
+# render_bwd.cu: records of at most 64 bounces per thread, and kWarps (8) *
+# nT * 3 floats of accumulators in at most 227 KB of shared memory.
+GRAD_MAX_BOUNCES = 64
+GRAD_MAX_TRIANGLES = 2048
+_BLOCK = 256  # threads per block of every kernel
 
 
 @dataclasses.dataclass
@@ -83,6 +104,18 @@ def pack_tables(scene: SceneData, materials: torch.Tensor) -> KernelTables:
     )
 
 
+def _check(p, want):
+    """Each named tensor has its (shape, dtype), p's device and a contiguous
+    layout."""
+    for name, (t, shape, dtype) in want.items():
+        if tuple(t.shape) != shape or t.dtype != dtype:
+            raise ValueError(f"{name}: expected {dtype} {shape}, got {t.dtype} {tuple(t.shape)}")
+        if t.device != p.device:
+            raise ValueError(f"{name} is on {t.device}, p on {p.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
 def _check_inputs(cfg, p, d, alive, uniforms, orig, keys):
     n = p.shape[1]
     want = {"p": (p, (3, n), torch.float32), "d": (d, (3, n), torch.float32),
@@ -91,13 +124,30 @@ def _check_inputs(cfg, p, d, alive, uniforms, orig, keys):
         raise ValueError("pass exactly one of uniforms (external RNG) and keys (fused RNG)")
     if uniforms is not None:
         want["uniforms"] = (uniforms, (cfg.max_bounces * 8, n), torch.float32)
-    for name, (t, shape, dtype) in want.items():
-        if tuple(t.shape) != shape or t.dtype != dtype:
-            raise ValueError(f"{name}: expected {dtype} {shape}, got {t.dtype} {tuple(t.shape)}")
-        if t.device != p.device:
-            raise ValueError(f"{name} is on {t.device}, p on {p.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+    _check(p, want)
+
+
+def _check_grad_triangles(n_tri):
+    if n_tri > GRAD_MAX_TRIANGLES:
+        raise ValueError(f"the gradient kernels take at most {GRAD_MAX_TRIANGLES} triangles "
+                         f"(per-warp accumulators in shared memory), got {n_tri}")
+
+
+def _on_card(p, scene, materials=None) -> bool:
+    """True for CUDA tensors, False for CPU tensors; raises otherwise."""
+    if p.device.type == "cpu":
+        return False
+    if p.device.type != "cuda":
+        raise ValueError(f"the render kernels run on CUDA or CPU tensors, got {p.device}")
+    if scene.device != p.device or (materials is not None and materials.device != p.device):
+        raise ValueError(f"scene/materials must be on {p.device}")
+    return True
+
+
+def _default_orig(p, orig):
+    if orig is None:
+        return torch.zeros((1, p.shape[1]), dtype=torch.int32, device=p.device)
+    return orig
 
 
 def render_tile(
@@ -113,73 +163,192 @@ def render_tile(
     *,
     tables: Optional[KernelTables] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Render one range of rays: the CUDA kernel for CUDA tensors, the plain
-    version for CPU tensors.  `tables` is pack_tables(scene, materials),
-    packed here when not given."""
-    if orig is None:
-        orig = torch.zeros((1, p.shape[1]), dtype=torch.int32, device=p.device)
+    """B1: render one range of rays.  `tables` is pack_tables(scene,
+    materials), packed here when not given."""
+    orig = _default_orig(p, orig)
     _check_inputs(cfg, p, d, alive, uniforms, orig, keys)
-    if p.device.type == "cpu":
+    if not _on_card(p, scene, materials):
         return render_tile_plain(materials, scene, cfg, p, d, alive, uniforms, orig, keys)
-    if p.device.type != "cuda":
-        raise ValueError(f"render_tile runs on CUDA or CPU tensors, got {p.device}")
-    if scene.device != p.device or materials.device != p.device:
-        raise ValueError(f"scene/materials must be on {p.device}")
-    if tables is None:
-        tables = pack_tables(scene, materials)
-    return _launch(scene, cfg, tables, p, d, alive, uniforms, orig, keys)
+    rad, stats, _ = _launch_fwd(materials, scene, cfg, tables, p, d, alive, uniforms, orig,
+                                keys, records=False)
+    render_tile.launches += 1
+    return rad, stats
+
+
+def render_tile_rec(
+    materials: torch.Tensor,
+    scene: SceneData,
+    cfg,
+    p: torch.Tensor,
+    d: torch.Tensor,
+    alive: torch.Tensor,
+    uniforms: Optional[torch.Tensor] = None,
+    orig: Optional[torch.Tensor] = None,
+    keys: Optional[Keys] = None,
+    *,
+    tables: Optional[KernelTables] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """B3: render_tile that also returns the records (max_bounces*16, n)."""
+    orig = _default_orig(p, orig)
+    _check_inputs(cfg, p, d, alive, uniforms, orig, keys)
+    if not _on_card(p, scene, materials):
+        return render_tile_rec_plain(materials, scene, cfg, p, d, alive, uniforms, orig, keys)
+    out = _launch_fwd(materials, scene, cfg, tables, p, d, alive, uniforms, orig, keys,
+                      records=True)
+    render_tile_rec.launches += 1
+    return out
+
+
+def grad_tile(
+    materials: torch.Tensor,
+    scene: SceneData,
+    cfg,
+    p: torch.Tensor,
+    d: torch.Tensor,
+    alive: torch.Tensor,
+    g: torch.Tensor,
+    uniforms: Optional[torch.Tensor] = None,
+    orig: Optional[torch.Tensor] = None,
+    keys: Optional[Keys] = None,
+    *,
+    tables: Optional[KernelTables] = None,
+) -> torch.Tensor:
+    """B2: d(sum g * radiance)/d materials (nT, 3) for one range of rays,
+    replaying the forward and running the suffix recursion in one kernel."""
+    orig = _default_orig(p, orig)
+    _check_inputs(cfg, p, d, alive, uniforms, orig, keys)
+    _check(p, {"g": (g, (3, p.shape[1]), torch.float32)})
+    if not _on_card(p, scene, materials):
+        return grad_tile_plain(materials, scene, cfg, p, d, alive, g, uniforms, orig, keys)
+    _check_grad_triangles(scene.n_tri)
+    if cfg.max_bounces > GRAD_MAX_BOUNCES:
+        raise ValueError(f"grad_tile keeps at most {GRAD_MAX_BOUNCES} bounces of records "
+                         f"per thread, got max_bounces={cfg.max_bounces}")
+    lib = _library("render_bwd")
+    params, tabs = _trace_params(materials, scene, cfg, tables, p, d, alive, uniforms, orig, keys)
+    partials = _partials(p.shape[1], scene.n_tri, p.device)
+    with torch.cuda.device(p.device):
+        err = lib.ipt_grad_tile(ctypes.byref(params), g.data_ptr(), partials.data_ptr(),
+                                torch.cuda.current_stream(p.device).cuda_stream)
+    _raise_on(lib, err, "render_bwd grad_tile")
+    grad_tile.launches += 1
+    return partials.sum(dim=0)
+
+
+def reverse_tile(n_tri: int, cfg, rec: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """B4: the material cotangent (nT, 3) from B3's records and g (3, n)."""
+    n = g.shape[1]
+    _check(g, {"rec": (rec, (cfg.max_bounces * REC_ROWS, n), torch.float32),
+               "g": (g, (3, n), torch.float32)})
+    if g.device.type == "cpu":
+        return reverse_tile_plain(n_tri, cfg, rec, g)
+    if g.device.type != "cuda":
+        raise ValueError(f"reverse_tile runs on CUDA or CPU tensors, got {g.device}")
+    _check_grad_triangles(n_tri)
+    lib = _library("render_bwd")
+    partials = _partials(n, n_tri, g.device)
+    with torch.cuda.device(g.device):
+        err = lib.ipt_reverse_tile(rec.data_ptr(), g.data_ptr(), n, n_tri, cfg.max_bounces,
+                                   int(cfg.reference_quirks), INV_PI, partials.data_ptr(),
+                                   torch.cuda.current_stream(g.device).cuda_stream)
+    _raise_on(lib, err, "render_bwd reverse_tile")
+    reverse_tile.launches += 1
+    return partials.sum(dim=0)
 
 
 render_tile.launches = 0
+render_tile_rec.launches = 0
+grad_tile.launches = 0
+reverse_tile.launches = 0
+
+
+class _TraceParams(ctypes.Structure):
+    """render_common.cuh TraceParams, field for field."""
+
+    _fields_ = (
+        [(f, ctypes.c_void_p) for f in ("p", "d", "alive", "orig", "uniforms", "planes",
+                                         "table", "vtab", "etab", "cdf")]
+        + [("k0", ctypes.c_uint32), ("k1", ctypes.c_uint32)]
+        + [(f, ctypes.c_int) for f in ("n", "n_tri", "n_emissive", "etab_stride", "has_vn",
+                                        "no_spec", "quirks", "fused", "max_bounces",
+                                        "use_smem")]
+        + [(f, ctypes.c_float) for f in ("p_rr", "min_dot", "epsilon", "two_pi", "inv_pi",
+                                          "inv_2pi", "cos_scale", "inv_p_rr")]
+    )
 
 
 @functools.lru_cache(maxsize=None)
-def _library():
-    """The render_fwd library (built on first use), with its C signature."""
+def _library(name: str):
+    """The named kernel library (built on first use), with its C signatures."""
     from inverse_path_tracer_torch.ops.kernels.build import load
 
-    lib = load("render_fwd")
-    vp, ci, cf, cu = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint32
-    lib.ipt_render_fwd.argtypes = [
-        vp, vp, vp, vp, vp, cu, cu, ci,  # p d alive orig uniforms k0 k1 fused
-        vp, vp, vp, ci, ci,  # planes table vtab n_tri has_vn
-        vp, ci, vp, ci,  # etab etab_stride cdf n_emissive
-        ci, ci, ci,  # no_spec quirks max_bounces
-        cf, cf, cf, cf, cf, cf, cf, cf,  # p_rr min_dot eps 2pi 1/pi 1/2pi pi/p_rr 1/p_rr
-        vp, vp, ci, vp,  # rad stats n stream
-    ]
-    lib.ipt_render_fwd.restype = ci
+    lib = load(name)
+    vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    params = ctypes.POINTER(_TraceParams)
+    if name == "render_fwd":
+        lib.ipt_render_fwd.argtypes = [params, vp, vp, vp, vp]  # rad stats rec stream
+        lib.ipt_render_fwd.restype = ci
+    else:
+        lib.ipt_grad_tile.argtypes = [params, vp, vp, vp]  # g partials stream
+        lib.ipt_grad_tile.restype = ci
+        # rec g n n_tri max_bounces quirks inv_pi partials stream
+        lib.ipt_reverse_tile.argtypes = [vp, vp, ci, ci, ci, ci, cf, vp, vp]
+        lib.ipt_reverse_tile.restype = ci
     lib.ipt_error_string.argtypes = [ci]
     lib.ipt_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def _launch(scene, cfg, tabs, p, d, alive, uniforms, orig, keys):
-    lib = _library()
-    dev = p.device
-    if tabs.planes.device != dev:
-        raise ValueError(f"tables are on {tabs.planes.device}, rays on {dev}")
-    n = p.shape[1]
-    rad = torch.empty((3, n), dtype=torch.float32, device=dev)
-    stats = torch.empty((2, n), dtype=torch.float32, device=dev)
+def _raise_on(lib, err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what} launch failed: {lib.ipt_error_string(err).decode()}")
+
+
+def _partials(n: int, n_tri: int, device) -> torch.Tensor:
+    """One (nT, 3) partial sum per block of the gradient kernels (none for
+    n = 0, where nothing is launched and the sum is zero)."""
+    return torch.empty((-(-n // _BLOCK), n_tri, 3), dtype=torch.float32, device=device)
+
+
+def _trace_params(materials, scene, cfg, tabs, p, d, alive, uniforms, orig, keys):
+    """The kernels' TraceParams (pointers into the caller's tensors, which
+    must outlive the launch) and the tables they point to."""
+    if tabs is None:
+        tabs = pack_tables(scene, materials)
+    if tabs.planes.device != p.device:
+        raise ValueError(f"tables are on {tabs.planes.device}, rays on {p.device}")
+    ptr = lambda t: None if t is None else t.data_ptr()
     fused = keys is not None
     k0, k1 = keys if fused else (0, 0)
-    ptr = lambda t: None if t is None else t.data_ptr()
+    params = _TraceParams(
+        p=ptr(p), d=ptr(d), alive=ptr(alive), orig=ptr(orig), uniforms=ptr(uniforms),
+        planes=ptr(tabs.planes), table=ptr(tabs.table), vtab=ptr(tabs.vtab),
+        etab=ptr(tabs.etab), cdf=ptr(tabs.cdf), k0=k0, k1=k1,
+        n=p.shape[1], n_tri=scene.n_tri, n_emissive=scene.n_emissive,
+        etab_stride=tabs.etab.shape[1], has_vn=int(tabs.vtab is not None),
+        no_spec=int(tabs.no_spec), quirks=int(cfg.reference_quirks), fused=int(fused),
+        max_bounces=cfg.max_bounces, use_smem=0, p_rr=cfg.p_rr, min_dot=cfg.min_dot,
+        epsilon=cfg.epsilon, two_pi=TWO_PI, inv_pi=INV_PI, inv_2pi=INV_2PI,
+        cos_scale=math.pi / cfg.p_rr, inv_p_rr=1.0 / cfg.p_rr,
+    )
+    return params, tabs
+
+
+def _launch_fwd(materials, scene, cfg, tables, p, d, alive, uniforms, orig, keys, records):
+    lib = _library("render_fwd")
+    params, tabs = _trace_params(materials, scene, cfg, tables, p, d, alive, uniforms, orig, keys)
+    n = p.shape[1]
+    dev = p.device
+    rad = torch.empty((3, n), dtype=torch.float32, device=dev)
+    stats = torch.empty((2, n), dtype=torch.float32, device=dev)
+    rec = (torch.empty((cfg.max_bounces * REC_ROWS, n), dtype=torch.float32, device=dev)
+           if records else None)
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.ipt_render_fwd(
-            ptr(p), ptr(d), ptr(alive), ptr(orig), ptr(uniforms), k0, k1, int(fused),
-            ptr(tabs.planes), ptr(tabs.table), ptr(tabs.vtab), scene.n_tri,
-            int(tabs.vtab is not None), ptr(tabs.etab), tabs.etab.shape[1],
-            ptr(tabs.cdf), scene.n_emissive, int(tabs.no_spec),
-            int(cfg.reference_quirks), cfg.max_bounces, cfg.p_rr, cfg.min_dot,
-            cfg.epsilon, TWO_PI, INV_PI, INV_2PI, math.pi / cfg.p_rr, 1.0 / cfg.p_rr,
-            ptr(rad), ptr(stats), n, stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"render_fwd launch failed: {lib.ipt_error_string(err).decode()}")
-    render_tile.launches += 1
-    return rad, stats
+        err = lib.ipt_render_fwd(ctypes.byref(params), rad.data_ptr(), stats.data_ptr(),
+                                 None if rec is None else rec.data_ptr(),
+                                 torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(lib, err, "render_fwd")
+    return rad, stats, rec
 
 
 def render_tile_plain(
@@ -192,13 +361,18 @@ def render_tile_plain(
     uniforms: Optional[torch.Tensor] = None,
     orig: Optional[torch.Tensor] = None,
     keys: Optional[Keys] = None,
-) -> Tuple[torch.Tensor, torch.Tensor]:
+    with_records: bool = False,
+):
     """The same function in plain PyTorch on any device: the bounce step of
     the JAX XLA path (render/forward.py:232-350) over all lanes at once,
     with the next ray's intersection fused behind the shadow ray as in the
-    kernel."""
-    if orig is None:
-        orig = torch.zeros((1, p.shape[1]), dtype=torch.int32, device=p.device)
+    kernel.  Differentiable in `materials` by torch autograd.
+
+    with_records=True also returns the records (max_bounces*16, n) of
+    render/diff.py REC_ROWS, as the JAX _bounce_step does with its
+    with_records flag (forward.py:339-349); slots past a ray's last bounce
+    are zero."""
+    orig = _default_orig(p, orig)
     _check_inputs(cfg, p, d, alive, uniforms, orig, keys)
     n = p.shape[1]
     quirks = cfg.reference_quirks
@@ -219,6 +393,8 @@ def render_tile_plain(
     live = alive[0] > 0
     segs = torch.zeros(n, dtype=torch.float32, device=p.device)
     shadows = torch.zeros_like(segs)
+    rec = (torch.zeros((cfg.max_bounces * REC_ROWS, n), dtype=torch.float32, device=p.device)
+           if with_records else None)
 
     for b in range(cfg.max_bounces):
         if not bool(live.any()):
@@ -253,14 +429,16 @@ def render_tile_plain(
             geo = cos_theta * cos_theta_p / st**2 / e_p
             bsdf_direct = kd if no_spec else bsdf_from_values(
                 kd, spec, shin, shade_n, dirs, to_light, True)
-            l_d_fresh = masked(bsdf_direct * (scene.emission[e_tri] * geo[:, None]), ok)
+            nee = masked(scene.emission[e_tri] * geo[:, None], ok)
+            l_d_fresh = masked(bsdf_direct * nee, ok)
             shadows = shadows + hit_act.float()
         else:
             nxt = isect(cur.point, next_dir)
-            l_d_fresh = zero3
+            nee = l_d_fresh = zero3
         l_d = torch.where(hit_act[:, None], l_d_fresh, l_d)
         contrib_mask = live if quirks else hit_act
-        radiance = radiance + masked(pm * (l_e + l_d), contrib_mask)
+        c = masked(l_e + l_d, contrib_mask)
+        radiance = radiance + masked(pm * c, contrib_mask)
         segs = segs + live.float()
 
         if no_spec:
@@ -270,9 +448,40 @@ def render_tile_plain(
             bsdf = bsdf_from_values(kd, spec, shin, shade_n, dirs, next_dir, False)
             coeff = torch.where(pdf > 0, cosine / pdf * (1.0 / cfg.p_rr),
                                 torch.zeros_like(cosine))
-        pm = torch.where(cont[:, None], pm * (bsdf * coeff[:, None]), pm)
+        f = bsdf * coeff[:, None]
+        if with_records:
+            rows = [masked(f, cont).T, c.T, masked(nee, hit_act).T, masked(pm, live).T,
+                    masked(coeff, cont)[None], masked(tri, hit_act).float()[None],
+                    hit_act.float()[None], (live & ~cur.hit).float()[None]]
+            rec[b * REC_ROWS : (b + 1) * REC_ROWS] = torch.cat(rows).detach()
+        pm = torch.where(cont[:, None], pm * f, pm)
         dirs = torch.where(cont[:, None], next_dir, dirs)
         live = cont
         cur = nxt
 
-    return radiance.T.contiguous(), torch.stack([segs, shadows], dim=0)
+    stats = torch.stack([segs, shadows], dim=0)
+    if with_records:
+        return radiance.T.contiguous(), stats, rec
+    return radiance.T.contiguous(), stats
+
+
+def render_tile_rec_plain(materials, scene, cfg, p, d, alive, uniforms=None, orig=None,
+                          keys=None):
+    """B3's plain version: render_tile_plain with records."""
+    return render_tile_plain(materials, scene, cfg, p, d, alive, uniforms, orig, keys,
+                             with_records=True)
+
+
+def reverse_tile_plain(n_tri: int, cfg, rec: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """B4's plain version: render/diff.py backward_from_records on the rows."""
+    return backward_from_records(BounceRecords.from_rows(rec), g.T, n_tri, cfg.reference_quirks)
+
+
+def grad_tile_plain(materials, scene, cfg, p, d, alive, g, uniforms=None, orig=None,
+                    keys=None) -> torch.Tensor:
+    """B2's plain version: the records of render_tile_plain, then the suffix
+    recursion."""
+    with torch.no_grad():
+        _, _, rec = render_tile_rec_plain(materials, scene, cfg, p, d, alive, uniforms, orig,
+                                          keys)
+    return reverse_tile_plain(scene.n_tri, cfg, rec, g)

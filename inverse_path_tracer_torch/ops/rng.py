@@ -73,3 +73,16 @@ def draw(keys: Tuple[int, int], h_orig: torch.Tensor, bounce: int,
         ctr = (bounce * 8 + s) * GOLDEN
         rows.append(unit_from_bits(fmix32(((h_orig + ctr) & MASK32) ^ keys[1])))
     return torch.stack(rows, dim=0)
+
+
+def fold_in(seed: int, data: int) -> int:
+    """A new seed, a pure function of (seed, data): with (k0, k1) =
+    key_words(seed), the words fmix32(k0 ^ data) and fmix32(k1 ^ data *
+    0x9E3779B9), both mod 2**32.  It stands in for jax.random.fold_in, whose
+    threefry mixing has no counterpart on the port's integer seeds; the
+    two give different keys."""
+    k0, k1 = key_words(seed)
+    d = data & MASK32
+    w = fmix32(torch.tensor([k0 ^ d, k1 ^ ((d * GOLDEN) & MASK32)], dtype=torch.int64))
+    w0, w1 = w.tolist()
+    return (w0 << 32) | w1
