@@ -6,7 +6,8 @@
 Phases, each failing loudly (any failure exits nonzero):
   1. the card's name and power limit (nvidia-smi);
   2. build every CUDA kernel from the sources here (render_fwd.cu: B1 and
-     B3; render_bwd.cu: B2 and B4), one nvcc per source, in parallel;
+     B3; render_bwd.cu: B2 and B4; inverse.cu: B5 and B6), one nvcc per
+     source, in parallel;
   3. each kernel against its plain PyTorch version on the card, on the
      scene-0 fixture at 64x64/4 spp/8 bounces: external uniforms with quirks
      on and off, the fused RNG, a specular (Ks > 0) variant and a small
@@ -37,7 +38,32 @@ Phases, each failing loudly (any failure exits nonzero):
      last loss < 0.75 x first and Kd error < 0.7 x the start's
      (tests/test_utils.py:66-71); ms per step;
  10. per-kernel timing at the main path's launch shape beside its bound and
-     its plain version.
+     its plain version;
+ 11. B5 (dense edge grid) and B6 (edge records) against their plain
+     versions at 64x64/4 spp/8 bounces: scene 0 and the specular variant
+     (B5 and B6) and the vertex-normal scene (B6), external uniforms and the
+     fused RNG.  Grids rtol 1e-4 with an absolute floor of 1e-6 of the
+     largest entry (shared-memory atomics add in no fixed order) and equal
+     visit counts; records: the hit and nee_ok rows equal, the other rows
+     within rtol 1e-4 / atol 1e-5 where their mask is set; B5's grid against
+     B6's records reduced, rtol 1e-4;
+ 12. the extraction main path at the reference dataset configuration: scene
+     0 at 500x500/100 spp/16 bounces, fused RNG, extract_graph through B5
+     (24 launches of 2^20 samples): 1 warm-up and 3 timed runs, rays/s, a
+     profile; gates: no NaN, visited rows of w sum to 1 within 1e-5, the eye
+     row nonzero on exactly triangles 0-17 and 20-23, eye-row pixel colours
+     within 0.03 of artifacts/exp100/data.npz[0], and gcn0_params.npz on the
+     port's graph predicting Kd with mean |error| < 0.05;
+ 13. the vertex-normal scene (242 triangles) extracted at the same
+     configuration through B6 and the records reduction: timed once, no
+     NaN, visited rows summing to 1;
+ 14. train_gcn from a fresh init on the port's scene-0 graph (2000 Adam
+     steps at lr 1e-4; last L1 < first), then render_with_materials with
+     gcn0's prediction at 500x500/100 spp and its PSNR against the target;
+ 15. B5 at the first 2^20-ray launch of scene 0's extraction and B6 at the
+     first of the vertex-normal scene's (the path that runs each), each
+     against its plain version on those inputs (16 bounces), timed beside
+     its plain version and its bound.
 
 The line before the last is a JSON object of the kernels; the last line is
 {"ok": true, "device": {...}}.  Needs CUDA; exits nonzero without it.
@@ -78,12 +104,18 @@ KERNELS = {
                         "inverse_path_tracer_tpu/ops/pallas/render_kernel.py:1505"),
     "render_bwd_reverse": ("render_bwd.cu",
                            "inverse_path_tracer_tpu/ops/pallas/render_kernel.py:1640"),
+    "inverse_grid": ("inverse.cu", "inverse_path_tracer_tpu/ops/pallas/inverse_kernel.py:271"),
+    "inverse_rec": ("inverse.cu", "inverse_path_tracer_tpu/ops/pallas/inverse_kernel.py:338"),
 }
 # f32 operations of the suffix recursion per reached bounce (render_bwd.cu
 # reverse_path): ct = pm*suf*(coeff/pi) + g*pm*nee (3+3+1+3+3+3), suf =
 # g*c + f*suf (9), and the 3 adds of the warp sum into d materials.
 RECURSION_OPS = 28
 GOLDEN_PNG = os.path.join(REPO, "artifacts", "bench_golden_0.png")
+EXP100 = os.path.join(REPO, "artifacts", "exp100")
+# The eye row of the JAX package's extraction of the in-repo fixture
+# (500x500 at 4 and at 16 spp): nonzero on exactly these triangles.
+EYE_VISIBLE = list(range(18)) + [20, 21, 22, 23]
 
 
 def log(*a):
@@ -490,6 +522,253 @@ def recovery(device):
     return ms_step
 
 
+def records_match(rec, rec_p):
+    """B6 records: the hit and nee_ok rows equal; dst, src, w where hit and
+    nee_w, e_idx where nee_ok within rtol 1e-4 / atol 1e-5.  Returns (ok,
+    max |d| under the masks, bit-equal under the masks)."""
+    import torch
+
+    r, q = rec.view(-1, 8, rec.shape[1]), rec_p.view(-1, 8, rec.shape[1])
+    ok = torch.equal(r[:, 2], q[:, 2]) and torch.equal(r[:, 4], q[:, 4])
+    hit, nee = q[:, 2] > 0, q[:, 4] > 0
+    err, same = 0.0, True
+    for row, mask in ((0, hit), (1, hit), (3, hit), (5, nee), (6, nee)):
+        a, b = r[:, row][mask], q[:, row][mask]
+        if a.numel():
+            err = max(err, float((a - b).abs().max()))
+            ok = ok and bool(torch.allclose(a, b, rtol=1e-4, atol=1e-5))
+            same = same and torch.equal(a, b)
+    return ok, err, same
+
+
+def check_inverse_vs_plain(device):
+    """Phase 11: B5 and B6 against their plain versions on the card at
+    64x64/4 spp/8 bounces, scene 0, the specular variant and the vertex-normal
+    scene (B6 alone: its grid does not fit B5), each under external uniforms
+    and the fused RNG; B5's grid against B6's records reduced.  Returns the
+    largest |kernel - plain| of each."""
+    import torch
+
+    from inverse_path_tracer_torch import RenderConfig
+    from inverse_path_tracer_torch.ops.kernels.inverse_kernel import (
+        grids_from_edge_records,
+        inverse_grid_fits,
+        inverse_tile,
+        inverse_tile_plain,
+        inverse_tile_rec,
+        inverse_tile_rec_plain,
+    )
+
+    cfg = RenderConfig(**CHECK)
+    scene0, _ = fixture(device)
+    scenes = [("scene0", scene0)] + [(name, s) for name, s, _ in variant_scenes(device)]
+    worst = {"inverse_grid": 0.0, "inverse_rec": 0.0}
+    for name, scene in scenes:
+        for external in (True, False):
+            a = tile_inputs(scene, cfg, 21, cfg.n_samples, device, external)
+            pix = torch.rand((3, cfg.n_samples), generator=torch.Generator().manual_seed(22))
+            pix = pix.to(device)
+            rec, st_r = inverse_tile_rec(scene, cfg, **a)
+            rec_p, st_p = inverse_tile_rec_plain(scene, cfg, **a)
+            torch.cuda.synchronize()
+            ok, err_r, same = records_match(rec, rec_p)
+            ok = ok and torch.equal(st_r, st_p)
+            line = (f"check inverse {name} {'external' if external else 'fused'}: B6 records "
+                    f"max |d| {err_r:.3e} (bit-equal under masks {same}), counts equal "
+                    f"{torch.equal(st_r, st_p)}")
+            worst["inverse_rec"] = max(worst["inverse_rec"], err_r)
+            if inverse_grid_fits(scene):
+                grid, st = inverse_tile(scene, cfg, pix=pix, **a)
+                grid_p, _ = inverse_tile_plain(scene, cfg, pix=pix, **a)
+                reduced = grids_from_edge_records(rec, pix.T, scene, cfg).float()
+                torch.cuda.synchronize()
+                floor = 1e-6 * float(grid_p.abs().max())
+                err_g = float((grid - grid_p).abs().max())
+                b5_b6 = bool(torch.allclose(grid, reduced, rtol=1e-4, atol=floor))
+                ok = (ok and bool(torch.allclose(grid, grid_p, rtol=1e-4, atol=floor))
+                      and torch.equal(grid[..., 8], grid_p[..., 8]) and torch.equal(st, st_p)
+                      and b5_b6 and bool(torch.isfinite(grid).all()))
+                worst["inverse_grid"] = max(worst["inverse_grid"], err_g)
+                line += (f"; B5 grid max |d| {err_g:.3e} of max {float(grid_p.abs().max()):.3e}, "
+                         f"visit counts equal {torch.equal(grid[..., 8], grid_p[..., 8])}, "
+                         f"B5 = B6 reduced (rtol 1e-4) {b5_b6}")
+            log(line + f" -> {'OK' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"an inverse kernel disagrees with its plain version on {name}")
+    return worst
+
+
+def extraction_main_path(device):
+    """Phase 12: the reference dataset configuration.  Scene 0 at 500x500,
+    100 spp, 16 bounces, fused RNG: the target render, extract_graph through
+    B5 (launch count, 1 warm-up and 3 runs timed, rays/s), the gates against
+    artifacts/exp100 (data.npz[0], gcn0_params.npz), and a profile.
+    Returns (launches, the graph, the target)."""
+    import numpy as np
+    import torch
+
+    from inverse_path_tracer_torch import (
+        GCN,
+        RenderConfig,
+        build_dense_graph,
+        extract_graph,
+        render_image,
+        trace_transport_range,
+    )
+    from inverse_path_tracer_torch.convert import gcn_params_from_numpy, read_jax_checkpoint
+    from inverse_path_tracer_torch.ops.kernels.inverse_kernel import inverse_tile
+
+    cfg = RenderConfig(**GOLDEN)
+    scene, mats = fixture(device)
+    target = render_image(mats, scene, 1, cfg, device=device)
+
+    def run(key):
+        return extract_graph(scene, target, key, cfg, device=device)
+
+    inverse_tile.launches = 0
+    w, pixel, light = run(0)
+    torch.cuda.synchronize()
+    launches = inverse_tile.launches
+    if launches == 0:
+        raise AssertionError("the extraction did not launch inverse_grid")
+    # The same trace again, for its ray counts.
+    _, stats = trace_transport_range(scene, target, 0, cfg, 0, cfg.n_samples, device=device)
+    rays = int(stats.segments) + int(stats.shadow_rays)
+    log(f"extraction {shape(cfg)}: {launches} launches of inverse_grid, segments "
+        f"{int(stats.segments)}, shadow rays {int(stats.shadow_rays)}")
+    run(1)  # warm-up
+    for k in range(3):
+        t = cuda_ms(lambda: run(0), 1)
+        log(f"extraction run {k}: {t:.3f} ms, rays {rays}, {rays / (t / 1e3):.6e} rays/s")
+    profile_once("one extraction", lambda: run(0))
+
+    with np.load(os.path.join(EXP100, "data.npz")) as d:
+        ref_w, ref_pix, labels = d["w"][0], d["pixel"][0], d["labels"][0]
+    w_c, pix_c = w.cpu().numpy(), pixel.cpu().numpy()
+    finite = all(bool(torch.isfinite(t).all()) for t in (w, pixel, light))
+    sums = w_c.sum(axis=1)
+    rows_ok = bool(np.all(np.abs(sums[sums > 0] - 1.0) <= 1e-5))
+    eye = np.nonzero(w_c[-1])[0].tolist()
+    pix_err = float(np.abs(pix_c[-1, EYE_VISIBLE] - ref_pix[-1, EYE_VISIBLE]).max())
+    params, _ = read_jax_checkpoint(os.path.join(EXP100, "gcn0_params.npz"))
+    model = GCN().to(device)
+    model.load_state_dict(gcn_params_from_numpy(params, device=device))
+    adj, feats = build_dense_graph(w, pixel)
+    with torch.no_grad():
+        pred = model(adj, feats).cpu().numpy()
+    kd_err = float(np.abs(pred - labels).mean())
+    ok = finite and rows_ok and eye == EYE_VISIBLE and pix_err <= 0.03 and kd_err < 0.05
+    log(f"extraction gates: finite {finite}, visited rows sum to 1 (1e-5) {rows_ok}, eye row "
+        f"nonzero on {eye}, eye-row pixel max |d| against data.npz[0] {pix_err:.5f} (bound 0.03)"
+        f"; gcn0 Kd mean |error| {kd_err:.5f} (bound 0.05; JAX graphs of the fixture "
+        f"0.030-0.035, data.npz[0] 0.00049) -> {'OK' if ok else 'FAIL'}")
+    dw = np.abs(w_c - ref_w)
+    log(f"extraction w against data.npz[0]: max |d| {float(dw.max()):.5f}, mean |d| "
+        f"{float(dw.mean()):.6f}")
+    if not ok:
+        raise AssertionError("the extraction missed its gates")
+    return launches, (w, pixel, light), target
+
+
+def large_scene_extraction(device):
+    """Phase 13: the 242-triangle vertex-normal scene at 500x500/100 spp/16
+    bounces through B6 and the records reduction: timed once, no NaN,
+    visited rows summing to 1.  Returns (launches, (scene, target))."""
+    import torch
+
+    from inverse_path_tracer_torch import (
+        RenderConfig,
+        compress_grids,
+        extract_graph,
+        render_image,
+        trace_transport_range,
+    )
+    from inverse_path_tracer_torch.ops.kernels.inverse_kernel import inverse_tile, inverse_tile_rec
+
+    cfg = RenderConfig(**GOLDEN)
+    (_, scene, mats), = [v for v in variant_scenes(device) if v[0] == "vertex_normals"]
+    target = render_image(mats, scene, 1, cfg, device=device)
+    inverse_tile.launches = inverse_tile_rec.launches = 0
+    out = []
+    t = cuda_ms(lambda: out.append(trace_transport_range(scene, target, 0, cfg, 0, cfg.n_samples,
+                                                         device=device)), 1)
+    grids, stats = out[0]
+    w, pixel, light = compress_grids(grids, scene.n_tri)
+    launches = inverse_tile_rec.launches
+    finite = all(bool(torch.isfinite(x).all()) for x in (w, pixel, light))
+    sums = w.sum(dim=1)
+    rows_ok = bool(((sums[sums > 0] - 1.0).abs() <= 1e-5).all())
+    rays = int(stats.segments) + int(stats.shadow_rays)
+    ok = launches > 0 and inverse_tile.launches == 0 and finite and rows_ok
+    log(f"large-scene extraction ({scene.n_tri} triangles, vertex normals) {shape(cfg)}: "
+        f"{launches} launches of inverse_rec, {t:.3f} ms, rays {rays}, "
+        f"{rays / (t / 1e3):.6e} rays/s; finite {finite}, visited rows sum to 1 {rows_ok} "
+        f"-> {'OK' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the large-scene extraction failed")
+    profile_once("one large-scene extraction",
+                 lambda: extract_graph(scene, target, 0, cfg, device=device))
+    return launches, (scene, target)
+
+
+def gcn_pipeline(device, graph, target):
+    """Phase 14: train_gcn from a fresh init on the port's scene-0 graph
+    (2000 Adam steps, lr 1e-4; last L1 < first), then render_with_materials
+    with gcn0's prediction at 500x500/100 spp and its PSNR against the
+    target."""
+    import numpy as np
+    import torch
+
+    from inverse_path_tracer_torch import (
+        GCN,
+        RenderConfig,
+        build_dense_graph,
+        render_with_materials,
+        train_gcn,
+    )
+    from inverse_path_tracer_torch.convert import gcn_params_from_numpy, read_jax_checkpoint
+    from inverse_path_tracer_torch.models.gcn import gcn_loss
+    from inverse_path_tracer_torch.utils.metrics import psnr
+
+    w, pixel, _ = graph
+    adj, feats = build_dense_graph(w, pixel)
+    with np.load(os.path.join(EXP100, "data.npz")) as d:
+        labels = torch.from_numpy(np.array(d["labels"][0])).to(device)
+    with torch.no_grad():
+        first = float(gcn_loss(GCN(seed=0).to(device), adj, feats, labels))
+    steps = 2000
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model, last = train_gcn(adj, feats, labels, epochs=steps, lr=1e-4, seed=0, device=device)
+    torch.cuda.synchronize()
+    ms_step = (time.perf_counter() - t0) * 1e3 / steps
+    ok = last < first
+    log(f"train_gcn on the port's scene-0 graph: {steps} Adam steps lr 1e-4, L1 {first:.5f} -> "
+        f"{last:.5f}, {ms_step:.4f} ms per step -> {'OK' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("train_gcn did not lower the loss")
+
+    params, _ = read_jax_checkpoint(os.path.join(EXP100, "gcn0_params.npz"))
+    gcn0 = GCN().to(device)
+    gcn0.load_state_dict(gcn_params_from_numpy(params, device=device))
+    with torch.no_grad():
+        pred = gcn0(adj, feats)
+    cfg = RenderConfig(**GOLDEN)
+    os.makedirs(OUT_DIR, exist_ok=True)
+    out_png = os.path.join(OUT_DIR, "rerender_gcn0.png")
+    t0 = time.perf_counter()
+    img8 = render_with_materials(os.path.join(REPO, "scenes", "0.txt"), out_png, pred, cfg,
+                                 key=2, device=device)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    value = psnr(img8.numpy().astype(np.float32) / 255.0, target.cpu().numpy())
+    log(f"render_with_materials (gcn0's Kd) {shape(cfg)}: {dt:.3f} s, PSNR against the target "
+        f"{value:.3f} dB ({out_png})")
+    if not math.isfinite(value):
+        raise AssertionError("the re-render's PSNR is not finite")
+    return ms_step, value
+
+
 def golden(device):
     """Phase 5: full-resolution golden gate."""
     import numpy as np
@@ -621,8 +900,8 @@ def kernel_timing(device, launches, check_err):
         f"{t_full:.4f} ms), recursion {t_rec:.4f} ms, record array {rec_bytes} bytes "
         f"({f_bytes(rec_bytes):.4f} ms to move once)")
     kernels = []
-    for k, (src, replaces) in KERNELS.items():
-        b_ms, b_by = bounds[k]
+    for k, (b_ms, b_by) in bounds.items():
+        src, replaces = KERNELS[k]
         log(f"{k} at (3, {n}): {ms[k]:.4f} ms (plain {plain_ms[k]:.3f} ms), bound {b_ms:.4f} ms "
             f"({b_by}), {100 * b_ms / ms[k]:.1f}% of bound, {launches[k]} launches on its path")
         kernels.append({
@@ -638,6 +917,116 @@ def kernel_timing(device, launches, check_err):
             "bound_by": b_by,
             # No single PyTorch call computes a bounce loop or its suffix
             # recursion.
+            "library_ms": None,
+        })
+    return kernels
+
+
+def first_extraction_launch(scene, cfg, target, key=0):
+    """The kernel inputs of the first launch of trace_transport_range on
+    `scene` (fused RNG, the camera under rng.CAMERA_STREAM): the rays, the
+    pixel colours (3, n) and the packed tables, as the extraction passes
+    them."""
+    from inverse_path_tracer_torch.ops import rng
+    from inverse_path_tracer_torch.ops.kernels.render_kernel import pack_tables
+    from inverse_path_tracer_torch.render.forward import _launches
+
+    _, _, a = next(_launches(scene, cfg, key, 0, cfg.n_samples, None,
+                             camera_key=rng.fold_in(key, rng.CAMERA_STREAM)))
+    pix_idx = (a["orig"][0].long() // cfg.spp).clamp(0, cfg.width * cfg.height - 1)
+    pix = target.reshape(-1, 3)[pix_idx].T.contiguous()
+    return a, pix, pack_tables(scene, scene.diffuse)
+
+
+def inverse_kernel_timing(device, launches, check_err, target0, large):
+    """Phase 15: B5 and B6, each at the first 2^20-ray launch of the path
+    that runs it at 500x500/100 spp/16 bounces, fused RNG, the target's
+    pixel colours: B5 on scene 0's extraction (phase 12), B6 on the
+    vertex-normal scene's (phase 13, `large` = (scene, target)).  Each is
+    held against its plain version on the same inputs and timed beside it
+    and its bound."""
+    import torch
+
+    from inverse_path_tracer_torch import RenderConfig
+    from inverse_path_tracer_torch.ops.kernels.inverse_kernel import (
+        N_QUANT,
+        inverse_tile,
+        inverse_tile_plain,
+        inverse_tile_rec,
+        inverse_tile_rec_plain,
+    )
+
+    cfg = RenderConfig(**GOLDEN)
+    scene0, _ = fixture(device)
+    scene_vn, target_vn = large
+    a0, pix0, tab0 = first_extraction_launch(scene0, cfg, target0)
+    a6, _, tab6 = first_extraction_launch(scene_vn, cfg, target_vn)
+    n = a0["p"].shape[1]
+
+    grid, st = inverse_tile(scene0, cfg, pix=pix0, tables=tab0, **a0)
+    grid_p, st_p = inverse_tile_plain(scene0, cfg, pix=pix0, **a0)
+    torch.cuda.synchronize()
+    floor = 1e-6 * float(grid_p.abs().max())
+    err = {"inverse_grid": float((grid - grid_p).abs().max())}
+    ok5 = (bool(torch.allclose(grid, grid_p, rtol=1e-4, atol=floor))
+           and torch.equal(grid[..., 8], grid_p[..., 8]) and torch.equal(st, st_p))
+    log(f"inverse_grid at scene 0's first extraction launch (3, {n}): max |d| "
+        f"{err['inverse_grid']:.3e} of max {float(grid_p.abs().max()):.3e}, visit counts and "
+        f"ray counts equal -> {'OK' if ok5 else 'FAIL'}")
+    del grid_p
+    rec, st6 = inverse_tile_rec(scene_vn, cfg, tables=tab6, **a6)
+    rec_p, st6_p = inverse_tile_rec_plain(scene_vn, cfg, **a6)
+    torch.cuda.synchronize()
+    rec_ok, err["inverse_rec"], rec_same = records_match(rec, rec_p)
+    ok6 = rec_ok and torch.equal(st6, st6_p)
+    log(f"inverse_rec at the vertex-normal scene's first extraction launch (3, {n}), "
+        f"{cfg.max_bounces} bounces: records max |d| {err['inverse_rec']:.3e} (bit-equal under "
+        f"masks {rec_same}), ray counts equal {torch.equal(st6, st6_p)} -> "
+        f"{'OK' if ok6 else 'FAIL'}")
+    if not (ok5 and ok6):
+        raise AssertionError("an inverse kernel disagrees with its plain version at full shape")
+    del rec_p
+    timed = {
+        "inverse_grid": (lambda: inverse_tile(scene0, cfg, pix=pix0, tables=tab0, **a0),
+                         lambda: inverse_tile_plain(scene0, cfg, pix=pix0, **a0)),
+        "inverse_rec": (lambda: inverse_tile_rec(scene_vn, cfg, tables=tab6, **a6),
+                        lambda: inverse_tile_rec_plain(scene_vn, cfg, **a6)),
+    }
+    ms = {k: cuda_ms(fn, 10) for k, (fn, _) in timed.items()}
+    plain_ms = {k: cuda_ms(fn, 2) for k, (_, fn) in timed.items()}
+
+    # Bounds, from each launch's own rays.  Operations: the closest-hit
+    # sweeps the loop uses, one per segment (the primary ray, or the next ray
+    # of a path that passed roulette) and one per shadow ray, at
+    # FACE_PLANE_OPS per (ray, triangle), over the f32 peak (a floor, as in
+    # kernel_timing).  Bytes: p, d, alive, orig (and pix for B5) in, the
+    # tables in, the counts (2, n) out, and B5's grid or B6's whole record
+    # array out.
+    f_bytes = lambda nbytes: nbytes / PEAK_BYTES * 1e3
+    kernels = []
+    for k, scene, stats, tab, out_bytes, pix_rows in (
+            ("inverse_grid", scene0, st, tab0, grid.numel() * 4, 3),
+            ("inverse_rec", scene_vn, st6, tab6, rec.numel() * 4, 0)):
+        nt = scene.n_tri
+        segments, shadows = float(stats[0].sum()), float(stats[1].sum())
+        pairs = (segments + shadows) * nt
+        t_sweep = pairs * FACE_PLANE_OPS / PEAK_F32_OPS * 1e3
+        tab_bytes = sum(t.numel() * 4 for t in (tab.planes, tab.table, tab.vtab, tab.etab, tab.cdf)
+                        if t is not None)
+        b_ms, b_by = bound(t_sweep, f_bytes(n * (3 + 3 + 1 + 1 + pix_rows + 2) * 4 + tab_bytes
+                                            + out_bytes))
+        log(f"{k} launch (3, {n}) on {nt} triangles: {segments:.0f} segments, {shadows:.0f} "
+            f"shadow rays, {pairs:.0f} (ray, triangle) pairs, sweep floor {t_sweep:.4f} ms, "
+            f"output {out_bytes} bytes ({f_bytes(out_bytes):.4f} ms to move once)")
+        src, replaces = KERNELS[k]
+        log(f"{k} at (3, {n}): {ms[k]:.4f} ms (plain {plain_ms[k]:.3f} ms), bound {b_ms:.4f} ms "
+            f"({b_by}), {100 * b_ms / ms[k]:.1f}% of bound, {launches[k]} launches on its path")
+        kernels.append({
+            "name": k, "route": "cuda", "source": f"inverse_path_tracer_torch/ops/kernels/{src}",
+            "replaces": replaces, "launches": launches[k],
+            "max_abs_err": max(err[k], check_err[k]), "ms": ms[k], "plain_ms": plain_ms[k],
+            "bound_ms": b_ms, "bound_by": b_by,
+            # No single PyTorch call runs the inverse bounce loop.
             "library_ms": None,
         })
     return kernels
@@ -678,6 +1067,11 @@ def main() -> int:
     fd_gate(device)
     recovery(device)
     kernels = kernel_timing(device, launches, check_err)
+    check_err.update(check_inverse_vs_plain(device))
+    launches["inverse_grid"], graph, target = extraction_main_path(device)
+    launches["inverse_rec"], large = large_scene_extraction(device)
+    gcn_pipeline(device, graph, target)
+    kernels += inverse_kernel_timing(device, launches, check_err, target, large)
     for k in kernels:
         if not all(math.isfinite(float(k[f])) for f in ("ms", "plain_ms", "bound_ms")):
             raise AssertionError(f"non-finite timing {k}")

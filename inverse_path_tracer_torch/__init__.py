@@ -1,10 +1,13 @@
 """PyTorch + CUDA port of inverse_path_tracer_tpu, for NVIDIA Hopper.
 
 It holds the forward render and its material gradient: scene loading, the
-plain PyTorch ops, the hand-written CUDA kernels of the bounce loop and of
-its backward (ops/kernels), the render entry points (render_range is
-differentiable in the materials; loss_and_grad_range is the training path)
-and single-device material recovery (models/recover.py).  float32 throughout: TF32 is switched off for matmuls
+plain PyTorch ops, the hand-written CUDA kernels of the bounce loop, of its
+backward and of the inverse pass (ops/kernels), the render entry points
+(render_range is differentiable in the materials; loss_and_grad_range is
+the training path), single-device material recovery (models/recover.py),
+and the reference's inverse pipeline: transport-graph extraction
+(render/inverse.py), the GCN (models/gcn.py) and the dataset steps
+(data/pipeline.py).  float32 throughout: TF32 is switched off for matmuls
 and convolutions when the package is imported.
 """
 
@@ -15,7 +18,19 @@ torch.backends.cudnn.allow_tf32 = False
 
 from inverse_path_tracer_torch.config import CameraConfig, RenderConfig  # noqa: E402
 from inverse_path_tracer_torch.convert import materials_from_numpy, scene_from_numpy  # noqa: E402
+from inverse_path_tracer_torch.data.pipeline import (  # noqa: E402
+    generate_data,
+    generate_files,
+    render_with_materials,
+)
+from inverse_path_tracer_torch.models.gcn import GCN, build_dense_graph, train_gcn  # noqa: E402
 from inverse_path_tracer_torch.models.recover import recover_materials  # noqa: E402
+from inverse_path_tracer_torch.render.inverse import (  # noqa: E402
+    TransportGrids,
+    compress_grids,
+    extract_graph,
+    trace_transport_range,
+)
 from inverse_path_tracer_torch.render.forward import (  # noqa: E402
     RenderStats,
     camera_rays,
@@ -37,12 +52,19 @@ from inverse_path_tracer_torch.scene.build import (  # noqa: E402
 __all__ = [
     "ASSET_ROOT",
     "CameraConfig",
+    "GCN",
     "REFERENCE_CUBE_KD",
     "RenderConfig",
     "RenderStats",
     "SceneData",
+    "TransportGrids",
+    "build_dense_graph",
     "build_scene",
     "camera_rays",
+    "compress_grids",
+    "extract_graph",
+    "generate_data",
+    "generate_files",
     "grad_range",
     "load_scene",
     "loss_and_grad_range",
@@ -52,5 +74,8 @@ __all__ = [
     "render_range",
     "render_samples",
     "render_to_png",
+    "render_with_materials",
     "scene_from_numpy",
+    "trace_transport_range",
+    "train_gcn",
 ]

@@ -1,5 +1,5 @@
 """Static render configuration (the fields of the JAX package's
-RenderConfig / CameraConfig that the forward path reads).
+RenderConfig / CameraConfig that the forward and inverse paths read).
 
 The TPU tuning fields (wavefront, stage_bounces, cluster_k, pair_sweep,
 fast_recip, tri_order) have no counterpart: the CUDA kernel always runs the
@@ -34,6 +34,10 @@ class RenderConfig:
     # Fixed bounce budget of the Russian-roulette loop.
     max_bounces: int = 16
     p_rr: float = 0.9
+    # Probability of sampling a specular path in the inverse pass (reference
+    # inv_scene.h:5 P_SPEC = 0).  The inverse kernels (B5, B6) need 0; the
+    # plain wavefront path (backend="plain") takes any value.
+    p_spec: float = 0.0
     # Geometry epsilons (reference scene_basics.h:13-14).
     min_dot: float = 1e-4
     epsilon: float = 1e-2

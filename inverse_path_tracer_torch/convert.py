@@ -7,12 +7,19 @@ and returns the port's SceneData, so that both packages render bit-identical
 scenes.  Fields the port does not have (the optional BVH) are ignored.
 `adam_state_from_numpy` turns optax.adam's (mu, nu, count) into a
 torch.optim.Adam state entry, so both packages can start from one state.
+`gcn_params_from_numpy` maps the JAX GCN's parameter dict onto the port's
+GCN state_dict, and `read_jax_checkpoint` reads the JAX package's
+checkpoint npz (utils/checkpoint.py there) without JAX, so that
+``gcn_params_from_numpy(read_jax_checkpoint("artifacts/exp100/gcn0_params.npz")[0])``
+loads the trained GCN.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Mapping
+import json
+import re
+from typing import Dict, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -48,3 +55,31 @@ def adam_state_from_numpy(mu: np.ndarray, nu: np.ndarray, count: int,
     as_t = lambda a: torch.from_numpy(np.array(a, dtype=np.float32)).to(device)
     return {"step": torch.tensor(float(count), dtype=torch.float32),
             "exp_avg": as_t(mu), "exp_avg_sq": as_t(nu)}
+
+
+def gcn_params_from_numpy(params: Mapping[str, np.ndarray], device="cpu") -> Dict[str, torch.Tensor]:
+    """The JAX GCN's {lift_w (3, 100), lift_b, mpl{i}_w (200, 100), mpl{i}_b,
+    out_w (100, 3), out_b} -> a state_dict of models.gcn.GCN: each weight
+    (fan_in, fan_out) becomes nn.Linear's (out, in)."""
+    names = {"lift": "lift", "out": "out"}
+    names.update({f"mpl{i}": f"mpl.{i}" for i in range(len(params))})
+    out = {}
+    for key, a in params.items():
+        layer, kind = key.rsplit("_", 1)
+        a = np.array(a, dtype=np.float32)
+        t = torch.from_numpy(a.T.copy() if kind == "w" else a).to(device)
+        out[f"{names[layer]}.{'weight' if kind == 'w' else 'bias'}"] = t
+    return out
+
+
+def read_jax_checkpoint(path: str) -> Tuple[Dict[str, np.ndarray], int]:
+    """({name: array}, step) of a checkpoint of a flat dict written by the
+    JAX package's save_checkpoint: leaf_i follows the key order of the
+    treedef string in __meta__ (jax flattens dicts by sorted key)."""
+    with np.load(path) as data:
+        meta = json.loads(bytes(data["__meta__"]).decode())
+        keys = re.findall(r"'([^']+)': \*", meta["treedef"])
+        if len(keys) != sum(1 for k in data.files if k.startswith("leaf_")):
+            raise ValueError(f"{path}: treedef {meta['treedef']!r} is not a flat dict")
+        arrays = {k: np.array(data[f"leaf_{i}"]) for i, k in enumerate(keys)}
+    return arrays, int(meta.get("step", 0))

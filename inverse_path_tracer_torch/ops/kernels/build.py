@@ -30,7 +30,8 @@ NVCC_FLAGS = (
     "-Xptxas", "-v",
 )
 
-SOURCES = {"render_fwd": "render_fwd.cu", "render_bwd": "render_bwd.cu"}
+SOURCES = {"render_fwd": "render_fwd.cu", "render_bwd": "render_bwd.cu",
+           "inverse": "inverse.cu"}
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 build_log: Dict[str, str] = {}  # kernel name -> nvcc output of this process's build

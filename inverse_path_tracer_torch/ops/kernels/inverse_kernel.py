@@ -1,0 +1,323 @@
+"""Wrappers of the inverse (transport-graph) kernels and their plain
+PyTorch versions.
+
+    inverse_tile / inverse_tile_plain          B5, the inverse bounce loop
+                                               accumulating the dense edge grid
+    inverse_tile_rec / inverse_tile_rec_plain  B6, the same loop streaming
+                                               per-bounce edge records
+
+They take the arguments of the JAX package's inverse_tile_pallas and
+inverse_tile_pallas_rec (ops/pallas/inverse_kernel.py:271, :338):
+
+    p, d      (3, n) float32 ray origins / directions
+    alive     (1, n) float32 0/1 initial alive mask
+    pix       (3, n) float32 observed pixel colour of each ray's pixel (B5;
+              B6's records carry none, the reduction applies them)
+    orig      (1, n) int32 global sample indices (the fused RNG's counter)
+    uniforms  (max_bounces*8, n) float32: rows b*8 + [spec, pick, r1, r2,
+              rr, phi, theta, -] of bounce b (external RNG), or None
+    keys      (k0, k1) uint32 key words (fused RNG), or None
+
+and return, beside per-lane segment and shadow-ray counts (2, n) counted
+as B1 counts them:
+
+    B5  the dense grid (nT+1, nT, 9) float32 in global triangle indices,
+        grid[dst, src] = [w, w*f0, w*f0*pix(3), w*f0*light(3), n]
+        (inverse_kernel.py:50-51; dst == nT is the eye);
+    B6  records (max_bounces*8, n), rows b*8 + [dst, src, hit, w, nee_ok,
+        nee_w, e_idx, 0] of bounce b (:240-245), zero past a ray's last
+        bounce.  Indices are global (the port has no Morton order).
+
+The kernels need cfg.p_spec == 0, as the Pallas ones do (:289); so do
+their plain versions, which run the same loop.  B5 keeps the grid and the
+scene tables in one block's shared memory, so it takes scenes up to
+inverse_grid_fits(); inverse_tile raises past it, and B6 serves larger
+scenes.  grids_from_edge_records reduces B6's records to B5's grid;
+grids_from_acc turns that grid into render/inverse.py's TransportGrids.
+
+Each wrapper launches its CUDA kernel (inverse.cu) for CUDA tensors and
+runs its plain version for CPU tensors; it never falls back from one to the
+other on a CUDA tensor.  `<wrapper>.launches` counts kernel launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Optional, Tuple
+
+import torch
+
+from inverse_path_tracer_torch.ops import rng
+from inverse_path_tracer_torch.ops.bsdf import INV_PI
+from inverse_path_tracer_torch.ops.intersect import intersect_planes, plane_rows, smooth_normal
+from inverse_path_tracer_torch.ops.kernels.render_kernel import (
+    KernelTables,
+    Keys,
+    _check,
+    _check_inputs,
+    _default_orig,
+    _library,
+    _on_card,
+    _raise_on,
+    _trace_params,
+)
+from inverse_path_tracer_torch.ops.sampling import (
+    pick_emissive,
+    sample_emissive_point,
+    sample_next_dir,
+)
+from inverse_path_tracer_torch.ops.vec import dot3, normalize3
+from inverse_path_tracer_torch.scene.build import SceneData
+
+N_QUANT = 9  # w, w*f0, w*f0*pix(3), w*f0*light(3), n
+REC_INV_ROWS = 8  # dst, src, hit, w, nee_ok, nee_w, e_idx, 0
+# Dynamic shared memory one block may opt into on Hopper (227 KB).
+MAX_SMEM_BYTES = 232448
+
+
+def _padded(count: int) -> int:
+    return (count + 3) & ~3
+
+
+def inverse_grid_fits(scene: SceneData) -> bool:
+    """True when B5's per-block grid (nT+1)*nT*9 floats and the scene tables
+    (render_common.cuh table_floats) fit in one block's shared memory: about
+    nT <= 78 on a flat scene with two emitters.  Larger scenes take B6."""
+    nt, ne = scene.n_tri, scene.n_emissive
+    etab_stride = 27 if scene.has_vertex_normals else 17
+    floats = (_padded((nt + 1) * nt * N_QUANT) + 2 * _padded(nt * 16)
+              + (_padded(nt * 20) if scene.has_vertex_normals else 0)
+              + _padded(ne * etab_stride) + _padded(ne))
+    return 4 * floats <= MAX_SMEM_BYTES
+
+
+def _check_inverse(cfg, p, d, alive, uniforms, orig, keys):
+    _check_inputs(cfg, p, d, alive, uniforms, orig, keys)
+    if cfg.p_spec != 0.0:
+        raise ValueError(f"the inverse kernels need p_spec == 0 (got {cfg.p_spec}); "
+                         "pass backend='plain' for the general path")
+
+
+def inverse_tile(
+    scene: SceneData,
+    cfg,
+    p: torch.Tensor,
+    d: torch.Tensor,
+    alive: torch.Tensor,
+    pix: torch.Tensor,
+    uniforms: Optional[torch.Tensor] = None,
+    orig: Optional[torch.Tensor] = None,
+    keys: Optional[Keys] = None,
+    *,
+    tables: Optional[KernelTables] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """B5: the dense edge grid (nT+1, nT, 9) and the counts (2, n) of one
+    range of rays.  `tables` is pack_tables(scene, scene.diffuse), packed
+    here when not given."""
+    orig = _default_orig(p, orig)
+    _check_inverse(cfg, p, d, alive, uniforms, orig, keys)
+    _check(p, {"pix": (pix, (3, p.shape[1]), torch.float32)})
+    if not _on_card(p, scene):
+        return inverse_tile_plain(scene, cfg, p, d, alive, pix, uniforms, orig, keys)
+    if not inverse_grid_fits(scene):
+        raise ValueError(f"inverse_tile keeps the (nT+1, nT, 9) grid in shared memory, which "
+                         f"does not fit at nT = {scene.n_tri}; use inverse_tile_rec")
+    lib = _library("inverse")
+    params, _ = _trace_params(scene.diffuse, scene, cfg, tables, p, d, alive, uniforms, orig,
+                              keys)
+    n, nt, dev = p.shape[1], scene.n_tri, p.device
+    stats = torch.empty((2, n), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        blocks = ctypes.c_int(0)
+        _raise_on(lib, lib.ipt_inverse_grid_blocks(ctypes.byref(params), ctypes.byref(blocks)),
+                  "inverse grid occupancy")
+        partials = torch.empty((blocks.value, nt + 1, nt, N_QUANT), dtype=torch.float32,
+                               device=dev)
+        err = lib.ipt_inverse_grid(ctypes.byref(params), pix.data_ptr(), partials.data_ptr(),
+                                   stats.data_ptr(), blocks.value,
+                                   torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(lib, err, "inverse grid")
+    inverse_tile.launches += 1
+    return partials.sum(dim=0, dtype=torch.float64).float(), stats
+
+
+def inverse_tile_rec(
+    scene: SceneData,
+    cfg,
+    p: torch.Tensor,
+    d: torch.Tensor,
+    alive: torch.Tensor,
+    uniforms: Optional[torch.Tensor] = None,
+    orig: Optional[torch.Tensor] = None,
+    keys: Optional[Keys] = None,
+    *,
+    tables: Optional[KernelTables] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """B6: the edge records (max_bounces*8, n) and the counts (2, n).  The
+    pixel colours enter in the reduction (grids_from_edge_records)."""
+    orig = _default_orig(p, orig)
+    _check_inverse(cfg, p, d, alive, uniforms, orig, keys)
+    if not _on_card(p, scene):
+        return inverse_tile_rec_plain(scene, cfg, p, d, alive, uniforms, orig, keys)
+    lib = _library("inverse")
+    params, _ = _trace_params(scene.diffuse, scene, cfg, tables, p, d, alive, uniforms, orig,
+                              keys)
+    n, dev = p.shape[1], p.device
+    rec = torch.empty((cfg.max_bounces * REC_INV_ROWS, n), dtype=torch.float32, device=dev)
+    stats = torch.empty((2, n), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        err = lib.ipt_inverse_rec(ctypes.byref(params), rec.data_ptr(), stats.data_ptr(),
+                                  torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(lib, err, "inverse records")
+    inverse_tile_rec.launches += 1
+    return rec, stats
+
+
+inverse_tile.launches = 0
+inverse_tile_rec.launches = 0
+
+
+def inverse_tile_rec_plain(scene, cfg, p, d, alive, uniforms=None, orig=None, keys=None):
+    """B6's plain version: the inverse bounce loop of _kernel_inv
+    (inverse_kernel.py:135-249) over all lanes at once.  The next ray is
+    intersected on every lane; the kernel sweeps it only where the path
+    goes on, and the lanes that stop never read it.  Per bounce:
+
+      the indirect edge dst -> src with weight w (f0 = 1), before roulette;
+      roulette on slot 4; a cosine direction about the face normal (slots 5,
+      6), `cosine` against the shading normal, w_next = w*cosine*pi/p_rr;
+      NEE with the CDF pick on slot 1 and the sqrt(r1) point (slots 2, 3):
+      nee_w = w cos(theta) cos(theta') / t^2 / p_light on the edge
+      src -> emitter (f0 = 1/pi, light = the emitter's emission).
+
+    A reached bounce that misses records dst and w with hit = 0."""
+    orig = _default_orig(p, orig)
+    _check_inverse(cfg, p, d, alive, uniforms, orig, keys)
+    n, nt = p.shape[1], scene.n_tri
+    planes = plane_rows(scene)
+    h_orig = rng.hash_orig(keys, orig[0]) if keys is not None else None
+    cos_scale = math.pi / cfg.p_rr
+
+    def isect(o, dirs):
+        return intersect_planes(planes, o, dirs, cfg.min_dot, cfg.epsilon)
+
+    def masked(x, m):
+        return torch.where(m, x, torch.zeros_like(x))
+
+    cur = isect(p.T.contiguous(), d.T.contiguous())
+    live = alive[0] > 0
+    w = torch.ones(n, dtype=torch.float32, device=p.device)
+    dst = torch.full((n,), nt, dtype=torch.int64, device=p.device)
+    segs = torch.zeros_like(w)
+    shadows = torch.zeros_like(w)
+    rec = torch.zeros((cfg.max_bounces * REC_INV_ROWS, n), dtype=torch.float32, device=p.device)
+    zero = torch.zeros_like(w)
+
+    for b in range(cfg.max_bounces):
+        if not bool(live.any()):
+            break
+        u = rng.draw(keys, h_orig, b, range(7)) if keys is not None else uniforms[8 * b : 8 * b + 7]
+        hit_act = live & cur.hit
+        src = cur.tri
+        face_n = scene.face_normal[src]
+        shade_n = smooth_normal(scene, src, cur.point)
+        cont = hit_act & (u[4] < cfg.p_rr)
+        next_dir, _ = sample_next_dir(face_n, None, zero, u[5], u[6])
+        cosine = dot3(next_dir, shade_n)
+        w_next = w * cosine * cos_scale
+        if scene.n_emissive > 0:
+            e_tri, e_p = pick_emissive(scene, u[1])
+            to_light = normalize3(sample_emissive_point(scene, e_tri, u[2], u[3]) - cur.point)
+            cos_theta = dot3(shade_n, to_light)
+            sh = isect(cur.point, to_light)
+            nxt = isect(cur.point, next_dir)
+            light_n = smooth_normal(scene, e_tri, sh.point)
+            cos_theta_p = -dot3(light_n, to_light)
+            ok = hit_act & (cos_theta >= 0) & sh.hit & (cos_theta_p >= 0) & (sh.tri == e_tri)
+            st = torch.where(ok, sh.t, torch.ones_like(sh.t))
+            nee_w = masked(w * cos_theta * cos_theta_p / (st * st) / e_p, ok)
+            e_idx = masked(e_tri, hit_act)
+            shadows = shadows + hit_act.float()
+        else:
+            nxt = isect(cur.point, next_dir)
+            ok = torch.zeros_like(hit_act)
+            nee_w = zero
+            e_idx = torch.zeros_like(src)
+        segs = segs + live.float()
+        rows = [masked(dst, live).float(), masked(src, hit_act).float(), hit_act.float(),
+                masked(w, live), ok.float(), nee_w, e_idx.float(), zero]
+        rec[b * REC_INV_ROWS : (b + 1) * REC_INV_ROWS] = torch.stack(rows)
+        w = torch.where(cont, w_next, w)
+        dst = torch.where(cont, src, dst)
+        live = cont
+        cur = nxt
+
+    return rec, torch.stack([segs, shadows], dim=0)
+
+
+def inverse_tile_plain(scene, cfg, p, d, alive, pix, uniforms=None, orig=None, keys=None):
+    """B5's plain version: B6's plain records reduced to the dense grid."""
+    _check(p, {"pix": (pix, (3, p.shape[1]), torch.float32)})
+    rec, stats = inverse_tile_rec_plain(scene, cfg, p, d, alive, uniforms, orig, keys)
+    return grids_from_edge_records(rec, pix.T, scene, cfg).float(), stats
+
+
+def grids_from_edge_records(
+    rec: torch.Tensor, pix: torch.Tensor, scene: SceneData, cfg
+) -> torch.Tensor:
+    """B6's records (max_bounces*8, n) and the pixel colours (n, 3) -> the
+    dense grid (nT+1, nT, 9) in float64 (the counterpart of
+    _grids_from_edge_records, render/inverse.py:350).
+
+    Per bounce, the lanes whose hit (indirect edge) or nee_ok (NEE edge) is
+    set are selected by index and their quantities index_add_-ed into flat
+    bins dst*nT + src.  Masked lanes are dropped, never multiplied by their
+    mask, so the NaN a masked lane may hold cannot leak, and they add no
+    atomics to one bin.  The quantities are formed in float32, as the kernel
+    forms them, and summed in float64: with no prefix sums there is no
+    cancellation, so small bins stay exact beside ~1e13 totals.  Negative
+    weights are summed as they are."""
+    nt = scene.n_tri
+    n = rec.shape[1]
+    if tuple(rec.shape) != (cfg.max_bounces * REC_INV_ROWS, n) or tuple(pix.shape) != (n, 3):
+        raise ValueError(f"records {tuple(rec.shape)} / pixels {tuple(pix.shape)} do not match "
+                         f"max_bounces={cfg.max_bounces}, n={n}")
+    grid = torch.zeros(((nt + 1) * nt, N_QUANT), dtype=torch.float64, device=rec.device)
+    pix = pix.to(torch.float32)
+    for b in range(cfg.max_bounces):
+        r = rec[b * REC_INV_ROWS : (b + 1) * REC_INV_ROWS]
+        ind = torch.nonzero(r[2] > 0).squeeze(1)
+        nee = torch.nonzero(r[4] > 0).squeeze(1)
+        e = r[6, nee].long()
+        grid.index_add_(0, r[0, ind].long() * nt + r[1, ind].long(),
+                        _quantities(r[3, ind], 1.0, pix[ind], None))
+        grid.index_add_(0, r[1, nee].long() * nt + e,
+                        _quantities(r[5, nee], INV_PI, pix[nee], scene.emission[e]))
+    return grid.reshape(nt + 1, nt, N_QUANT)
+
+
+def _quantities(w, f0, pix, light):
+    """(m, 9) float64 edge quantities [w, w*f0, w*f0*pix, w*f0*light, 1]
+    (light None: the indirect edge, which carries none)."""
+    wf = (w * f0)[:, None]
+    light_cols = torch.zeros_like(pix) if light is None else wf * light
+    return torch.cat([w[:, None], wf, wf * pix, light_cols, torch.ones_like(wf)], dim=1).double()
+
+
+def grids_from_acc(acc: torch.Tensor):
+    """Dense grid (nT+1, nT, 9) -> TransportGrids (inverse_kernel.py:412),
+    in float32.  The SPECULAR channel is zero: the kernels need p_spec == 0,
+    and compress reads only the DIFFUSE channel."""
+    from inverse_path_tracer_torch.render.inverse import TransportGrids
+
+    a = acc.to(torch.float32).reshape(-1, N_QUANT)
+    z1 = torch.zeros_like(a[:, 0])
+    z3 = torch.zeros_like(a[:, 2:5])
+    return TransportGrids(
+        w_sum=a[:, 0].contiguous(),
+        pixel_sum=torch.stack([a[:, 2:5], z3], dim=1),
+        light_sum=torch.stack([a[:, 5:8], z3], dim=1),
+        factors_sum=torch.stack([a[:, 1], z1], dim=1),
+        count=a[:, 8].contiguous(),
+    )

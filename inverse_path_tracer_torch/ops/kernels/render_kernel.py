@@ -288,6 +288,13 @@ def _library(name: str):
     if name == "render_fwd":
         lib.ipt_render_fwd.argtypes = [params, vp, vp, vp, vp]  # rad stats rec stream
         lib.ipt_render_fwd.restype = ci
+    elif name == "inverse":
+        lib.ipt_inverse_grid_blocks.argtypes = [params, ctypes.POINTER(ci)]
+        lib.ipt_inverse_grid_blocks.restype = ci
+        lib.ipt_inverse_grid.argtypes = [params, vp, vp, vp, ci, vp]  # pix partials stats blocks stream
+        lib.ipt_inverse_grid.restype = ci
+        lib.ipt_inverse_rec.argtypes = [params, vp, vp, vp]  # rec stats stream
+        lib.ipt_inverse_rec.restype = ci
     else:
         lib.ipt_grad_tile.argtypes = [params, vp, vp, vp]  # g partials stream
         lib.ipt_grad_tile.restype = ci

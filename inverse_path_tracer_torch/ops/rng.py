@@ -10,8 +10,18 @@ the global sample index:
 
 so a render is the same under any tiling.  A seed s maps to the key words
 (s >> 32, s & 0xFFFFFFFF), which for s < 2**32 are the words of
-jax.random.PRNGKey(s).  Bounce slots 0-5 feed the bounce loop; slots 6 and 7
-of bounce 0 are the camera jitter.
+jax.random.PRNGKey(s).
+
+Slot map, per bounce b (counter b*8 + slot):
+
+    forward loop   slots 0-5: light pick, r1, r2, roulette, phi, theta
+                   slots 6, 7 of bounce 0: the camera jitter (x, y)
+    inverse loop   slots 0-6: spec, light pick, r1, r2, roulette, phi,
+                   theta (the JAX inverse pass's row order)
+
+The inverse loop reads slot 6 of bounce 0, the forward camera's x jitter,
+so the extraction draws its camera rays under another key,
+fold_in(key, CAMERA_STREAM): the two streams share no (key, counter) pair.
 
 The arithmetic is uint32, carried here in int64 tensors holding values in
 [0, 2**32) (int64 shifts of non-negative values are logical); products are
@@ -29,6 +39,8 @@ GOLDEN = 0x9E3779B9
 _M1 = 0x85EBCA6B
 _M2 = 0xC2B2AE35
 SLOT_JITTER_X, SLOT_JITTER_Y = 6, 7
+# fold_in data of the inverse pass's camera stream (ASCII "CAM").
+CAMERA_STREAM = 0x43414D
 
 
 def key_words(seed: int) -> Tuple[int, int]:

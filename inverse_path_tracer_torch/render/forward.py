@@ -143,12 +143,16 @@ def _prepare(materials, scene, cfg, count, rays, uniforms, device):
     return dev, scene, materials, _External(p_all, d_all, u_all)
 
 
-def _launches(scene, cfg, key, start, count, ext: Optional[_External]):
+def _launches(scene, cfg, key, start, count, ext: Optional[_External],
+              camera_key: Optional[int] = None):
     """(lo, hi, kernel inputs) of each launch of cfg.tile_size samples.  The
     backward rebuilds exactly the forward's rays from the same key and
-    global indices (or slices the same external rays and uniforms)."""
+    global indices (or slices the same external rays and uniforms).  With
+    the fused RNG the camera jitter comes from `camera_key` (default: `key`)
+    and the bounce uniforms from `key`."""
     dev = scene.device
     keys = None if ext is not None else rng.key_words(key)
+    camera_key = key if camera_key is None else camera_key
     tile = max(1, min(cfg.tile_size, count))
     for lo in range(0, count, tile):
         hi = min(lo + tile, count)
@@ -158,7 +162,7 @@ def _launches(scene, cfg, key, start, count, ext: Optional[_External]):
             p, d = ext.p[lo:hi], ext.d[lo:hi]
             u = ext.uniforms[:, lo:hi].contiguous()
         else:
-            p, d = camera_rays(scene, cfg, key, idx)
+            p, d = camera_rays(scene, cfg, camera_key, idx)
             u = None
         yield lo, hi, dict(p=p.T.contiguous(), d=d.T.contiguous(), alive=alive, uniforms=u,
                            orig=idx.to(torch.int32)[None, :].contiguous(), keys=keys)

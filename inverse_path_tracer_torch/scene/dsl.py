@@ -15,7 +15,10 @@ Defaults when omitted: POS 0 0 0, ORI 0 0 0, SCL 1 1 1.
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import List, Tuple
+
+import numpy as np
 
 
 @dataclasses.dataclass
@@ -73,3 +76,27 @@ def load_params(filename: str) -> List[ObjectParams]:
             curr += line + "\n"
     params.append(object_from_string(curr))
     return params
+
+
+def standard_scene_string(rng: np.random.Generator) -> str:
+    """The dataset generator's scene (reference ipt_cuda.py:115-128): the
+    Cornell box at POS (0,0,4) SCL 2 and a unit cube at POS (0,-1.5,4) whose
+    inline Kd draws three independent uniforms, in the JAX package's text."""
+    kd = f"*Kd {rng.uniform()} {rng.uniform()} {rng.uniform()}*"
+    return ("OBJECT\nPOS 0 0 4\nSCL 2.0 2.0 2.0\nOBJ ./CornellBox/CornellBox-Empty-CO.obj\n"
+            "MTL ./CornellBox/CornellBox-Empty-CO.mtl\n"
+            f"OBJECT\nPOS 0.0 -1.5 4.0\nOBJ ./shapes/cube.obj\nMTL {kd}\n")
+
+
+def generate_scene_files(n: int, out_dir: str = "scenes", seed: int = 0) -> List[str]:
+    """Write n scene files {out_dir}/{i}.txt from one seeded generator (the
+    reference's generator is unseeded)."""
+    os.makedirs(out_dir, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    paths = []
+    for i in range(n):
+        path = os.path.join(out_dir, f"{i}.txt")
+        with open(path, "w") as f:
+            f.write(standard_scene_string(rng))
+        paths.append(path)
+    return paths

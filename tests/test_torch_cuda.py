@@ -9,7 +9,11 @@ GPU machine, which has no JAX (tests/conftest.py imports it, hence
 Tolerance: radiance and records rtol 1e-4 / atol 1e-5 and equal ray
 counts, kernel against its plain version on the same inputs; the material
 gradient rtol 1e-4 with an absolute floor of 1e-6 of its largest entry (the
-kernels and the plain one-hot contraction sum in different orders).
+kernels and the plain one-hot contraction sum in different orders).  The
+inverse kernels: B5's grid rtol 1e-4 with the same floor (shared-memory
+atomics add in no fixed order) and visit counts equal; B6's hit and nee_ok
+rows equal and its other rows within rtol 1e-4 / atol 1e-5 where their mask
+is set.
 """
 
 import os
@@ -160,3 +164,108 @@ def test_backward_goes_through_render_bwd(card, scene0):
         lambda v, lo: tonemap_mean(v, cfg.spp).sum() / (n // cfg.spp * 3))
     assert (render_tile_rec.launches - before[0], reverse_tile.launches - before[1]) == (2, 2)
     torch.testing.assert_close(d_mats, grads["auto"], rtol=1e-5, atol=1e-9)
+
+
+def grid_close(got, want):
+    """Grids: rtol 1e-4 with an absolute floor of 1e-6 of the largest entry
+    (shared-memory atomics add in no fixed order), visit counts equal."""
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-6 * float(want.abs().max()))
+    assert torch.equal(got[..., 8], want[..., 8])
+
+
+def sphere_scene(card, tmp_path):
+    from inverse_path_tracer_torch import build_scene
+    from inverse_path_tracer_torch.assets.make_fixture import sphere_obj_text
+    from inverse_path_tracer_torch.scene.dsl import ObjectParams
+
+    obj = tmp_path / "sphere.obj"
+    obj.write_text(sphere_obj_text(rings=8, segments=16))
+    box = ObjectParams(pos=(0, 0, 4), scl=(2, 2, 2), obj_file="CornellBox/CornellBox-Empty-CO.obj",
+                       mtl_file="CornellBox/CornellBox-Empty-CO.mtl")
+    ball = ObjectParams(pos=(0, -1.5, 4), obj_file=str(obj), mtl_file="*Kd 0.5 0.5 0.5*")
+    return build_scene([box, ball], asset_root=ASSET_ROOT).to(card)
+
+
+def assert_records_match(rec, rec_p):
+    r, q = rec.view(-1, 8, rec.shape[1]), rec_p.view(-1, 8, rec.shape[1])
+    assert torch.equal(r[:, 2], q[:, 2]) and torch.equal(r[:, 4], q[:, 4])
+    hit, ok = q[:, 2] > 0, q[:, 4] > 0
+    for row, mask in ((0, hit), (1, hit), (3, hit), (5, ok), (6, ok)):
+        torch.testing.assert_close(r[:, row][mask], q[:, row][mask], rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("mode", ["external", "fused"])
+def test_inverse_kernels_match_plain(card, scene0, mode):
+    """B5 and B6 against their plain versions, and B5's grid against B6's
+    records reduced."""
+    from inverse_path_tracer_torch.ops.kernels.inverse_kernel import (
+        grids_from_edge_records,
+        inverse_tile,
+        inverse_tile_plain,
+        inverse_tile_rec,
+        inverse_tile_rec_plain,
+    )
+
+    cfg = RenderConfig(width=32, height=32, spp=4, max_bounces=8)
+    args = tile_args(scene0, cfg, card, mode)
+    pix = torch.rand((3, cfg.n_samples), generator=torch.Generator().manual_seed(4)).to(card)
+    before = (inverse_tile.launches, inverse_tile_rec.launches)
+    grid, st = inverse_tile(scene0, cfg, pix=pix, **args)
+    rec, st_r = inverse_tile_rec(scene0, cfg, **args)
+    assert (inverse_tile.launches, inverse_tile_rec.launches) == tuple(k + 1 for k in before)
+    grid_p, st_p = inverse_tile_plain(scene0, cfg, pix=pix, **args)
+    rec_p, _ = inverse_tile_rec_plain(scene0, cfg, **args)
+    grid_close(grid, grid_p)
+    assert torch.equal(st, st_p) and torch.equal(st_r, st_p)
+    assert_records_match(rec, rec_p)
+    reduced = grids_from_edge_records(rec, pix.T, scene0, cfg).float()
+    torch.testing.assert_close(grid, reduced, rtol=1e-4, atol=1e-6 * float(reduced.abs().max()))
+    assert float(grid[..., 8].sum()) > cfg.n_samples
+
+
+def test_inverse_records_kernel_on_a_vertex_normal_scene(card, tmp_path):
+    from inverse_path_tracer_torch.ops.kernels.inverse_kernel import (
+        inverse_grid_fits,
+        inverse_tile,
+        inverse_tile_rec,
+        inverse_tile_rec_plain,
+    )
+
+    scene = sphere_scene(card, tmp_path)
+    assert scene.has_vertex_normals and not inverse_grid_fits(scene)
+    cfg = RenderConfig(width=32, height=32, spp=4, max_bounces=8)
+    args = tile_args(scene, cfg, card, "fused")
+    pix = torch.rand((3, cfg.n_samples), generator=torch.Generator().manual_seed(5)).to(card)
+    rec, st = inverse_tile_rec(scene, cfg, **args)
+    rec_p, st_p = inverse_tile_rec_plain(scene, cfg, **args)
+    assert_records_match(rec, rec_p)
+    assert torch.equal(st, st_p)
+    with pytest.raises(ValueError, match="shared memory"):
+        inverse_tile(scene, cfg, pix=pix, **args)
+
+
+def test_extraction_routes_and_p_spec(card, scene0):
+    """extract_graph on the card goes through B5; p_spec > 0 needs
+    backend="plain" on CUDA tensors, and the kernel route agrees with the
+    plain wavefront path."""
+    from inverse_path_tracer_torch import trace_transport_range
+    from inverse_path_tracer_torch.ops.kernels.inverse_kernel import inverse_tile
+
+    cfg = RenderConfig(width=16, height=16, spp=8, max_bounces=6, tile_size=1000)
+    img = torch.rand((16, 16, 3), generator=torch.Generator().manual_seed(6))
+    before = inverse_tile.launches
+    auto, stats = trace_transport_range(scene0, img, 3, cfg, 0, cfg.n_samples)
+    assert inverse_tile.launches == before + 3  # 2048 samples in launches of 1000
+    plain, plain_stats = trace_transport_range(scene0, img, 3, cfg.with_(backend="plain"), 0,
+                                               cfg.n_samples)
+    assert torch.equal(auto.count, plain.count)
+    assert [int(x) for x in stats] == [int(x) for x in plain_stats]
+    torch.testing.assert_close(auto.w_sum, plain.w_sum, rtol=1e-4, atol=1e-5)
+    for f in ("pixel_sum", "light_sum", "factors_sum"):  # the DIFFUSE channel
+        torch.testing.assert_close(getattr(auto, f)[:, 0], getattr(plain, f)[:, 0], rtol=1e-4,
+                                   atol=1e-5)
+    with pytest.raises(ValueError, match="p_spec"):
+        trace_transport_range(scene0, img, 3, cfg.with_(p_spec=0.25), 0, cfg.n_samples)
+    spec, _ = trace_transport_range(scene0, img, 3, cfg.with_(p_spec=0.25, backend="plain"), 0,
+                                    cfg.n_samples)
+    assert bool(torch.isfinite(spec.w_sum).all())

@@ -42,7 +42,10 @@ def test_no_jax_or_tpu_package_import(path):
 def test_importing_the_port_loads_no_jax():
     code = ("import sys, inverse_path_tracer_torch, inverse_path_tracer_torch.ops.kernels.build, "
             "inverse_path_tracer_torch.render.diff, inverse_path_tracer_torch.models.recover, "
-            "inverse_path_tracer_torch.utils.checkpoint; "
+            "inverse_path_tracer_torch.utils.checkpoint, inverse_path_tracer_torch.render.inverse, "
+            "inverse_path_tracer_torch.ops.kernels.inverse_kernel, "
+            "inverse_path_tracer_torch.models.gcn, inverse_path_tracer_torch.data.pipeline, "
+            "inverse_path_tracer_torch.utils.metrics; "
             "bad = [m for m in sys.modules if m.split('.')[0] in %r]; "
             "assert not bad, bad" % (FORBIDDEN,))
     env = dict(os.environ, PYTHONPATH=REPO)
