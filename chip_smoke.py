@@ -5,9 +5,10 @@
 
 Phases, each failing loudly (any failure exits nonzero):
   1. the card's name and power limit (nvidia-smi);
-  2. build every CUDA kernel from the sources here (render_fwd.cu: B1 and
-     B3; render_bwd.cu: B2 and B4; inverse.cu: B5 and B6), one nvcc per
-     source, in parallel;
+  2. build every CUDA kernel from the sources here (render_fwd.cu: B1, B3,
+     B7, B8 and B10's own launch; render_bwd.cu: B2, B4 and B9; inverse.cu:
+     B5 and B6; every kernel sweeps through B10 in render_common.cuh), one
+     nvcc per source, in parallel;
   3. each kernel against its plain PyTorch version on the card, on the
      scene-0 fixture at 64x64/4 spp/8 bounces: external uniforms with quirks
      on and off, the fused RNG, a specular (Ks > 0) variant and a small
@@ -63,7 +64,37 @@ Phases, each failing loudly (any failure exits nonzero):
  15. B5 at the first 2^20-ray launch of scene 0's extraction and B6 at the
      first of the vertex-normal scene's (the path that runs each), each
      against its plain version on those inputs (16 bounces), timed beside
-     its plain version and its bound.
+     its plain version and its bound;
+ 16. the large scene (assets.large_scene: the box plus a 1280-triangle
+     sphere, 1298 triangles, clustered at the auto width 768) at 64x64/4
+     spp/8 bounces, fused RNG and external uniforms: B7, B8 (stages 0 and
+     1, records) and B10 against their plain versions, exact on the flat
+     variant and within the vertex-normal bounds of phase 3 on the other
+     (the plain stages start from the kernel's carries); B9 on B8's records
+     within the gradient tolerance; staged against mega on the card, bit
+     for bit with equal counts on the flat scene and scene 0;
+ 17. clustered B1-B4 and B6 on the flat large scene against the plain
+     versions of the dense sweep in global order (radiance, counts and
+     records equal, triangle rows mapped back; gradients and grids within
+     their tolerances), and B5 with clusters of 8 on scene 0;
+ 18. the large-scene main path, the vertex-normal scene at 512x512/64
+     spp/16 bounces, fused RNG, wavefront "auto" (staged): render_samples
+     with the launches of B7, B8 and B10 (one warm-up, 3 timed runs, rays/s,
+     a profile) and the same forward at wavefront="mega" (2 timed runs);
+     fwd+bwd through the staged autograd Function (B7, B8 and B9 launches;
+     1 warm-up, 2 timed runs, a profile); loss_and_grad_range staged, its
+     gradient equal to autograd's (rtol 1e-5), 2 timed runs; the forward at
+     cluster_k 128 and 32, timed once each;
+ 19. the finite-difference gate of phase 8 on the large vertex-normal scene
+     through the staged gradient;
+ 20. the large vertex-normal scene extracted at 500x500/100 spp/16 bounces
+     through clustered B6 and the records reduction: timed, no NaN, visited
+     rows summing to 1;
+ 21. B7, B8 (stage 0 and stage 2) and B9 at the first 2^20-ray launch of
+     the large render, each against its plain version there and timed
+     beside it and its bound; B10 as B1 on that launch with clustered
+     tables against dense tables, with the share of (ray, cluster) box
+     tests that entered.
 
 The line before the last is a JSON object of the kernels; the last line is
 {"ok": true, "device": {...}}.  Needs CUDA; exits nonzero without it.
@@ -106,6 +137,12 @@ KERNELS = {
                            "inverse_path_tracer_tpu/ops/pallas/render_kernel.py:1640"),
     "inverse_grid": ("inverse.cu", "inverse_path_tracer_tpu/ops/pallas/inverse_kernel.py:271"),
     "inverse_rec": ("inverse.cu", "inverse_path_tracer_tpu/ops/pallas/inverse_kernel.py:338"),
+    "init_tile": ("render_fwd.cu", "inverse_path_tracer_tpu/ops/pallas/render_kernel.py:1677"),
+    "stage_tile": ("render_fwd.cu", "inverse_path_tracer_tpu/ops/pallas/render_kernel.py:1711"),
+    "stage_reverse_tile": ("render_bwd.cu",
+                           "inverse_path_tracer_tpu/ops/pallas/render_kernel.py:1780"),
+    "cluster_sweep": ("render_common.cuh",
+                      "inverse_path_tracer_tpu/ops/pallas/render_kernel.py:404"),
 }
 # f32 operations of the suffix recursion per reached bounce (render_bwd.cu
 # reverse_path): ct = pm*suf*(coeff/pi) + g*pm*nee (3+3+1+3+3+3), suf =
@@ -458,16 +495,18 @@ def loss_and_grad_path(device, grad_ref):
     return launches
 
 
-def fd_gate(device):
-    """Phase 8: central finite differences along the gradient
-    (bench.py:196-236): ratio = <g, v> / FD_v in (0.98, 1.02)."""
+def fd_gate(device, scene=None, mats=None, label="scene 0"):
+    """Phases 8 and 19: central finite differences along the gradient
+    (bench.py:196-236): ratio = <g, v> / FD_v in (0.98, 1.02), on scene 0
+    or the given scene."""
     import torch
 
     from inverse_path_tracer_torch import RenderConfig, render_samples
     from inverse_path_tracer_torch.ops.tonemap import tonemap_mean
 
     cfg = RenderConfig(**FD)
-    scene, mats = fixture(device)
+    if scene is None:
+        scene, mats = fixture(device)
 
     def loss(m):
         vals, _ = render_samples(m, scene, 7, cfg, device=device)
@@ -489,7 +528,7 @@ def fd_gate(device):
     v_rand = torch.randn(mats.shape, generator=torch.Generator().manual_seed(12)).to(device)
     r_rand, _, _ = ratio(v_rand)
     ok = 0.98 < r < 1.02
-    log(f"grad FD gate {shape(cfg)} fused: along g analytic {an:.6e} fd {fd:.6e} ratio "
+    log(f"grad FD gate {label} {shape(cfg)} fused: along g analytic {an:.6e} fd {fd:.6e} ratio "
         f"{r:.5f}; random direction ratio {r_rand:.5f} -> {'OK' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError(f"grad FD ratio {r:.5f} outside (0.98, 1.02)")
@@ -1031,6 +1070,540 @@ def inverse_kernel_timing(device, launches, check_err, target0, large):
         })
     return kernels
 
+STAGED = ("init_tile", "stage_tile", "stage_reverse_tile", "cluster_sweep")
+
+
+def lanes_equal(got, want, vertex_normals):
+    """(fraction of lanes whose columns agree, max |d|): bit for bit on a
+    flat scene, within rtol 1e-4 / atol 1e-5 on a vertex-normal one."""
+    import torch
+
+    if vertex_normals:
+        same = torch.isclose(got, want, rtol=1e-4, atol=1e-5)
+    else:
+        same = got == want
+    d = (got.double() - want.double()).abs()
+    d = d[torch.isfinite(d)]
+    return float(same.all(dim=0).float().mean()), float(d.max()) if d.numel() else 0.0
+
+
+def box_rays(tabs, n, seed, device):
+    """Rays from points inside the cluster boxes, with zero direction
+    components of either sign and axis-aligned rays (B10's edge cases)."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    cab = tabs.cab.cpu()
+    c = torch.randint(0, cab.shape[0], (n,), generator=g)
+    o = cab[c, 0:3] + torch.rand((n, 3), generator=g) * (cab[c, 3:6] - cab[c, 0:3])
+    d = torch.randn((n, 3), generator=g)
+    d[torch.rand((n, 3), generator=g) < 0.2] = 0.0
+    axis = torch.randint(0, 3, (n // 8,), generator=g)
+    d[: n // 8] = torch.eye(3)[axis] * torch.where(torch.rand((n // 8, 1), generator=g) < 0.5,
+                                                    -1.0, 1.0)
+    d[n // 8 : n // 4, 1] = -0.0
+    d[d.abs().sum(dim=1) == 0] = torch.tensor([0.0, -1.0, 0.0])
+    d = d / torch.linalg.norm(d, dim=1, keepdim=True)
+    return o.T.contiguous().to(device), d.T.contiguous().to(device)
+
+
+def check_staged_vs_plain(device):
+    """Phase 16: B7, B8, B9 and B10 against their plain versions on the
+    large scene (flat: exact; vertex normals: at least 97% of lanes), and
+    staged against mega on the card.  Returns the largest |kernel - plain|
+    of each over the flat cases."""
+    import torch
+
+    from inverse_path_tracer_torch import RenderConfig, large_scene, render_samples
+    from inverse_path_tracer_torch.ops.kernels.render_kernel import (
+        intersect_tile,
+        intersect_tile_plain,
+        pack_tables,
+    )
+    from inverse_path_tracer_torch.ops.kernels.staged_kernel import (
+        init_tile,
+        init_tile_plain,
+        stage_reverse_tile,
+        stage_reverse_tile_plain,
+        stage_tile,
+        stage_tile_plain,
+    )
+
+    cfg = RenderConfig(**CHECK)
+    k, n = cfg.stage_bounces, cfg.n_samples
+    worst = dict.fromkeys(STAGED, 0.0)
+    for vn in (False, True):
+        scene = large_scene(device, vertex_normals=vn)
+        mats = scene.diffuse
+        tabs = pack_tables(scene, mats, cfg)
+        need = 0.97 if vn else 1.0
+        for external in (True, False):
+            name = f"{'vertex_normals' if vn else 'flat'} {'external' if external else 'fused'}"
+            a = tile_inputs(scene, cfg, 31, n, device, external)
+            carry = init_tile(mats, scene, cfg, a["p"], a["d"], a["alive"], tables=tabs)
+            frac, err = lanes_equal(carry, init_tile_plain(mats, scene, cfg, a["p"], a["d"],
+                                                           a["alive"]), vn)
+            res = {"init_tile": (frac, err)}
+            g = torch.rand((3, n), generator=torch.Generator().manual_seed(8)).to(device)
+            suf = torch.zeros((4, n), device=device)
+            ok = frac >= need
+            for s in range(cfg.max_bounces // k):
+                u_s = (a["uniforms"][s * k * 8 : (s + 1) * k * 8].contiguous() if external
+                       else None)
+                st = (mats, scene, cfg, carry, a["orig"], s * k, k, u_s, a.get("keys"))
+                out, rec = stage_tile(*st, with_rec=True, tables=tabs)
+                out_p, rec_p = stage_tile_plain(*st, with_rec=True)
+                no_rec_same = torch.equal(stage_tile(*st, tables=tabs), out)
+                f_c, e_c = lanes_equal(out, out_p, vn)
+                f_r, e_r = lanes_equal(rec, rec_p, vn)
+                dm, suf_o = stage_reverse_tile(scene.n_tri, cfg, k, rec, g, suf)
+                dm_p, suf_p = stage_reverse_tile_plain(scene.n_tri, cfg, k, rec, g, suf)
+                b9 = (vn_grad_close(dm, dm_p) if vn else grad_close(dm, dm_p)) and bool(
+                    torch.allclose(suf_o, suf_p, rtol=1e-5, atol=1e-6))
+                ok = ok and f_c >= need and f_r >= need and no_rec_same and b9
+                res[f"stage_tile {s}"] = (min(f_c, f_r), max(e_c, e_r))
+                res[f"stage_reverse_tile {s}"] = (float(b9), float((dm - dm_p).abs().max()))
+                carry, suf = out, suf_o
+            t, idx = intersect_tile(scene, cfg, a["p"], a["d"], tables=tabs)
+            t_p, idx_p = intersect_tile_plain(scene, cfg, a["p"], a["d"])
+            pb, db = box_rays(tabs, n, 17, device)
+            tb, ib = intersect_tile(scene, cfg, pb, db, tables=tabs)
+            tb_p, ib_p = intersect_tile_plain(scene, cfg, pb, db)
+            hits = torch.stack([torch.cat([t, tb]), torch.cat([idx, ib]).float()])
+            hits_p = torch.stack([torch.cat([t_p, tb_p]), torch.cat([idx_p, ib_p]).float()])
+            res["cluster_sweep"] = lanes_equal(hits, hits_p, vn)
+            ok = ok and res["cluster_sweep"][0] >= need and float(torch.isfinite(tb).float().mean()) > 0.3
+            torch.cuda.synchronize()
+            if not vn:
+                for key, (_, e) in res.items():
+                    kname = key.split(" ")[0]
+                    worst[kname] = max(worst[kname], e)
+            log(f"check staged {name} {shape(cfg)} ({scene.n_tri} triangles, clusters of "
+                f"{tabs.cluster_k}): " + ", ".join(f"{key} {f:.5f} lanes agree / max |d| {e:.3e}"
+                                                    for key, (f, e) in res.items())
+                + f" -> {'OK' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"a staged kernel disagrees with its plain version on {name}")
+
+    # Staged against mega on the card, bit for bit with equal counts.
+    from inverse_path_tracer_torch.render.forward import camera_rays
+
+    scene0, mats0 = fixture(device)
+    flat = large_scene(device, vertex_normals=False)
+    for name, scene, mats, c, external in (
+            ("flat large fused", flat, flat.diffuse, cfg, False),
+            ("flat large external", flat, flat.diffuse, cfg.with_(rng="external"), True),
+            ("scene 0 fused", scene0, mats0, cfg.with_(wavefront="staged"), False)):
+        kw = dict(device=device)
+        if external:
+            idx = torch.arange(n, device=device)
+            kw["rays"] = camera_rays(scene, c, 5, idx)
+            kw["uniforms"] = torch.rand((c.max_bounces * 8, n),
+                                        generator=torch.Generator().manual_seed(6)).to(device)
+        sv, ss = render_samples(mats, scene, 5, c, **kw)
+        mv, ms = render_samples(mats, scene, 5, c.with_(wavefront="mega"), **kw)
+        same = torch.equal(sv, mv) and [int(x) for x in ss] == [int(x) for x in ms]
+        log(f"staged = mega on the card, {name}: bit-equal {torch.equal(sv, mv)}, segments "
+            f"{int(ss.segments)} vs {int(ms.segments)}, shadow rays {int(ss.shadow_rays)} vs "
+            f"{int(ms.shadow_rays)} -> {'OK' if same else 'FAIL'}")
+        if not same:
+            raise AssertionError(f"staged differs from mega on {name}")
+    return worst
+
+
+def check_clustered_vs_dense(device):
+    """Phase 17: B1-B4 and B6 with clustered tables on the flat large scene
+    against the plain versions of the dense sweep in global order; B5 with
+    clusters of 8 on scene 0.  Returns the largest |kernel - plain|."""
+    import torch
+
+    from inverse_path_tracer_torch import RenderConfig, large_scene
+    from inverse_path_tracer_torch.ops.kernels import clusters
+    from inverse_path_tracer_torch.ops.kernels.inverse_kernel import (
+        grids_from_edge_records,
+        inverse_tile,
+        inverse_tile_plain,
+        inverse_tile_rec,
+        inverse_tile_rec_plain,
+    )
+    from inverse_path_tracer_torch.ops.kernels.render_kernel import (
+        grad_tile,
+        grad_tile_plain,
+        pack_tables,
+        render_tile,
+        render_tile_plain,
+        render_tile_rec,
+        render_tile_rec_plain,
+        reverse_tile,
+    )
+
+    cfg = RenderConfig(**CHECK)
+    scene = large_scene(device, vertex_normals=False)
+    mats = scene.diffuse
+    a = tile_inputs(scene, cfg, 41, cfg.n_samples, device, external=False)
+    g = torch.rand((3, cfg.n_samples), generator=torch.Generator().manual_seed(9)).to(device)
+    pix = torch.rand((3, cfg.n_samples), generator=torch.Generator().manual_seed(10)).to(device)
+    tabs = pack_tables(scene, mats, cfg)
+    perm = tabs.perm
+    rk, sk = render_tile(mats, scene, cfg, tables=tabs, **a)
+    _, _, rec = render_tile_rec(mats, scene, cfg, tables=tabs, **a)
+    d2 = grad_tile(mats, scene, cfg, g=g, tables=tabs, **a)
+    d4 = reverse_tile(scene.n_tri, cfg, rec, g, perm)
+    rec6, st6 = inverse_tile_rec(scene, cfg, tables=tabs, **a)
+    grid6 = grids_from_edge_records(rec6, pix.T, scene, cfg, perm).float()
+    min_tp = clusters.CLUSTER_MIN_TP
+    try:
+        clusters.CLUSTER_MIN_TP = 1 << 30  # the plain versions sweep densely
+        rp, sp = render_tile_plain(mats, scene, cfg, **a)
+        _, _, rec_p = render_tile_rec_plain(mats, scene, cfg, **a)
+        dp = grad_tile_plain(mats, scene, cfg, g=g, **a)
+        rec6_p, st6_p = inverse_tile_rec_plain(scene, cfg, **a)
+        grid6_p, _ = inverse_tile_plain(scene, cfg, pix=pix, **a)
+        scene0, _ = fixture(device)
+        cfg8 = cfg.with_(cluster_k=8)
+        a0 = tile_inputs(scene0, cfg8, 42, cfg.n_samples, device, external=False)
+        grid5_p, st5_p = inverse_tile_plain(scene0, cfg8, pix=pix, **a0)
+        clusters.CLUSTER_MIN_TP = 8
+        assert pack_tables(scene0, scene0.diffuse, cfg8).cluster_k == 8
+        grid5, st5 = inverse_tile(scene0, cfg8, pix=pix, **a0)
+    finally:
+        clusters.CLUSTER_MIN_TP = min_tp
+    torch.cuda.synchronize()
+    # Records: every row equal once the internal triangle rows are mapped back.
+    r, q = rec.view(cfg.max_bounces, 16, -1).clone(), rec_p.view(cfg.max_bounces, 16, -1)
+    hit = r[:, 14] > 0
+    r[:, 13][hit] = perm[r[:, 13][hit].long()].float()
+    r6, q6 = rec6.view(cfg.max_bounces, 8, -1).clone(), rec6_p.view(cfg.max_bounces, 8, -1)
+    to_g = torch.cat([perm, torch.tensor([scene.n_tri], device=device)])
+    hit6 = r6[:, 2] > 0
+    # dst of every reached slot (a miss keeps its weight), src and the
+    # light's triangle where the slot hit.
+    for row, mask in ((0, hit6 | (r6[:, 3] != 0)), (1, hit6), (6, hit6)):
+        r6[:, row][mask] = to_g[r6[:, row][mask].long()].float()
+    floor5 = 1e-6 * float(grid5_p.abs().max())
+    floor6 = 1e-6 * float(grid6_p.abs().max())
+    checks = {
+        "B1 radiance and counts equal": torch.equal(rk, rp) and torch.equal(sk, sp),
+        "B3 records equal": torch.equal(r, q),
+        "B2 within tolerance": grad_close(d2, dp),
+        "B4 within tolerance": grad_close(d4, dp),
+        "B6 records equal": torch.equal(r6, q6) and torch.equal(st6, st6_p),
+        "B6 reduced grid": bool(torch.allclose(grid6, grid6_p, rtol=1e-4, atol=floor6)),
+        "B5 clusters of 8 on scene 0": bool(torch.allclose(grid5, grid5_p, rtol=1e-4,
+                                                           atol=floor5))
+        and torch.equal(grid5[..., 8], grid5_p[..., 8]) and torch.equal(st5, st5_p),
+    }
+    err = {"render_fwd": float((rk - rp).abs().max()),
+           "render_fwd_rec": float((r - q).abs().max()),
+           "render_bwd_grad": float((d2 - dp).abs().max()),
+           "render_bwd_reverse": float((d4 - dp).abs().max()),
+           "inverse_rec": float((r6 - q6).abs().max()),
+           "inverse_grid": float((grid5 - grid5_p).abs().max())}
+    ok = all(checks.values())
+    log(f"check clustered kernels (clusters of {tabs.cluster_k}, {scene.n_tri} triangles) against "
+        f"dense plain {shape(cfg)}: " + ", ".join(f"{k} {v}" for k, v in checks.items())
+        + "; max |d| " + ", ".join(f"{k} {e:.3e}" for k, e in err.items())
+        + f" -> {'OK' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("a clustered kernel disagrees with the dense plain version")
+    return err
+
+
+def large_main_path(device):
+    """Phase 18: the large vertex-normal scene at 512x512/64 spp/16 bounces,
+    staged: the forward (B7, B8, B10 launches), mega beside it, fwd+bwd (B7,
+    B8, B9), loss_and_grad_range, and the forward at cluster_k 128 and 32.
+    Returns ({kernel: launches on its path}, the scene)."""
+    import torch
+
+    from inverse_path_tracer_torch import (
+        RenderConfig,
+        large_scene,
+        loss_and_grad_range,
+        render_samples,
+    )
+    from inverse_path_tracer_torch.ops.kernels.render_kernel import intersect_tile
+    from inverse_path_tracer_torch.ops.kernels.staged_kernel import (
+        init_tile,
+        stage_reverse_tile,
+        stage_tile,
+    )
+    from inverse_path_tracer_torch.ops.tonemap import tonemap_mean
+
+    cfg = RenderConfig(**MAIN)
+    scene = large_scene(device)
+    mats = scene.diffuse
+    label = f"large scene ({scene.n_tri} triangles, vertex normals) {shape(cfg)}"
+
+    def timed_runs(what, fn, runs, stats_of):
+        for k in range(runs):
+            out = []
+            t = cuda_ms(lambda: out.append(fn(k + 2)), 1)
+            st = stats_of(out[0])
+            rays = int(st.segments) + int(st.shadow_rays)
+            log(f"{what} run {k}: {t:.3f} ms, rays {rays}, {rays / (t / 1e3):.6e} rays/s")
+
+    init_tile.launches = stage_tile.launches = intersect_tile.launches = 0
+    vals, stats = render_samples(mats, scene, 0, cfg, device=device)
+    torch.cuda.synchronize()
+    launches = {"init_tile": init_tile.launches, "stage_tile": stage_tile.launches,
+                "cluster_sweep": intersect_tile.launches}
+    if min(launches.values()) == 0:
+        raise AssertionError(f"the large-scene forward did not launch every kernel: {launches}")
+    if vals.shape != (cfg.n_samples, 3) or not bool(torch.isfinite(vals).all()):
+        raise AssertionError(f"bad radiance: shape {tuple(vals.shape)}")
+    mean = float(vals.mean())
+    if not 0.05 < mean < 50.0:
+        raise AssertionError(f"implausible mean radiance {mean}")
+    log(f"large main path {label}, staged: {launches['init_tile']} launches of init_tile, "
+        f"{launches['stage_tile']} of stage_tile, {launches['cluster_sweep']} of the clustered "
+        f"sweep; segments {int(stats.segments)}, shadow rays {int(stats.shadow_rays)}, mean "
+        f"radiance {mean:.5f}")
+    render = lambda key, c=cfg: render_samples(mats, scene, key, c, device=device)
+    render(1)  # warm-up
+    timed_runs("large forward staged", render, 3, lambda o: o[1])
+    profile_once("one large staged render", lambda: render(7))
+    mega = cfg.with_(wavefront="mega")
+    timed_runs("large forward mega", lambda key: render(key, mega), 2, lambda o: o[1])
+    for ck in (128, 32):
+        timed_runs(f"large forward staged cluster_k {ck}", lambda key: render(key, cfg.with_(
+            cluster_k=ck)), 1, lambda o: o[1])
+
+    def fwd_bwd(key):
+        m = mats.clone().requires_grad_()
+        v, st = render_samples(m, scene, key, cfg, device=device)
+        tonemap_mean(v, cfg.spp).mean().backward()
+        return m.grad, st
+
+    init_tile.launches = stage_tile.launches = stage_reverse_tile.launches = 0
+    grad, _ = fwd_bwd(0)
+    torch.cuda.synchronize()
+    fb = {"init_tile": init_tile.launches, "stage_tile": stage_tile.launches,
+          "stage_reverse_tile": stage_reverse_tile.launches}
+    if min(fb.values()) == 0:
+        raise AssertionError(f"the large-scene fwd+bwd did not launch every kernel: {fb}")
+    if not bool(torch.isfinite(grad).all()) or float(grad.abs().sum()) == 0.0:
+        raise AssertionError("the large-scene gradient is not finite and nonzero")
+    log(f"large fwd+bwd: {fb['init_tile']} launches of init_tile, {fb['stage_tile']} of "
+        f"stage_tile, {fb['stage_reverse_tile']} of stage_reverse_tile; |grad|_1 "
+        f"{float(grad.abs().sum()):.6e}, {int((grad != 0).any(dim=1).sum())} of {scene.n_tri} "
+        f"triangles nonzero")
+    fwd_bwd(1)  # warm-up
+    timed_runs("large fwd+bwd", fwd_bwd, 2, lambda o: o[1])
+    profile_once("one large fwd+bwd", lambda: fwd_bwd(7))
+
+    n_values = cfg.width * cfg.height * 3
+
+    def lg(key):
+        return loss_and_grad_range(mats, scene, key, cfg, 0, cfg.n_samples,
+                                   lambda v, lo: tonemap_mean(v, cfg.spp).sum() / n_values,
+                                   device=device)
+
+    init_tile.launches = stage_tile.launches = stage_reverse_tile.launches = 0
+    loss, g_lg, _ = lg(0)
+    torch.cuda.synchronize()
+    lgl = (init_tile.launches, stage_tile.launches, stage_reverse_tile.launches)
+    err = float(((g_lg - grad).abs() / grad.abs().clamp_min(1e-30)).max())
+    ok = min(lgl) > 0 and bool(torch.allclose(g_lg, grad, rtol=1e-5, atol=0))
+    log(f"large loss_and_grad_range: launches of init_tile, stage_tile, stage_reverse_tile {lgl}"
+        f"; loss {float(loss):.7f}; max rel |grad - autograd's| {err:.3e} (bit-equal "
+        f"{torch.equal(g_lg, grad)}) -> {'OK' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the staged loss_and_grad_range differs from autograd's gradient")
+    timed_runs("large loss_and_grad_range", lg, 2, lambda o: o[2])
+    launches["stage_reverse_tile"] = fb["stage_reverse_tile"]
+    return launches, scene
+
+
+def large_vn_extraction(device, scene):
+    """Phase 20: the large vertex-normal scene at 500x500/100 spp/16
+    bounces through clustered B6 and the records reduction."""
+    import torch
+
+    from inverse_path_tracer_torch import (
+        RenderConfig,
+        compress_grids,
+        render_image,
+        trace_transport_range,
+    )
+    from inverse_path_tracer_torch.ops.kernels.inverse_kernel import inverse_tile_rec
+    from inverse_path_tracer_torch.ops.kernels.render_kernel import intersect_tile
+
+    cfg = RenderConfig(**GOLDEN)
+    target = render_image(scene.diffuse, scene, 1, cfg, device=device)
+    inverse_tile_rec.launches = intersect_tile.launches = 0
+    out = []
+    t = cuda_ms(lambda: out.append(trace_transport_range(scene, target, 0, cfg, 0, cfg.n_samples,
+                                                         device=device)), 1)
+    grids, stats = out[0]
+    w, pixel, light = compress_grids(grids, scene.n_tri)
+    launches = (inverse_tile_rec.launches, intersect_tile.launches)
+    finite = all(bool(torch.isfinite(x).all()) for x in (w, pixel, light))
+    sums = w.sum(dim=1)
+    rows_ok = bool(((sums[sums > 0] - 1.0).abs() <= 1e-5).all())
+    rays = int(stats.segments) + int(stats.shadow_rays)
+    ok = min(launches) > 0 and finite and rows_ok and int((sums > 0).sum()) > scene.n_tri // 2
+    log(f"large extraction ({scene.n_tri} triangles, vertex normals, clustered) {shape(cfg)}: "
+        f"{launches[0]} launches of inverse_rec ({launches[1]} of the clustered sweep), "
+        f"{t:.3f} ms, rays {rays}, {rays / (t / 1e3):.6e} rays/s; finite {finite}, visited rows "
+        f"{int((sums > 0).sum())} sum to 1 {rows_ok} -> {'OK' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the large-scene extraction failed")
+    t2 = cuda_ms(lambda: trace_transport_range(scene, target, 0, cfg, 0, cfg.n_samples,
+                                               device=device), 1)
+    log(f"large extraction run 1: {t2:.3f} ms, {rays / (t2 / 1e3):.6e} rays/s")
+
+
+def large_kernel_timing(device, launches, check_err):
+    """Phase 21: B7, B8 and B9 at the first 2^20-ray launch of the large
+    render (the vertex-normal scene, fused RNG), each against its plain
+    version there (at least 97% of lanes agreeing) and timed beside it and
+    its bound; B10 as B1 on that launch with clustered and dense tables."""
+    import torch
+
+    from inverse_path_tracer_torch import RenderConfig, large_scene
+    from inverse_path_tracer_torch.ops.intersect import counting_sweeps
+    from inverse_path_tracer_torch.ops.kernels.render_kernel import (
+        pack_tables,
+        render_tile,
+        render_tile_plain,
+    )
+    from inverse_path_tracer_torch.ops.kernels.staged_kernel import (
+        init_tile,
+        init_tile_plain,
+        stage_reverse_tile,
+        stage_reverse_tile_plain,
+        stage_tile,
+        stage_tile_plain,
+    )
+    from inverse_path_tracer_torch.render.forward import _binned_order, _scene_bins
+
+    cfg = RenderConfig(**MAIN)
+    k = cfg.stage_bounces
+    scene = large_scene(device)
+    mats = scene.diffuse
+    n = min(cfg.tile_size, cfg.n_samples)
+    a = tile_inputs(scene, cfg, 0, n, device, external=False)
+    keys = a["keys"]
+    tabs = pack_tables(scene, mats, cfg)
+    dense = pack_tables(scene, mats)
+    bins = _scene_bins(scene, cfg)
+    nt = scene.n_tri
+
+    carry0 = init_tile(mats, scene, cfg, a["p"], a["d"], a["alive"], tables=tabs)
+    with counting_sweeps() as c_init:
+        carry0_p = init_tile_plain(mats, scene, cfg, a["p"], a["d"], a["alive"])
+    inputs, counts, agree = {}, {}, {"init_tile": lanes_equal(carry0, carry0_p, True)}
+    carry, orig = carry0, a["orig"]
+    for s in range(3):
+        order = _binned_order(carry, *bins, cfg.bin_cells)
+        carry, orig = carry[:, order].contiguous(), orig[:, order].contiguous()
+        inputs[s] = (carry, orig)
+        out = stage_tile(mats, scene, cfg, carry, orig, s * k, k, keys=keys, tables=tabs)
+        if s in (0, 2):
+            with counting_sweeps() as c:
+                out_p = stage_tile_plain(mats, scene, cfg, carry, orig, s * k, k, keys=keys)
+            counts[s] = dict(c)
+            agree[f"stage_tile {s}"] = lanes_equal(out, out_p, True)
+        carry = out
+    c0, o0 = inputs[0]
+    _, rec0 = stage_tile(mats, scene, cfg, c0, o0, 0, k, keys=keys, with_rec=True, tables=tabs)
+    g = torch.rand((3, n), generator=torch.Generator().manual_seed(5)).to(device)
+    suf = torch.zeros((4, n), device=device)
+    dm, suf_o = stage_reverse_tile(nt, cfg, k, rec0, g, suf)
+    dm_p, suf_p = stage_reverse_tile_plain(nt, cfg, k, rec0, g, suf)
+    b9_ok = grad_close(dm, dm_p) and bool(torch.allclose(suf_o, suf_p, rtol=1e-5, atol=1e-6))
+    rb, sb = render_tile(mats, scene, cfg, tables=tabs, **a)
+    rd, sd = render_tile(mats, scene, cfg, tables=dense, **a)
+    with counting_sweeps() as c_b1:
+        rp, sp = render_tile_plain(mats, scene, cfg, **a)
+    torch.cuda.synchronize()
+    agree["cluster_sweep (B1)"] = lanes_equal(rb, rp, True)
+    agree["dense B1"] = lanes_equal(rd, rb, True)
+    ok = all(f >= 0.97 for f, _ in agree.values()) and b9_ok
+    log(f"large launch (3, {n}), clusters of {tabs.cluster_k}: " + ", ".join(
+        f"{key} {f:.5f} lanes agree (max |d| {e:.3e})" for key, (f, e) in agree.items())
+        + f"; stage_reverse_tile within tolerance {b9_ok} (max |d| "
+        f"{float((dm - dm_p).abs().max()):.3e}) -> {'OK' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("a staged kernel disagrees with its plain version at full shape")
+
+    c2, o2 = inputs[2]
+    timed = {
+        "init_tile": (lambda: init_tile(mats, scene, cfg, a["p"], a["d"], a["alive"],
+                                        tables=tabs),
+                      lambda: init_tile_plain(mats, scene, cfg, a["p"], a["d"], a["alive"])),
+        "stage_tile": (lambda: stage_tile(mats, scene, cfg, c0, o0, 0, k, keys=keys, tables=tabs),
+                       lambda: stage_tile_plain(mats, scene, cfg, c0, o0, 0, k, keys=keys)),
+        "stage_tile 2": (lambda: stage_tile(mats, scene, cfg, c2, o2, 2 * k, k, keys=keys,
+                                            tables=tabs),
+                         lambda: stage_tile_plain(mats, scene, cfg, c2, o2, 2 * k, k, keys=keys)),
+        "stage_reverse_tile": (lambda: stage_reverse_tile(nt, cfg, k, rec0, g, suf),
+                               lambda: stage_reverse_tile_plain(nt, cfg, k, rec0, g, suf)),
+        "cluster_sweep": (lambda: render_tile(mats, scene, cfg, tables=tabs, **a),
+                          lambda: render_tile_plain(mats, scene, cfg, **a)),
+        "dense B1": (lambda: render_tile(mats, scene, cfg, tables=dense, **a), None),
+    }
+    ms = {key: cuda_ms(fn, 5) for key, (fn, _) in timed.items()}
+    plain_ms = {key: cuda_ms(fn, 1) for key, (_, fn) in timed.items() if fn is not None}
+
+    # Bounds, from this launch's data.  Operations: the (ray, triangle)
+    # pairs the clustered sweeps of the plain version swept (the hot cluster
+    # for every ray it sweeps, another cluster only where the ray enters its
+    # box before its closest hit), at FACE_PLANE_OPS each over the f32 peak
+    # (a floor, as in phase 10); the dense B1 sweeps every triangle.  B9:
+    # RECURSION_OPS per reached slot.  Bytes: each input read once, each
+    # output written once: rays (7 floats) in and the carry (24) out for B7;
+    # the carry in and out and orig for B8; for B9 the reached records, a
+    # flag pair where a lane stopped before the stage's last slot, g, the
+    # carry in and out and d materials.
+    f_ops = lambda pairs: pairs * FACE_PLANE_OPS / PEAK_F32_OPS * 1e3
+    f_bytes = lambda nbytes: nbytes / PEAK_BYTES * 1e3
+    rr = rec0.view(k, 16, -1)
+    reached = ((rr[:, 14] + rr[:, 15]) > 0)
+    n_reached = float(reached.sum())
+    stopped = float((reached.sum(dim=0) < k).sum())
+    primaries, shadows = float(a["alive"].sum()), float(sd[1].sum())
+    dense_pairs = (primaries + 2 * shadows) * nt
+    bounds = {
+        "init_tile": bound(f_ops(c_init["pairs"]), f_bytes(n * (7 + 24) * 4)),
+        "stage_tile": bound(f_ops(counts[0]["pairs"]), f_bytes(n * (48 + 1) * 4)),
+        "stage_tile 2": bound(f_ops(counts[2]["pairs"]), f_bytes(n * (48 + 1) * 4)),
+        "stage_reverse_tile": bound(n_reached * RECURSION_OPS / PEAK_F32_OPS * 1e3,
+                                    f_bytes(n_reached * 16 * 4 + stopped * 2 * 4
+                                            + n * (3 + 8) * 4 + nt * 3 * 4)),
+        "cluster_sweep": bound(f_ops(c_b1["pairs"]), f_bytes(n * (3 + 3 + 1 + 1 + 3 + 2) * 4)),
+        "dense B1": bound(f_ops(dense_pairs), f_bytes(n * (3 + 3 + 1 + 1 + 3 + 2) * 4)),
+    }
+    share = c_b1["entered"] / max(c_b1["tests"], 1)
+    log(f"large launch (3, {n}): B1 clustered sweeps {c_b1['pairs']:.0f} (ray, triangle) pairs "
+        f"against {dense_pairs:.0f} dense; (ray, cluster) box tests {c_b1['tests']} of which "
+        f"{c_b1['entered']} entered ({100 * share:.2f}%); B7 {c_init['pairs']:.0f} pairs, B8 "
+        f"stage 0 {counts[0]['pairs']:.0f}, stage 2 {counts[2]['pairs']:.0f}; B9 reached "
+        f"slots {n_reached:.0f}")
+    log(f"B10 as B1 on the large launch: clustered {ms['cluster_sweep']:.4f} ms, dense "
+        f"{ms['dense B1']:.4f} ms ({ms['dense B1'] / ms['cluster_sweep']:.3f}x), entered share "
+        f"{100 * share:.2f}%")
+    kernels = []
+    for key, (b_ms, b_by) in bounds.items():
+        pm = plain_ms.get(key)
+        log(f"{key} at the large launch (3, {n}): {ms[key]:.4f} ms"
+            + (f" (plain {pm:.3f} ms)" if pm is not None else "")
+            + f", bound {b_ms:.4f} ms ({b_by}), {100 * b_ms / ms[key]:.2f}% of bound")
+        if key not in STAGED:
+            continue
+        src, replaces = KERNELS[key]
+        kernels.append({
+            "name": key, "route": "cuda", "source": f"inverse_path_tracer_torch/ops/kernels/{src}",
+            "replaces": replaces, "launches": launches[key], "max_abs_err": check_err[key],
+            "ms": ms[key], "plain_ms": pm, "bound_ms": b_ms, "bound_by": b_by,
+            # No single PyTorch call runs a stage of the bounce loop, its
+            # recursion or a closest-hit sweep.
+            "library_ms": None,
+        })
+    return kernels
+
+
 
 def main() -> int:
     import torch
@@ -1072,6 +1645,16 @@ def main() -> int:
     launches["inverse_rec"], large = large_scene_extraction(device)
     gcn_pipeline(device, graph, target)
     kernels += inverse_kernel_timing(device, launches, check_err, target, large)
+    check_err.update(check_staged_vs_plain(device))
+    for name, e in check_clustered_vs_dense(device).items():
+        check_err[name] = max(check_err[name], e)
+    staged_launches, large_vn = large_main_path(device)
+    launches.update(staged_launches)
+    fd_gate(device, large_vn, large_vn.diffuse, label="large scene (staged)")
+    large_vn_extraction(device, large_vn)
+    kernels += large_kernel_timing(device, launches, check_err)
+    for k in kernels:  # the later checks of B1-B6 (clustered tables) count too
+        k["max_abs_err"] = max(float(k["max_abs_err"]), check_err.get(k["name"], 0.0))
     for k in kernels:
         if not all(math.isfinite(float(k[f])) for f in ("ms", "plain_ms", "bound_ms")):
             raise AssertionError(f"non-finite timing {k}")

@@ -7,7 +7,8 @@ backward and of the inverse pass (ops/kernels), the render entry points
 the training path), single-device material recovery (models/recover.py),
 and the reference's inverse pipeline: transport-graph extraction
 (render/inverse.py), the GCN (models/gcn.py) and the dataset steps
-(data/pipeline.py).  float32 throughout: TF32 is switched off for matmuls
+(data/pipeline.py).  Large scenes (assets.large_scene) run through the
+clustered sweep and the staged wavefront (render/forward.py).  float32 throughout: TF32 is switched off for matmuls
 and convolutions when the package is imported.
 """
 
@@ -16,6 +17,7 @@ import torch
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
+from inverse_path_tracer_torch.assets import large_scene  # noqa: E402
 from inverse_path_tracer_torch.config import CameraConfig, RenderConfig  # noqa: E402
 from inverse_path_tracer_torch.convert import materials_from_numpy, scene_from_numpy  # noqa: E402
 from inverse_path_tracer_torch.data.pipeline import (  # noqa: E402
@@ -66,6 +68,7 @@ __all__ = [
     "generate_data",
     "generate_files",
     "grad_range",
+    "large_scene",
     "load_scene",
     "loss_and_grad_range",
     "materials_from_numpy",

@@ -72,9 +72,11 @@ def _obj_text(header, verts_local, faces, face_mats):
     return "\n".join(out) + "\n"
 
 
-def sphere_obj_text(rings: int = 8, segments: int = 16, radius: float = 0.5) -> str:
+def sphere_obj_text(rings: int = 8, segments: int = 16, radius: float = 0.5,
+                    normals: bool = True) -> str:
     """A lat-long sphere as a triangle OBJ with per-vertex normals (v//vn),
-    for smooth-shading checks: 2*segments*(rings-1) triangles."""
+    for smooth-shading checks, or without them (flat shading) when
+    normals=False: 2*segments*(rings-1) triangles."""
     verts = [(0.0, radius, 0.0)]
     for r in range(1, rings):
         th = np.pi * r / rings
@@ -93,8 +95,11 @@ def sphere_obj_text(rings: int = 8, segments: int = 16, radius: float = 0.5) -> 
     last = len(verts)
     faces += [(last, ring(rings - 1, s), ring(rings - 1, s + 1)) for s in range(segments)]
     out = [f"v {x:.9g} {y:.9g} {z:.9g}" for x, y, z in verts]
-    out += [f"vn {x / radius:.9g} {y / radius:.9g} {z / radius:.9g}" for x, y, z in verts]
-    out += ["f " + " ".join(f"{i}//{i}" for i in f) for f in faces]
+    if normals:
+        out += [f"vn {x / radius:.9g} {y / radius:.9g} {z / radius:.9g}" for x, y, z in verts]
+        out += ["f " + " ".join(f"{i}//{i}" for i in f) for f in faces]
+    else:
+        out += ["f " + " ".join(str(i) for i in f) for f in faces]
     return "\n".join(out) + "\n"
 
 

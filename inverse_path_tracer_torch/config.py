@@ -1,9 +1,11 @@
 """Static render configuration (the fields of the JAX package's
 RenderConfig / CameraConfig that the forward and inverse paths read).
 
-The TPU tuning fields (wavefront, stage_bounces, cluster_k, pair_sweep,
-fast_recip, tri_order) have no counterpart: the CUDA kernel always runs the
-whole bounce loop per ray with an exact IEEE divide.
+wavefront, stage_bounces, cluster_k, tri_order and bin_cells keep the JAX
+package's meanings (its config.py:110-194).  Its TPU measurement gates
+stage_loop, pair_sweep and fast_recip have no counterpart: the kernels
+always compute t with an exact IEEE divide, test each ray against each
+cluster box on its own, and end a stage's loop when its ray dies.
 """
 
 from __future__ import annotations
@@ -13,6 +15,8 @@ from typing import Tuple
 
 BACKENDS = ("auto", "plain")
 RNG_MODES = ("fused", "external")
+WAVEFRONTS = ("auto", "mega", "staged")
+TRI_ORDERS = ("morton", "file")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -57,12 +61,36 @@ class RenderConfig:
     # "fused": the in-kernel counter-hash RNG (key words, global sample
     # index); "external": caller-supplied rays and (bounces*8, n) uniforms.
     rng: str = "fused"
+    # Bounce-loop organisation (render/forward.py _use_staged): "mega" runs
+    # the whole loop per ray in one kernel (B1); "staged" runs stages of
+    # stage_bounces bounces (B7, then B8 per stage), re-sorting the lanes
+    # between stages so that live rays fill the leading blocks; "auto" is
+    # staged exactly on clustered scenes (cluster_k_for > 0).
+    wavefront: str = "auto"
+    stage_bounces: int = 4
+    # Triangles per cluster of the clustered sweep on scenes of at least
+    # ops/kernels/clusters.py CLUSTER_MIN_TP padded triangles; 0 = the auto
+    # width (cluster_k_for).
+    cluster_k: int = 0
+    # Kernel-internal triangle order of clustered scenes: "morton" (the
+    # largest triangles first, then centroid Z-order) or "file".
+    tri_order: str = "morton"
+    # Origin cells per axis of the staged wavefront's ray binning on
+    # clustered scenes (render/forward.py _binned_order).
+    bin_cells: int = 2
 
     def __post_init__(self):
         if self.backend not in BACKENDS:
             raise ValueError(f"unknown backend {self.backend!r}; expected one of {BACKENDS}")
         if self.rng not in RNG_MODES:
             raise ValueError(f"unknown rng {self.rng!r}; expected one of {RNG_MODES}")
+        if self.wavefront not in WAVEFRONTS:
+            raise ValueError(f"unknown wavefront {self.wavefront!r}; expected one of {WAVEFRONTS}")
+        if self.tri_order not in TRI_ORDERS:
+            raise ValueError(f"unknown tri_order {self.tri_order!r}; expected one of {TRI_ORDERS}")
+        if self.cluster_k < 0 or self.stage_bounces < 1 or self.bin_cells < 1:
+            raise ValueError(f"need cluster_k >= 0, stage_bounces >= 1 and bin_cells >= 1, got "
+                             f"{self.cluster_k}, {self.stage_bounces}, {self.bin_cells}")
 
     @property
     def n_samples(self) -> int:

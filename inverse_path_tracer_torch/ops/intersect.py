@@ -1,4 +1,5 @@
-"""Ray-triangle closest hit by brute force over all triangles.
+"""Ray-triangle closest hit by brute force over all triangles, and the
+clustered sweep (the plain version of kernel B10).
 
 Contract (reference scene_basics.h:426-459):
   * plane test: reject |n.d| < MIN_DOT;
@@ -9,9 +10,16 @@ Contract (reference scene_basics.h:426-459):
 
 from __future__ import annotations
 
-from typing import NamedTuple
+import contextlib
+from typing import Dict, NamedTuple, Optional
 
 import torch
+
+# Rays per chunk of a sweep are chosen so that one (rays, triangles) float
+# tensor stays near this many elements.
+_CHUNK_ELEMENTS = 1 << 24
+# Set by counting_sweeps(): running totals of the clustered sweeps.
+_counts: Optional[Dict[str, int]] = None
 
 from inverse_path_tracer_torch.ops.vec import cross3, dot3, normalize3
 from inverse_path_tracer_torch.scene.build import SceneData
@@ -54,15 +62,11 @@ def _project(plane: torch.Tensor, v: torch.Tensor, w: bool) -> torch.Tensor:
     return out + plane[None, :, 3] if w else out
 
 
-def intersect_planes(
-    planes: torch.Tensor,  # (nT, 16), see plane_rows
-    p: torch.Tensor,  # (R, 3)
-    d: torch.Tensor,  # (R, 3)
-    min_dot: float = 1e-4,
-    epsilon: float = 1e-2,
-) -> Intersection:
-    """Closest hit against packed plane rows, in the CUDA kernel's order:
-    t = a0 / -b0 with a = p.plane + w, b = d.plane; sd_j = a_j + t b_j."""
+def _t_masked(planes: torch.Tensor, p: torch.Tensor, d: torch.Tensor, min_dot: float,
+              epsilon: float) -> torch.Tensor:
+    """(R, T) hit distances, +inf where a test rejects, in the CUDA
+    kernel's order: t = a0 / -b0 with a = p.plane + w, b = d.plane; sd_j =
+    a_j + t b_j."""
     a0 = _project(planes[:, 0:4], p, True)
     b0 = _project(planes[:, 0:4], d, False)
     t = a0 / (-b0)
@@ -70,8 +74,115 @@ def intersect_planes(
     for j in (1, 2, 3):
         pl = planes[:, 4 * j : 4 * j + 4]
         inside = inside & (_project(pl, p, True) + t * _project(pl, d, False) <= 0.0)
-    inf = torch.full_like(t, float("inf"))
-    return _closest(torch.where(inside, t, inf), p, d)
+    return torch.where(inside, t, torch.full_like(t, float("inf")))
+
+
+def _chunks(n_rays: int, n_tri: int):
+    step = max(1, _CHUNK_ELEMENTS // max(n_tri, 1))
+    return [slice(lo, min(lo + step, n_rays)) for lo in range(0, n_rays, step)] or [slice(0, 0)]
+
+
+def _min_over(planes, p, d, min_dot, epsilon):
+    """(t_best, idx) of the closest hit of each ray over `planes`, rays in
+    chunks so that memory stays bounded; idx is the first minimum."""
+    ts, idxs = [], []
+    for s in _chunks(p.shape[0], planes.shape[0]):
+        t_min, idx = torch.min(_t_masked(planes, p[s], d[s], min_dot, epsilon), dim=1)
+        ts.append(t_min)
+        idxs.append(idx)
+    return torch.cat(ts), torch.cat(idxs)
+
+
+def _resolve(t_best: torch.Tensor, idx: torch.Tensor, p: torch.Tensor, d: torch.Tensor
+             ) -> Intersection:
+    hit = torch.isfinite(t_best)
+    t_safe = torch.where(hit, t_best, torch.zeros_like(t_best))
+    return Intersection(t=t_best, tri=torch.where(hit, idx, torch.zeros_like(idx)),
+                        point=p + d * t_safe[:, None], hit=hit)
+
+
+def intersect_planes(
+    planes: torch.Tensor,  # (nT, 16), see plane_rows
+    p: torch.Tensor,  # (R, 3)
+    d: torch.Tensor,  # (R, 3)
+    min_dot: float = 1e-4,
+    epsilon: float = 1e-2,
+) -> Intersection:
+    """Closest hit against packed plane rows (see _t_masked)."""
+    t_best, idx = _min_over(planes, p, d, min_dot, epsilon)
+    return _resolve(t_best, idx, p, d)
+
+
+def inv_dir(d: torch.Tensor) -> torch.Tensor:
+    """Reciprocal direction for slab tests: components below 1e-20 in
+    magnitude become +-1e-20 (the sign of d, + for +-0)."""
+    tiny = torch.where(d < 0, torch.full_like(d, -1e-20), torch.full_like(d, 1e-20))
+    return 1.0 / torch.where(torch.abs(d) < 1e-20, tiny, d)
+
+
+def enters_box(box: torch.Tensor, p: torch.Tensor, inv_d: torch.Tensor, t_best: torch.Tensor
+               ) -> torch.Tensor:
+    """(R,) bool: the ray's [0, inf) enters the box (row [lo xyz, hi xyz,
+    ...]) no later than t_best."""
+    t1 = (box[0:3] - p) * inv_d
+    t2 = (box[3:6] - p) * inv_d
+    lo, hi = torch.minimum(t1, t2), torch.maximum(t1, t2)
+    t_min = torch.maximum(torch.maximum(lo[:, 0], lo[:, 1]), lo[:, 2])
+    t_max = torch.minimum(torch.minimum(hi[:, 0], hi[:, 1]), hi[:, 2])
+    return (t_max >= torch.clamp(t_min, min=0.0)) & (t_min <= t_best)
+
+
+def intersect_clustered(
+    planes: torch.Tensor,  # (nT, 16) in internal order
+    cab: torch.Tensor,  # (C, 8) cluster boxes (ops/kernels/clusters.py)
+    cluster_k: int,
+    p: torch.Tensor,  # (R, 3)
+    d: torch.Tensor,  # (R, 3)
+    min_dot: float = 1e-4,
+    epsilon: float = 1e-2,
+) -> Intersection:
+    """The clustered sweep of B10 (render_common.cuh intersect): clusters in
+    ascending order, cluster 0 swept for every ray, any other only for the
+    rays that enter its box no later than their closest hit so far; a
+    cluster's hit replaces the running one only when strictly closer, so
+    ties keep the lowest index.  Equal to intersect_planes on the same
+    planes, bit for bit, because every triangle of a cluster lies inside
+    its padded box."""
+    n_tri, n_rays = planes.shape[0], p.shape[0]
+    t_best = torch.full((n_rays,), float("inf"), dtype=torch.float32, device=p.device)
+    best = torch.zeros(n_rays, dtype=torch.int64, device=p.device)
+    inv_d = inv_dir(d)
+    for c in range(cab.shape[0]):
+        lo, hi = c * cluster_k, min((c + 1) * cluster_k, n_tri)
+        if c == 0:
+            rows = torch.arange(n_rays, device=p.device)
+        else:
+            rows = torch.nonzero(enters_box(cab[c], p, inv_d, t_best)).squeeze(1)
+            if _counts is not None:
+                _counts["tests"] += n_rays
+                _counts["entered"] += rows.numel()
+        if _counts is not None:
+            _counts["pairs"] += rows.numel() * (hi - lo)
+        if rows.numel() == 0:
+            continue
+        t_c, i_c = _min_over(planes[lo:hi], p[rows], d[rows], min_dot, epsilon)
+        better = t_c < t_best[rows]
+        t_best[rows] = torch.where(better, t_c, t_best[rows])
+        best[rows] = torch.where(better, i_c + lo, best[rows])
+    return _resolve(t_best, best, p, d)
+
+
+@contextlib.contextmanager
+def counting_sweeps():
+    """Counts, inside the block, the clustered sweeps' (ray, cluster) box
+    tests of clusters 1.., how many of them entered, and the (ray,
+    triangle) pairs swept: yields the dict of running totals."""
+    global _counts
+    _counts = {"tests": 0, "entered": 0, "pairs": 0}
+    try:
+        yield _counts
+    finally:
+        _counts = None
 
 
 def intersect_fast(

@@ -1,0 +1,167 @@
+"""Cluster metadata of the clustered sweep (B10) and the kernels' view of a
+scene (the counterpart of the JAX package's cluster_k_for, _morton_codes,
+_morton_order, kernel_perm, the cluster part of _pack_tables and
+unperm_rows, ops/pallas/render_kernel.py:134-244, :1381-1411).
+
+On a scene of at least CLUSTER_MIN_TP padded triangles the kernels keep
+their triangles in an internal order: the cluster_k largest triangles (by
+the squared diagonal of their box) first, the rest by the Morton code of
+their centroid.  Contiguous runs of cluster_k internal triangles form the
+clusters; cluster 0 (the hot one) is always swept, every other cluster
+only by a ray that enters its margin-padded box.  Ties keep the lowest
+internal index.  Everything that carries a triangle index out of a kernel
+(records, dMaterials rows, the edge grid) is internal and is mapped back to
+global order with `perm` (perm[i] = the global index of internal row i).
+
+kernel_view() gives the plain versions the same order: a SceneData whose
+per-triangle fields are permuted and whose emitter indices are internal.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple, Optional
+
+import torch
+
+from inverse_path_tracer_torch.scene.build import SceneData
+
+# The clustered sweep is used at padded triangle counts of at least
+# CLUSTER_MIN_TP; CLUSTER_K, when not 0, overrides the auto width for every
+# config that does not set cfg.cluster_k.  Tests that need clusters on a
+# small scene set these module constants.
+CLUSTER_MIN_TP = 512
+CLUSTER_K = 0
+
+# Fields of SceneData indexed by triangle.
+_TRI_FIELDS = ("vertices", "vertex_normals", "face_normal", "center", "area", "edge_out",
+               "edge_d", "diffuse", "specular", "emission", "shininess")
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def cluster_k_for(n_tri: int, cfg) -> int:
+    """The cluster width of the sweep (0 = dense).  Auto: half the padded
+    triangle count, clamped to [256, 1024] and rounded up to a multiple of
+    128 (one hot cluster plus one or a few cold ones); cfg.cluster_k, then
+    CLUSTER_K, override it, rounded up to a multiple of 8."""
+    tp8 = _round_up(max(n_tri, 8), 8)
+    if tp8 < CLUSTER_MIN_TP:
+        return 0
+    for k in (cfg.cluster_k, CLUSTER_K):
+        if k:
+            if k < 0:
+                raise ValueError(f"cluster_k must be positive, got {k}")
+            return _round_up(k, 8)
+    return min(1024, max(256, _round_up(tp8 // 2, 128)))
+
+
+def _expand_bits(v: torch.Tensor) -> torch.Tensor:
+    """Spread 10 bits to every third position."""
+    v = (v | (v << 16)) & 0x030000FF
+    v = (v | (v << 8)) & 0x0300F00F
+    v = (v | (v << 4)) & 0x030C30C3
+    return (v | (v << 2)) & 0x09249249
+
+
+def morton_codes(cent: torch.Tensor, lo: torch.Tensor, inv_ext: torch.Tensor) -> torch.Tensor:
+    """(nT,) int64 Morton codes of centroids: 10 quantised bits per axis,
+    interleaved x|y|z."""
+    q = torch.clamp(((cent - lo) * inv_ext * 1024.0).to(torch.int32), 0, 1023).to(torch.int64)
+    return _expand_bits(q[:, 0]) | (_expand_bits(q[:, 1]) << 1) | (_expand_bits(q[:, 2]) << 2)
+
+
+def morton_order(vertices: torch.Tensor, hot: int = 0) -> torch.Tensor:
+    """(nT,) int64 internal -> global order: the `hot` largest triangles
+    first (descending size), the rest by centroid Morton code, stable.
+    Computed on the CPU in float32 with the JAX package's operation order,
+    so that both packages give the same order."""
+    v = vertices.detach().to("cpu", torch.float32)
+    cent = (v[:, 0] + v[:, 1] + v[:, 2]) / 3.0
+    lo = cent.min(dim=0).values
+    ext = cent.max(dim=0).values - lo
+    inv_ext = 1.0 / torch.where(ext > 0, ext, torch.ones_like(ext))
+    codes = torch.clamp(morton_codes(cent, lo, inv_ext), 0, (1 << 30) - 1)
+    if hot <= 0:
+        return torch.argsort(codes, stable=True)
+    dv = v.max(dim=1).values - v.min(dim=1).values
+    size = dv[:, 0] * dv[:, 0] + dv[:, 1] * dv[:, 1] + dv[:, 2] * dv[:, 2]
+    rank = torch.argsort(torch.argsort(-size, stable=True), stable=True)
+    key = torch.where(rank < hot, rank, (1 << 30) + codes)
+    return torch.argsort(key, stable=True)
+
+
+def kernel_perm(scene: SceneData, cfg) -> Optional[torch.Tensor]:
+    """The internal -> global triangle order of the kernels (on the
+    scene's device), or None where the scene keeps global order (dense
+    sweep, or cfg.tri_order == "file")."""
+    ck = cluster_k_for(scene.n_tri, cfg)
+    if ck == 0 or cfg.tri_order != "morton":
+        return None
+    return morton_order(scene.vertices, hot=ck).to(scene.device)
+
+
+def unperm_rows(d: torch.Tensor, perm: Optional[torch.Tensor]) -> torch.Tensor:
+    """Rows of internal order -> global order (row perm[i] <- row i)."""
+    if perm is None:
+        return d
+    out = torch.zeros_like(d)
+    out[perm] = d
+    return out
+
+
+def cluster_boxes(vertices: torch.Tensor, cluster_k: int) -> torch.Tensor:
+    """(C, 8) boxes of the clusters of internally ordered triangles: rows
+    [lo xyz, hi xyz, 0, 0], padded by 1e-4 of their extent plus 1e-5, so
+    that rounding in the slab test never culls a grazing hit."""
+    n_tri = vertices.shape[0]
+    c = -(-n_tri // cluster_k)
+    pad = c * cluster_k - n_tri
+    inf = torch.full((pad, 3), float("inf"), dtype=torch.float32, device=vertices.device)
+    lo_t = torch.cat([vertices.min(dim=1).values, inf])
+    hi_t = torch.cat([vertices.max(dim=1).values, -inf])
+    lo_c = lo_t.reshape(c, cluster_k, 3).min(dim=1).values
+    hi_c = hi_t.reshape(c, cluster_k, 3).max(dim=1).values
+    m = 1e-4 * (hi_c - lo_c) + 1e-5
+    return torch.cat([lo_c - m, hi_c + m, torch.zeros_like(lo_c[:, :2])], dim=1).contiguous()
+
+
+class KernelView(NamedTuple):
+    """A scene as the kernels see it."""
+
+    scene: SceneData  # per-triangle fields in internal order, emitters internal
+    perm: Optional[torch.Tensor]  # internal -> global, None = global order
+    cluster_k: int  # 0 = dense sweep
+    cab: Optional[torch.Tensor]  # (C, 8) cluster boxes
+
+
+def permute_scene(scene: SceneData, perm: torch.Tensor) -> SceneData:
+    """`scene` with its triangles in the order `perm` (internal -> global);
+    emitter and specular indices become internal, emitters keep their
+    order (the light-pick CDF is unchanged)."""
+    inv = torch.argsort(perm)
+    fields = {f.name: getattr(scene, f.name) for f in dataclasses.fields(scene)}
+    for name in _TRI_FIELDS:
+        fields[name] = fields[name][perm]
+    fields["emissive_idx"] = inv[scene.emissive_idx]
+    fields["specular_idx"] = torch.sort(inv[scene.specular_idx]).values
+    n_t = scene.n_tri
+    fields["plane_mat"] = scene.plane_mat.reshape(4, n_t, 4)[:, perm].reshape(4, 4 * n_t)
+    return SceneData(**fields)
+
+
+def kernel_view(scene: SceneData, cfg) -> KernelView:
+    """The kernels' view of `scene` under cfg (cfg None: dense, global)."""
+    ck = 0 if cfg is None else cluster_k_for(scene.n_tri, cfg)
+    if ck == 0:
+        return KernelView(scene, None, 0, None)
+    perm = kernel_perm(scene, cfg)
+    view = scene if perm is None else permute_scene(scene, perm)
+    return KernelView(view, perm, ck, cluster_boxes(view.vertices, ck))
+
+
+def to_kernel_order(materials: torch.Tensor, view: KernelView) -> torch.Tensor:
+    """Materials (nT, 3) in the view's internal order."""
+    return materials if view.perm is None else materials[view.perm]

@@ -14,7 +14,10 @@
 //     a shadow ray: nee_w = w cos(theta) cos(theta') / t^2 / p_light on the
 //     edge src -> emitter with f0 = 1/pi and light = the emitter's emission;
 //   - barycentric smooth shading on vertex-normal scenes.
-// The eye is node nT, the first dst.  p_spec must be 0 (the wrapper checks),
+// The eye is node nT, the first dst.  On clustered scenes (B10 in
+// render_common.cuh) every triangle index of a record or of the grid is
+// internal; the wrapper and the records reduction map them back.  p_spec
+// must be 0 (the wrapper checks),
 // so the path is always diffuse and slot 0 is never read.  The loop is not
 // trace_path (render_common.cuh): the slot map, the scalar weight and the
 // edge order differ; it shares its helpers, and -fmad=false, so the plain
@@ -106,7 +109,7 @@ struct InvOut {
 };
 
 // The inverse bounce loop of ray i (_kernel_inv :135-249).
-template <class Sink>
+template <bool kClustered, class Sink>
 __device__ __forceinline__ InvOut trace_inverse(const TraceParams& P, const Tables& T, int i,
                                                 const Sink& sink) {
   InvOut out{0.f, 0.f, 0};
@@ -115,7 +118,7 @@ __device__ __forceinline__ InvOut trace_inverse(const TraceParams& P, const Tabl
   const uint32_t h_orig = P.fused ? fmix32(static_cast<uint32_t>(P.orig[i]) ^ P.k0) : 0u;
   const V3 o = v3(P.p[i], P.p[n + i], P.p[2 * n + i]);
   const V3 d = v3(P.d[i], P.d[n + i], P.d[2 * n + i]);
-  Hit cur = intersect(T.planes, P.n_tri, P.min_dot, P.epsilon, o, d);
+  Hit cur = intersect<kClustered>(P, T, o, d);
   V3 point = hit_point(o, d, cur);
   float w = 1.f;
   int dst = P.n_tri;  // the eye
@@ -176,7 +179,7 @@ __device__ __forceinline__ InvOut trace_inverse(const TraceParams& P, const Tabl
                         (1.f - sq) * v0.z + sq * (1.f - r2) * v1.z + r2 * sq * v2.z);
       const V3 to_light = normalize3(emm - point);
       const float cos_theta = dot3(shade_n, to_light);
-      const Hit sh = intersect(T.planes, P.n_tri, P.min_dot, P.epsilon, point, to_light);
+      const Hit sh = intersect<kClustered>(P, T, point, to_light);
       ok = cos_theta >= 0.f && is_hit(sh);
       const V3 light_n = P.has_vn
           ? smooth_at(hit_point(point, to_light, sh), er, er + 17, er[26])
@@ -193,12 +196,13 @@ __device__ __forceinline__ InvOut trace_inverse(const TraceParams& P, const Tabl
     if (!cont || b + 1 == P.max_bounces) break;
     w = w_next;
     dst = src;
-    cur = intersect(T.planes, P.n_tri, P.min_dot, P.epsilon, point, next_dir);
+    cur = intersect<kClustered>(P, T, point, next_dir);
     point = hit_point(point, next_dir, cur);
   }
   return out;
 }
 
+template <bool kClustered>
 __global__ void __launch_bounds__(kThreads)
     inverse_grid_kernel(const TraceParams P, const float* pix, float* partials, float* stats) {
   extern __shared__ float4 smem4[];
@@ -211,7 +215,7 @@ __global__ void __launch_bounds__(kThreads)
   const int n = P.n;
   for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n; i += gridDim.x * blockDim.x) {
     const GridSink sink{grid, P.n_tri, v3(pix[i], pix[n + i], pix[2 * n + i])};
-    const InvOut o = trace_inverse(P, T, i, sink);
+    const InvOut o = trace_inverse<kClustered>(P, T, i, sink);
     stats[i] = o.segs;
     stats[n + i] = o.shadows;
   }
@@ -220,6 +224,7 @@ __global__ void __launch_bounds__(kThreads)
   for (int e = threadIdx.x; e < g_count; e += blockDim.x) out[e] = grid[e];
 }
 
+template <bool kClustered>
 __global__ void __launch_bounds__(kThreads)
     inverse_rec_kernel(const TraceParams P, float* rec, float* stats) {
   extern __shared__ float4 smem4[];
@@ -227,7 +232,7 @@ __global__ void __launch_bounds__(kThreads)
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= P.n) return;
   const RecordSink sink{rec, P.n, i};
-  const InvOut o = trace_inverse(P, T, i, sink);
+  const InvOut o = trace_inverse<kClustered>(P, T, i, sink);
   sink.zero_from(o.n_reached, P.max_bounces);
   stats[i] = o.segs;
   stats[P.n + i] = o.shadows;
@@ -243,32 +248,35 @@ size_t grid_smem_bytes(const TraceParams& P) {
   return static_cast<size_t>((grid_floats(P.n_tri) + 3) & ~3) * sizeof(float) + table_bytes(P);
 }
 
-// Per device, the dynamic shared memory inverse_grid_kernel was last opted
-// into and the blocks that then fit on the card at once; the attribute and
-// the occupancy query are redone only when a scene changes the size.
+// Per device and sweep, the dynamic shared memory inverse_grid_kernel was
+// last opted into and the blocks that then fit on the card at once; the
+// attribute and the occupancy query are redone only when a scene changes
+// the size.
 struct GridCapacity {
   size_t smem;
   int blocks;
 };
 constexpr int kMaxDevices = 64;
-GridCapacity g_capacity[kMaxDevices] = {};
+GridCapacity g_capacity[2][kMaxDevices] = {};
 
-// Opts inverse_grid_kernel into `smem` bytes on the current device and
-// returns in *blocks how many of its blocks fit on the card at once.
+// Opts inverse_grid_kernel<kClustered> into `smem` bytes on the current
+// device and returns in *blocks how many of its blocks fit on the card at
+// once.
+template <bool kClustered>
 cudaError_t grid_capacity(size_t smem, int* blocks) {
   if (smem > static_cast<size_t>(kMaxSmem)) return cudaErrorInvalidValue;
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
-  GridCapacity& c = g_capacity[dev];
+  GridCapacity& c = g_capacity[kClustered][dev];
   if (c.smem != smem) {
-    err = cudaFuncSetAttribute(inverse_grid_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
+    err = cudaFuncSetAttribute(inverse_grid_kernel<kClustered>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     int per_sm = 0, sms = 0;
     if (err == cudaSuccess)
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, inverse_grid_kernel, kThreads,
-                                                          smem);
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, inverse_grid_kernel<kClustered>,
+                                                          kThreads, smem);
     if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (err != cudaSuccess) return err;
     if (per_sm < 1) return cudaErrorInvalidConfiguration;
@@ -287,7 +295,9 @@ extern "C" {
 int ipt_inverse_grid_blocks(const TraceParams* Pin, int* blocks) {
   const TraceParams& P = *Pin;
   int capacity = 0;
-  const cudaError_t err = grid_capacity(grid_smem_bytes(P), &capacity);
+  const size_t smem = grid_smem_bytes(P);
+  const cudaError_t err =
+      P.cluster_k ? grid_capacity<true>(smem, &capacity) : grid_capacity<false>(smem, &capacity);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int by_rays = (P.n + kThreads - 1) / kThreads;
   *blocks = by_rays < capacity ? (by_rays > 0 ? by_rays : 1) : capacity;
@@ -302,11 +312,16 @@ int ipt_inverse_grid(const TraceParams* Pin, const float* pix, float* partials, 
   P.use_smem = 1;
   const size_t smem = grid_smem_bytes(P);
   int capacity = 0;
-  const cudaError_t err = grid_capacity(smem, &capacity);
+  const cudaError_t err =
+      P.cluster_k ? grid_capacity<true>(smem, &capacity) : grid_capacity<false>(smem, &capacity);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (blocks < 1) return static_cast<int>(cudaErrorInvalidValue);
-  inverse_grid_kernel<<<blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      P, pix, partials, stats);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (P.cluster_k) {
+    inverse_grid_kernel<true><<<blocks, kThreads, smem, s>>>(P, pix, partials, stats);
+  } else {
+    inverse_grid_kernel<false><<<blocks, kThreads, smem, s>>>(P, pix, partials, stats);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -318,8 +333,13 @@ int ipt_inverse_rec(const TraceParams* Pin, float* rec, float* stats, void* stre
   const size_t smem = table_bytes(P);
   P.use_smem = smem <= static_cast<size_t>(kSmemLimit);
   const int blocks = (P.n + kThreads - 1) / kThreads;
-  inverse_rec_kernel<<<blocks, kThreads, P.use_smem ? smem : 0,
-                       static_cast<cudaStream_t>(stream)>>>(P, rec, stats);
+  const size_t dyn = P.use_smem ? smem : 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (P.cluster_k) {
+    inverse_rec_kernel<true><<<blocks, kThreads, dyn, s>>>(P, rec, stats);
+  } else {
+    inverse_rec_kernel<false><<<blocks, kThreads, dyn, s>>>(P, rec, stats);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -26,7 +26,9 @@ as B1 counts them:
         (inverse_kernel.py:50-51; dst == nT is the eye);
     B6  records (max_bounces*8, n), rows b*8 + [dst, src, hit, w, nee_ok,
         nee_w, e_idx, 0] of bounce b (:240-245), zero past a ray's last
-        bounce.  Indices are global (the port has no Morton order).
+        bounce.  On clustered scenes (ops/kernels/clusters.py) the indices
+        are internal (:358-359); grids_from_edge_records maps them back
+        with the tables' perm.
 
 The kernels need cfg.p_spec == 0, as the Pallas ones do (:289); so do
 their plain versions, which run the same loop.  B5 keeps the grid and the
@@ -50,17 +52,20 @@ import torch
 
 from inverse_path_tracer_torch.ops import rng
 from inverse_path_tracer_torch.ops.bsdf import INV_PI
-from inverse_path_tracer_torch.ops.intersect import intersect_planes, plane_rows, smooth_normal
+from inverse_path_tracer_torch.ops.intersect import smooth_normal
+from inverse_path_tracer_torch.ops.kernels.clusters import kernel_view
 from inverse_path_tracer_torch.ops.kernels.render_kernel import (
     KernelTables,
     Keys,
     _check,
     _check_inputs,
+    _count_sweep,
     _default_orig,
     _library,
     _on_card,
     _raise_on,
     _trace_params,
+    sweep,
 )
 from inverse_path_tracer_torch.ops.sampling import (
     pick_emissive,
@@ -112,9 +117,9 @@ def inverse_tile(
     *,
     tables: Optional[KernelTables] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """B5: the dense edge grid (nT+1, nT, 9) and the counts (2, n) of one
-    range of rays.  `tables` is pack_tables(scene, scene.diffuse), packed
-    here when not given."""
+    """B5: the dense edge grid (nT+1, nT, 9), in global triangle order, and
+    the counts (2, n) of one range of rays.  `tables` is pack_tables(scene,
+    scene.diffuse, cfg), packed here when not given."""
     orig = _default_orig(p, orig)
     _check_inverse(cfg, p, d, alive, uniforms, orig, keys)
     _check(p, {"pix": (pix, (3, p.shape[1]), torch.float32)})
@@ -124,8 +129,8 @@ def inverse_tile(
         raise ValueError(f"inverse_tile keeps the (nT+1, nT, 9) grid in shared memory, which "
                          f"does not fit at nT = {scene.n_tri}; use inverse_tile_rec")
     lib = _library("inverse")
-    params, _ = _trace_params(scene.diffuse, scene, cfg, tables, p, d, alive, uniforms, orig,
-                              keys)
+    params, tabs = _trace_params(scene.diffuse, scene, cfg, tables, p, d, alive, uniforms, orig,
+                                 keys)
     n, nt, dev = p.shape[1], scene.n_tri, p.device
     stats = torch.empty((2, n), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
@@ -139,7 +144,8 @@ def inverse_tile(
                                    torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(lib, err, "inverse grid")
     inverse_tile.launches += 1
-    return partials.sum(dim=0, dtype=torch.float64).float(), stats
+    _count_sweep(tabs)
+    return _unperm_grid(partials.sum(dim=0, dtype=torch.float64).float(), tabs.perm), stats
 
 
 def inverse_tile_rec(
@@ -154,15 +160,16 @@ def inverse_tile_rec(
     *,
     tables: Optional[KernelTables] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """B6: the edge records (max_bounces*8, n) and the counts (2, n).  The
-    pixel colours enter in the reduction (grids_from_edge_records)."""
+    """B6: the edge records (max_bounces*8, n), internal indices on
+    clustered scenes, and the counts (2, n).  The pixel colours enter in
+    the reduction (grids_from_edge_records)."""
     orig = _default_orig(p, orig)
     _check_inverse(cfg, p, d, alive, uniforms, orig, keys)
     if not _on_card(p, scene):
         return inverse_tile_rec_plain(scene, cfg, p, d, alive, uniforms, orig, keys)
     lib = _library("inverse")
-    params, _ = _trace_params(scene.diffuse, scene, cfg, tables, p, d, alive, uniforms, orig,
-                              keys)
+    params, tabs = _trace_params(scene.diffuse, scene, cfg, tables, p, d, alive, uniforms, orig,
+                                 keys)
     n, dev = p.shape[1], p.device
     rec = torch.empty((cfg.max_bounces * REC_INV_ROWS, n), dtype=torch.float32, device=dev)
     stats = torch.empty((2, n), dtype=torch.float32, device=dev)
@@ -171,11 +178,24 @@ def inverse_tile_rec(
                                   torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(lib, err, "inverse records")
     inverse_tile_rec.launches += 1
+    _count_sweep(tabs)
     return rec, stats
 
 
 inverse_tile.launches = 0
 inverse_tile_rec.launches = 0
+
+
+def _unperm_grid(grid: torch.Tensor, perm: Optional[torch.Tensor]) -> torch.Tensor:
+    """A grid (nT+1, nT, 9) in internal indices -> global ones on both axes
+    (the eye row nT stays; JAX inverse_kernel.py:422-433)."""
+    if perm is None:
+        return grid
+    nt = perm.shape[0]
+    to_g = torch.cat([perm, torch.tensor([nt], device=perm.device)])
+    out = torch.zeros_like(grid)
+    out[to_g[:, None], perm[None, :]] = grid
+    return out
 
 
 def inverse_tile_rec_plain(scene, cfg, p, d, alive, uniforms=None, orig=None, keys=None):
@@ -191,16 +211,18 @@ def inverse_tile_rec_plain(scene, cfg, p, d, alive, uniforms=None, orig=None, ke
       nee_w = w cos(theta) cos(theta') / t^2 / p_light on the edge
       src -> emitter (f0 = 1/pi, light = the emitter's emission).
 
-    A reached bounce that misses records dst and w with hit = 0."""
+    A reached bounce that misses records dst and w with hit = 0.  Indices
+    are those of the kernels' view (internal on clustered scenes)."""
     orig = _default_orig(p, orig)
     _check_inverse(cfg, p, d, alive, uniforms, orig, keys)
+    view = kernel_view(scene, cfg)
+    scene = view.scene
     n, nt = p.shape[1], scene.n_tri
-    planes = plane_rows(scene)
     h_orig = rng.hash_orig(keys, orig[0]) if keys is not None else None
     cos_scale = math.pi / cfg.p_rr
 
     def isect(o, dirs):
-        return intersect_planes(planes, o, dirs, cfg.min_dot, cfg.epsilon)
+        return sweep(view, cfg, o, dirs)
 
     def masked(x, m):
         return torch.where(m, x, torch.zeros_like(x))
@@ -260,15 +282,19 @@ def inverse_tile_plain(scene, cfg, p, d, alive, pix, uniforms=None, orig=None, k
     """B5's plain version: B6's plain records reduced to the dense grid."""
     _check(p, {"pix": (pix, (3, p.shape[1]), torch.float32)})
     rec, stats = inverse_tile_rec_plain(scene, cfg, p, d, alive, uniforms, orig, keys)
-    return grids_from_edge_records(rec, pix.T, scene, cfg).float(), stats
+    perm = kernel_view(scene, cfg).perm
+    return grids_from_edge_records(rec, pix.T, scene, cfg, perm).float(), stats
 
 
 def grids_from_edge_records(
-    rec: torch.Tensor, pix: torch.Tensor, scene: SceneData, cfg
+    rec: torch.Tensor, pix: torch.Tensor, scene: SceneData, cfg,
+    perm: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """B6's records (max_bounces*8, n) and the pixel colours (n, 3) -> the
-    dense grid (nT+1, nT, 9) in float64 (the counterpart of
-    _grids_from_edge_records, render/inverse.py:350).
+    dense grid (nT+1, nT, 9) in float64, in global triangle order (the
+    counterpart of _grids_from_edge_records, render/inverse.py:350).  perm
+    (the tables' perm) maps the internal indices of clustered records
+    back; the eye (dst nT) stays.
 
     Per bounce, the lanes whose hit (indirect edge) or nee_ok (NEE edge) is
     set are selected by index and their quantities index_add_-ed into flat
@@ -285,14 +311,18 @@ def grids_from_edge_records(
                          f"max_bounces={cfg.max_bounces}, n={n}")
     grid = torch.zeros(((nt + 1) * nt, N_QUANT), dtype=torch.float64, device=rec.device)
     pix = pix.to(torch.float32)
+    if perm is None:
+        to_g = torch.arange(nt + 1, device=rec.device)
+    else:
+        to_g = torch.cat([perm, torch.tensor([nt], device=rec.device)])
     for b in range(cfg.max_bounces):
         r = rec[b * REC_INV_ROWS : (b + 1) * REC_INV_ROWS]
         ind = torch.nonzero(r[2] > 0).squeeze(1)
         nee = torch.nonzero(r[4] > 0).squeeze(1)
-        e = r[6, nee].long()
-        grid.index_add_(0, r[0, ind].long() * nt + r[1, ind].long(),
+        src_nee, e = to_g[r[1, nee].long()], to_g[r[6, nee].long()]
+        grid.index_add_(0, to_g[r[0, ind].long()] * nt + to_g[r[1, ind].long()],
                         _quantities(r[3, ind], 1.0, pix[ind], None))
-        grid.index_add_(0, r[1, nee].long() * nt + e,
+        grid.index_add_(0, src_nee * nt + e,
                         _quantities(r[5, nee], INV_PI, pix[nee], scene.emission[e]))
     return grid.reshape(nt + 1, nt, N_QUANT)
 

@@ -17,6 +17,13 @@
 // (render_kernel.py:1640, :1065): pass 2 alone, on the records that B3
 // (render_fwd.cu, kRecords = true) wrote to global memory.
 //
+// B9, stage_reverse_kernel, replaces stage_reverse_tile_pallas /
+// _kernel_stage_reverse (render_kernel.py:1780, :1263): pass 2 over the k
+// slots of one stage's records (B8's), started from the (suf, esc) carry of
+// the later stages and returning the carry toward the earlier ones; the
+// host re-orders the carry to the previous stage's lanes between launches.
+// Like B4 it is bound by the bytes of the reached records.
+//
 // Reduction.  Within a warp, lanes that hit the same triangle are grouped
 // with __match_any_sync and summed in lane order through shuffles; the
 // group's lowest lane adds the sum to the warp's own (nT, 3) row of shared
@@ -106,14 +113,21 @@ __device__ __forceinline__ void warp_scatter(int key, V3 ct, float* acc) {
 }
 
 // The suffix recursion of one ray over its n_reached records, warp by
-// warp: every lane runs the warp's longest path length, lanes past their
-// own last bounce contribute nothing.  acc is this warp's (nT, 3) row.
+// warp, from the carry (suf, esc_next) of the bounces after the last slot
+// (zero for a whole path), which it leaves at the carry toward the bounces
+// before slot 0.  Every lane runs the warp's longest path length; a lane's
+// unreached slots are zero records, which add nothing and set suf to
+// 0 * suf, as in the JAX package's recursion (for a whole path suf is then
+// already 0).  acc is this warp's (nT, 3) row.
 template <class Records>
-__device__ __forceinline__ void reverse_path(const Records& r, int n_reached, bool escaped, V3 g,
-                                             int quirks, float inv_pi, float* acc) {
+__device__ __forceinline__ void reverse_path(const Records& r, int n_slots, int n_reached,
+                                             bool escaped, V3 g, int quirks, float inv_pi,
+                                             float* acc, V3& suf, bool& esc_next) {
   const int k_top = __reduce_max_sync(0xffffffffu, n_reached);
-  V3 suf = zero3();
-  bool esc_next = false;
+  if (n_reached < n_slots) {
+    suf = g * 0.f + suf * 0.f;
+    esc_next = false;
+  }
   for (int k = k_top - 1; k >= 0; --k) {
     int key = -1;
     V3 ct = zero3();
@@ -133,6 +147,19 @@ __device__ __forceinline__ void reverse_path(const Records& r, int n_reached, bo
     esc_next = esc;
     if (__any_sync(0xffffffffu, key >= 0)) warp_scatter(key, ct, acc);
   }
+}
+
+// The reached slots of a ray in records of `slots` bounces: the leading
+// slots with hit or esc set; *escaped says whether the last one escaped.
+__device__ __forceinline__ int reached_slots(const GlobalSource& src, int slots, bool* escaped) {
+  int n_reached = 0;
+  for (int k = 0; k < slots; ++k) {
+    const float hit = src.row(k, 14), esc = src.row(k, 15);
+    if (hit == 0.f && esc == 0.f) break;
+    n_reached = k + 1;
+    *escaped = esc != 0.f;
+  }
+  return n_reached;
 }
 
 __device__ __forceinline__ void zero_acc(float* acc, int n_tri) {
@@ -158,7 +185,7 @@ __host__ __device__ inline size_t acc_floats(int n_tri) {
   return (static_cast<size_t>(kWarps) * n_tri * 3 + 3) & ~size_t(3);
 }
 
-template <int kCap>
+template <int kCap, bool kClustered>
 __global__ void __launch_bounds__(kThreads)
     grad_tile_kernel(const TraceParams P, const float* g, float* partials) {
   extern __shared__ float4 smem4[];
@@ -172,12 +199,14 @@ __global__ void __launch_bounds__(kThreads)
   PathOut o{};
   V3 gi = zero3();
   if (i < P.n) {
-    o = trace_path(P, T, i, recs);
+    o = trace_path<kClustered>(P, T, i, recs);
     gi = load_g(g, P.n, i);
   }
   const int warp = threadIdx.x >> 5;
-  reverse_path(recs, o.n_reached, o.escaped, gi, P.quirks, P.inv_pi,
-               acc + static_cast<size_t>(warp) * P.n_tri * 3);
+  V3 suf = zero3();
+  bool esc_next = false;
+  reverse_path(recs, P.max_bounces, o.n_reached, o.escaped, gi, P.quirks, P.inv_pi,
+               acc + static_cast<size_t>(warp) * P.n_tri * 3, suf, esc_next);
   __syncthreads();
   write_partial(acc, P.n_tri, partials);
 }
@@ -196,18 +225,50 @@ __global__ void __launch_bounds__(kThreads)
   bool escaped = false;
   V3 gi = zero3();
   if (i < n) {
-    // A ray's reached bounces are the leading slots with hit or esc set.
-    for (int k = 0; k < max_bounces; ++k) {
-      const float hit = src.row(k, 14), esc = src.row(k, 15);
-      if (hit == 0.f && esc == 0.f) break;
-      n_reached = k + 1;
-      escaped = esc != 0.f;
-    }
+    n_reached = reached_slots(src, max_bounces, &escaped);
     gi = load_g(g, n, i);
   }
   const int warp = threadIdx.x >> 5;
-  reverse_path(src, n_reached, escaped, gi, quirks, inv_pi,
-               acc + static_cast<size_t>(warp) * n_tri * 3);
+  V3 suf = zero3();
+  bool esc_next = false;
+  reverse_path(src, max_bounces, n_reached, escaped, gi, quirks, inv_pi,
+               acc + static_cast<size_t>(warp) * n_tri * 3, suf, esc_next);
+  __syncthreads();
+  write_partial(acc, n_tri, partials);
+}
+
+// B9: the recursion over one stage's records (k slots) from the carry
+// suf_in (4, n) = (suf xyz, esc) of the later stages; writes the carry
+// toward the earlier stages to suf_out.
+__global__ void __launch_bounds__(kThreads)
+    stage_reverse_kernel(const float* rec, const float* g, const float* suf_in, int n, int n_tri,
+                         int k, int quirks, float inv_pi, float* partials, float* suf_out) {
+  extern __shared__ float4 smem4[];
+  float* acc = reinterpret_cast<float*>(smem4);
+  zero_acc(acc, n_tri);
+  __syncthreads();
+
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const GlobalSource src{rec, n, i};
+  int n_reached = 0;
+  bool escaped = false;
+  V3 gi = zero3(), suf = zero3();
+  bool esc_next = false;
+  if (i < n) {
+    n_reached = reached_slots(src, k, &escaped);
+    gi = load_g(g, n, i);
+    suf = v3(suf_in[i], suf_in[n + i], suf_in[2 * n + i]);
+    esc_next = suf_in[3 * n + i] > 0.f;
+  }
+  const int warp = threadIdx.x >> 5;
+  reverse_path(src, k, n_reached, escaped, gi, quirks, inv_pi,
+               acc + static_cast<size_t>(warp) * n_tri * 3, suf, esc_next);
+  if (i < n) {
+    suf_out[i] = suf.x;
+    suf_out[n + i] = suf.y;
+    suf_out[2 * n + i] = suf.z;
+    suf_out[3 * n + i] = esc_next ? 1.f : 0.f;
+  }
   __syncthreads();
   write_partial(acc, n_tri, partials);
 }
@@ -236,7 +297,9 @@ int ipt_grad_tile(const TraceParams* Pin, const float* g, float* partials, void*
       sizeof(float);
   P.use_smem = acc + tabs <= static_cast<size_t>(kSmemLimit);
   const size_t dyn = acc + (P.use_smem ? tabs : 0);
-  auto kernel = P.max_bounces <= 16 ? grad_tile_kernel<16> : grad_tile_kernel<64>;
+  auto kernel = P.cluster_k
+      ? (P.max_bounces <= 16 ? grad_tile_kernel<16, true> : grad_tile_kernel<64, true>)
+      : (P.max_bounces <= 16 ? grad_tile_kernel<16, false> : grad_tile_kernel<64, false>);
   cudaError_t err = allow_smem(kernel, dyn);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int blocks = (P.n + kThreads - 1) / kThreads;
@@ -255,6 +318,21 @@ int ipt_reverse_tile(const float* rec, const float* g, int n, int n_tri, int max
   const int blocks = (n + kThreads - 1) / kThreads;
   reverse_tile_kernel<<<blocks, kThreads, dyn, static_cast<cudaStream_t>(stream)>>>(
       rec, g, n, n_tri, max_bounces, quirks, inv_pi, partials);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// B9: partials (ceil(n / 256), nT, 3) and the carry suf_out (4, n) from
+// one stage's records (k * 16, n), g (3, n) and the carry suf_in (4, n).
+int ipt_stage_reverse_tile(const float* rec, const float* g, const float* suf_in, int n,
+                           int n_tri, int k, int quirks, float inv_pi, float* partials,
+                           float* suf_out, void* stream) {
+  if (n <= 0) return 0;
+  const size_t dyn = acc_floats(n_tri) * sizeof(float);
+  cudaError_t err = allow_smem(stage_reverse_kernel, dyn);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int blocks = (n + kThreads - 1) / kThreads;
+  stage_reverse_kernel<<<blocks, kThreads, dyn, static_cast<cudaStream_t>(stream)>>>(
+      rec, g, suf_in, n, n_tri, k, quirks, inv_pi, partials, suf_out);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,14 +1,18 @@
-// Device code shared by render_fwd.cu (B1, B3) and render_bwd.cu (B2, B4):
-// the vector helpers, the counter-hash RNG, the closest-hit sweep, the
-// shading helpers and the whole bounce loop of one ray (trace_path).
+// Device code shared by render_fwd.cu (B1, B3, B7, B8, B10),
+// render_bwd.cu (B2, B4, B9) and inverse.cu (B5, B6): the vector helpers,
+// the counter-hash RNG, the closest-hit sweep with its clustered form
+// (B10), the shading helpers and the bounce loop of one ray as a lane state
+// (Lane), an init step (init_lane) and a bounce step (bounce_step).
 //
-// trace_path is templated on a record sink, so that B1 (no records), B3
-// (records to global memory) and B2 (records in a per-thread array) run one
-// copy of the arithmetic.  Every file that includes this header is built
-// with -fmad=false (build.py), so B2's replay takes exactly the branches of
-// B1's forward and rounds exactly as the plain PyTorch version does.
+// trace_path (the mega kernels' loop) and the stage kernel run the same
+// steps; both are templated on a record sink, so that B1 (no records), B3
+// and B8 (records to global memory) and B2 (records in a per-thread array)
+// run one copy of the arithmetic.  Every file that includes this header is
+// built with -fmad=false (build.py), so B2's replay takes exactly the
+// branches of B1's forward, a staged render equals a mega one lane for
+// lane, and all of them round exactly as the plain PyTorch versions do.
 //
-// Records: kRecRows rows per bounce, row-major (max_bounces * kRecRows, n),
+// Records: kRecRows rows per bounce, row-major (slots * kRecRows, n),
 // lane-contiguous so that stores and loads coalesce.  The rows of bounce b
 // are f(3) c(3) nee(3) pm_in(3) coeff tri hit esc, the layout of the JAX
 // package's REC_ROWS (ops/pallas/render_kernel.py:118, :922-926):
@@ -22,6 +26,25 @@
 //   tri    the hit triangle (0 on a miss), as a float;
 //   hit    1 where the bounce hit, esc 1 where the ray escaped.
 // Slots past a ray's last bounce are zero.
+//
+// The lane carry of the staged kernels: kCarryRows rows, lane-contiguous,
+// the JAX package's CARRY_ROWS layout (render_kernel.py:120-123): d 0:3,
+// point 3:6, hit 6, idx 7, l_e 8:11, l_d 11:14, prev_mult 14:17, alive 17,
+// radiance 18:21, segments 21, shadow rays 22, pad 23.
+//
+// B10, the clustered sweep (replaces the cluster-chunked sweep of the JAX
+// package's _make_geom, render_kernel.py:358-527).  On scenes of at least
+// 512 padded triangles the tables are in an internal order whose
+// contiguous runs of cluster_k triangles are spatially compact clusters
+// (ops/kernels/clusters.py).  intersect() sweeps cluster 0 (the largest
+// triangles) for every ray and any other cluster only where this thread's
+// ray enters its margin-padded box no later than its closest hit so far:
+// a per-ray skip where the TPU kernel skips a cluster for a whole ray
+// block.  Clusters go in ascending order and a hit replaces the running
+// one only when strictly closer, so the result is the dense sweep's, ties
+// to the lowest internal index.  Bound: the (ray, triangle) tests of the
+// entered clusters, f32 ALU as the dense sweep; the box tests are 6 mul,
+// 6 sub and 10 min/max per (ray, cluster).
 
 #pragma once
 
@@ -41,6 +64,7 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kSmemLimit = 48 * 1024;
 constexpr uint32_t kGolden = 0x9E3779B9u;
 constexpr int kRecRows = 16;
+constexpr int kCarryRows = 24;
 
 // The inputs of the bounce loop.  Pointers to the scene tables are the
 // global copies; stage_tables returns the ones a block reads.
@@ -55,9 +79,11 @@ struct TraceParams {
   const float* vtab;      // (nT, 20), or null on flat scenes
   const float* etab;      // (nE, etab_stride)
   const float* cdf;       // (nE,)
+  const float* cab;       // (n_clusters, 8) cluster boxes, or null (dense sweep)
   uint32_t k0, k1;
   int n, n_tri, n_emissive, etab_stride;
   int has_vn, no_spec, quirks, fused, max_bounces, use_smem;
+  int cluster_k, n_clusters;  // 0, 0: the dense sweep
   float p_rr, min_dot, epsilon;
   float two_pi, inv_pi, inv_2pi, cos_scale, inv_p_rr;
 };
@@ -141,13 +167,12 @@ struct Hit {
   int idx;  // 0 on miss
 };
 
-// Closest hit of the ray o + t*dir over all triangles; strict `<` keeps the
-// lowest index on exact ties.
-__device__ __forceinline__ Hit intersect(const float* __restrict__ planes, int n_tri,
-                                         float min_dot, float eps, V3 o, V3 dir) {
-  float t_best = INFINITY;
-  int best = 0;
-  for (int k = 0; k < n_tri; ++k) {
+// Sweeps triangles [lo, hi) for the ray o + t*dir, updating the closest
+// hit (t_best, best); strict `<` keeps the lowest index on exact ties.
+__device__ __forceinline__ void sweep(const float* __restrict__ planes, int lo, int hi,
+                                      float min_dot, float eps, V3 o, V3 dir, float& t_best,
+                                      int& best) {
+  for (int k = lo; k < hi; ++k) {
     const float4* q = reinterpret_cast<const float4*>(planes + kPlaneStride * k);
     const float4 f = q[0];
     const float b0 = dir.x * f.x + dir.y * f.y + dir.z * f.z;
@@ -166,6 +191,49 @@ __device__ __forceinline__ Hit intersect(const float* __restrict__ planes, int n
         t_best = t;
         best = k;
       }
+    }
+  }
+}
+
+// The slab test's reciprocal direction: components below 1e-20 in
+// magnitude become +-1e-20 (the JAX package's _inv_dir, render_kernel.py
+// :377), so the interval stays finite and conservative.
+__device__ __forceinline__ float inv_component(float c) {
+  const float tiny = c < 0.f ? -1e-20f : 1e-20f;
+  return 1.f / (fabsf(c) < 1e-20f ? tiny : c);
+}
+
+// True where the ray's [0, inf) enters the box [lo xyz, hi xyz] at or
+// before t_best (the JAX package's _slab_rows, render_kernel.py:384).
+__device__ __forceinline__ bool enters(const float* __restrict__ box, V3 o, V3 inv,
+                                       float t_best) {
+  const float tx1 = (box[0] - o.x) * inv.x, tx2 = (box[3] - o.x) * inv.x;
+  const float ty1 = (box[1] - o.y) * inv.y, ty2 = (box[4] - o.y) * inv.y;
+  const float tz1 = (box[2] - o.z) * inv.z, tz2 = (box[5] - o.z) * inv.z;
+  const float t_min = fmaxf(fmaxf(fminf(tx1, tx2), fminf(ty1, ty2)), fminf(tz1, tz2));
+  const float t_max = fminf(fminf(fmaxf(tx1, tx2), fmaxf(ty1, ty2)), fmaxf(tz1, tz2));
+  return t_max >= fmaxf(t_min, 0.f) && t_min <= t_best;
+}
+
+// Closest hit of the ray o + t*dir: the dense sweep over all triangles, or
+// B10's clustered sweep (header comment) on clustered tables.  kClustered
+// is a template parameter, not a branch on P.cluster_k, so that the dense
+// kernels compile without the clustered loop's registers (with it, B1
+// spilled under its 80-register allocation and ran 5% slower).
+template <bool kClustered>
+__device__ __forceinline__ Hit intersect(const TraceParams& P, const Tables& T, V3 o, V3 dir) {
+  float t_best = INFINITY;
+  int best = 0;
+  if constexpr (!kClustered) {
+    sweep(T.planes, 0, P.n_tri, P.min_dot, P.epsilon, o, dir, t_best, best);
+  } else {
+    const V3 inv = v3(inv_component(dir.x), inv_component(dir.y), inv_component(dir.z));
+    sweep(T.planes, 0, min(P.cluster_k, P.n_tri), P.min_dot, P.epsilon, o, dir, t_best, best);
+    for (int c = 1; c < P.n_clusters; ++c) {
+      if (!enters(P.cab + 8 * c, o, inv, t_best)) continue;
+      const int lo = c * P.cluster_k;
+      sweep(T.planes, lo, min(lo + P.cluster_k, P.n_tri), P.min_dot, P.epsilon, o, dir, t_best,
+            best);
     }
   }
   return Hit{t_best, best};
@@ -245,6 +313,225 @@ struct GlobalRecords {
   }
 };
 
+// The state of one lane of the bounce loop (the carry's rows).
+struct Lane {
+  V3 dir, point, l_e, l_d, pm, rad;
+  float segs, shadows;
+  int idx;     // the pending ray's hit triangle (0 on a miss)
+  bool hit;    // the pending ray hit
+  bool alive;
+};
+
+__device__ __forceinline__ V3 ld_rows3(const float* a, int n, int row, int i) {
+  return v3(a[static_cast<size_t>(row) * n + i], a[static_cast<size_t>(row + 1) * n + i],
+            a[static_cast<size_t>(row + 2) * n + i]);
+}
+
+__device__ __forceinline__ void st_rows3(float* a, int n, int row, int i, V3 v) {
+  a[static_cast<size_t>(row) * n + i] = v.x;
+  a[static_cast<size_t>(row + 1) * n + i] = v.y;
+  a[static_cast<size_t>(row + 2) * n + i] = v.z;
+}
+
+__device__ __forceinline__ Lane load_lane(const float* carry, int n, int i) {
+  Lane L;
+  L.dir = ld_rows3(carry, n, 0, i);
+  L.point = ld_rows3(carry, n, 3, i);
+  L.hit = carry[static_cast<size_t>(6) * n + i] > 0.f;
+  L.idx = static_cast<int>(carry[static_cast<size_t>(7) * n + i]);
+  L.l_e = ld_rows3(carry, n, 8, i);
+  L.l_d = ld_rows3(carry, n, 11, i);
+  L.pm = ld_rows3(carry, n, 14, i);
+  L.alive = carry[static_cast<size_t>(17) * n + i] > 0.f;
+  L.rad = ld_rows3(carry, n, 18, i);
+  L.segs = carry[static_cast<size_t>(21) * n + i];
+  L.shadows = carry[static_cast<size_t>(22) * n + i];
+  return L;
+}
+
+__device__ __forceinline__ void store_lane(float* carry, int n, int i, const Lane& L) {
+  st_rows3(carry, n, 0, i, L.dir);
+  st_rows3(carry, n, 3, i, L.point);
+  carry[static_cast<size_t>(6) * n + i] = L.hit ? 1.f : 0.f;
+  carry[static_cast<size_t>(7) * n + i] = static_cast<float>(L.idx);
+  st_rows3(carry, n, 8, i, L.l_e);
+  st_rows3(carry, n, 11, i, L.l_d);
+  st_rows3(carry, n, 14, i, L.pm);
+  carry[static_cast<size_t>(17) * n + i] = L.alive ? 1.f : 0.f;
+  st_rows3(carry, n, 18, i, L.rad);
+  carry[static_cast<size_t>(21) * n + i] = L.segs;
+  carry[static_cast<size_t>(22) * n + i] = L.shadows;
+  carry[static_cast<size_t>(23) * n + i] = 0.f;
+}
+
+// The initial lane of ray i: the bounce-0 intersection of a live ray (a
+// dead lane keeps a miss at point 0).
+template <bool kClustered>
+__device__ __forceinline__ Lane init_lane(const TraceParams& P, const Tables& T, int i) {
+  const int n = P.n;
+  Lane L;
+  L.dir = v3(P.d[i], P.d[n + i], P.d[2 * n + i]);
+  L.rad = L.l_e = L.l_d = L.point = zero3();
+  L.pm = v3(1.f, 1.f, 1.f);
+  L.segs = L.shadows = 0.f;
+  L.alive = P.alive[i] > 0.f;
+  L.hit = false;
+  L.idx = 0;
+  if (L.alive) {
+    const V3 o = v3(P.p[i], P.p[n + i], P.p[2 * n + i]);
+    const Hit h = intersect<kClustered>(P, T, o, L.dir);
+    L.hit = is_hit(h);
+    L.idx = h.idx;
+    L.point = hit_point(o, L.dir, h);
+  }
+  return L;
+}
+
+// The per-sample half of the fused RNG's hash.
+__device__ __forceinline__ uint32_t hash_orig(const TraceParams& P, int i) {
+  return P.fused ? fmix32(static_cast<uint32_t>(P.orig[i]) ^ P.k0) : 0u;
+}
+
+// Slots 0-5 of the uniforms of global bounce b_global: the fused hash of
+// (sample, b_global, slot), or row b_local*8 + slot of P.uniforms.
+__device__ __forceinline__ void draw6(const TraceParams& P, int i, uint32_t h_orig, int b_global,
+                                      int b_local, float u[6]) {
+#pragma unroll
+  for (int s = 0; s < 6; ++s) {
+    if (P.fused) {
+      const uint32_t ctr = static_cast<uint32_t>(b_global * 8 + s);
+      u[s] = unit_from_bits(fmix32((h_orig + ctr * kGolden) ^ P.k1));
+    } else {
+      u[s] = P.uniforms[static_cast<size_t>(b_local * 8 + s) * P.n + i];
+    }
+  }
+}
+
+// One bounce of a live lane at global bounce b (B1's bounce, JAX
+// _make_bounce, render_kernel.py:602), its record handed to sink slot
+// `slot`.  The lane dies on escape (f = 0, nee = 0, c = the stale l_e +
+// l_d with quirks, else 0) and where roulette ends the path (f = 0, coeff
+// = 0); a dead lane keeps the rest of its state.  Returns L.alive.
+template <bool kClustered, class Sink>
+__device__ __forceinline__ bool bounce_step(const TraceParams& P, const Tables& T, Lane& L, int b,
+                                            const float u[6], Sink& sink, int slot) {
+  L.segs += 1.f;
+  if (!L.hit) {
+    // Escape.  Q2: the loop body still adds the stale L_d (and L_e).
+    V3 c = zero3();
+    if (P.quirks) {
+      c = L.l_e + L.l_d;
+      L.rad = L.rad + L.pm * c;
+    }
+    sink.put(slot, zero3(), c, zero3(), L.pm, 0.f, 0, false, true);
+    L.alive = false;
+    return false;
+  }
+  const int idx = L.idx;
+  const V3 point = L.point, dir = L.dir, pm = L.pm;
+  const float* row = T.table + kTableStride * idx;
+  const V3 emission = ld3(row);
+  const V3 spec = ld3(row + 3);
+  const float shin = row[6];
+  const V3 face_n = ld3(row + 7);
+  const V3 kd = ld3(row + 10);
+  const V3 shade_n = P.has_vn
+      ? smooth_at(point, T.vtab + kVtabStride * idx, T.vtab + kVtabStride * idx + 9,
+                  T.vtab[kVtabStride * idx + 18])
+      : face_n;
+  // Q1: first-hit emission is kept and re-added every bounce.
+  if (b == 0) {
+    L.l_e = emission;
+  } else if (!P.quirks) {
+    L.l_e = zero3();
+  }
+
+  // Russian roulette and the next direction, about the FACE normal.
+  const bool cont = u[3] < P.p_rr;
+  const float phi = P.two_pi * u[4];
+  bool is_spec = false;
+  float cos_t;
+  if (P.no_spec) {
+    cos_t = sqrtf(u[5]);
+  } else {
+    is_spec = (spec.x != 0.f || spec.y != 0.f || spec.z != 0.f) && shin != 0.f;
+    cos_t = powf(u[5], is_spec ? 1.f / (shin + 1.f) : 0.5f);
+  }
+  const float sin_t = sqrtf(fmaxf(1.f - cos_t * cos_t, 0.f));
+  const V3 next_dir = normalize3(rotate_z_to(face_n, v3(sin_t * cosf(phi), sin_t * sinf(phi), cos_t)));
+  const float cosine = dot3(next_dir, shade_n);
+
+  // Next-event estimation; the shadow ray and the next ray share `point`.
+  // l_d = bsdf_direct * nee, and d l_d / d kd = nee (no 1/pi: the
+  // reference's direct BSDF is kd + spec * phong).
+  V3 nee = zero3();
+  V3 l_d_fresh = zero3();
+  Hit nxt;
+  if (P.n_emissive > 0) {
+    L.shadows += 1.f;
+    int e = P.n_emissive - 1;  // u past cdf[-1] clamps to the last emitter
+    for (int k = 0; k < P.n_emissive; ++k) {
+      if (T.cdf[k] >= u[0]) {
+        e = k;
+        break;
+      }
+    }
+    const float* er = T.etab + P.etab_stride * e;
+    const float sq = sqrtf(u[1]);
+    const float r2 = u[2];
+    const V3 v0 = ld3(er), v1 = ld3(er + 3), v2 = ld3(er + 6);
+    const V3 emm = v3((1.f - sq) * v0.x + sq * (1.f - r2) * v1.x + r2 * sq * v2.x,
+                      (1.f - sq) * v0.y + sq * (1.f - r2) * v1.y + r2 * sq * v2.y,
+                      (1.f - sq) * v0.z + sq * (1.f - r2) * v1.z + r2 * sq * v2.z);
+    const V3 to_light = normalize3(emm - point);
+    const float cos_theta = dot3(shade_n, to_light);
+    const Hit sh = intersect<kClustered>(P, T, point, to_light);
+    nxt = intersect<kClustered>(P, T, point, next_dir);
+    bool ok = cos_theta >= 0.f && is_hit(sh);
+    const V3 light_n = P.has_vn
+        ? smooth_at(hit_point(point, to_light, sh), er, er + 17, er[26])
+        : ld3(er + 12);
+    const float cos_theta_p = -dot3(light_n, to_light);
+    ok = ok && cos_theta_p >= 0.f && static_cast<float>(sh.idx) == er[15];
+    if (ok) {
+      const float geo = cos_theta * cos_theta_p / (sh.t * sh.t) / er[16];
+      V3 bsdf_direct = kd;
+      if (!P.no_spec) bsdf_direct = kd + spec * spec_coeff(P.inv_2pi, shin, shade_n, dir, to_light);
+      nee = ld3(er + 9) * geo;
+      l_d_fresh = bsdf_direct * nee;
+    }
+  } else {
+    nxt = intersect<kClustered>(P, T, point, next_dir);
+  }
+  L.l_d = l_d_fresh;
+  const V3 c = L.l_e + L.l_d;
+  L.rad = L.rad + pm * c;
+
+  if (!cont) {
+    sink.put(slot, zero3(), c, nee, pm, 0.f, idx, true, false);
+    L.alive = false;
+    return false;
+  }
+  V3 bsdf;
+  float coeff;
+  if (P.no_spec) {
+    bsdf = kd * P.inv_pi;
+    coeff = cosine * P.cos_scale;  // cosine / pdf(=1/pi) / p_RR
+  } else {
+    const float pdf = is_spec ? powf((shin + 1.f) * cos_t, shin) : P.inv_pi;
+    bsdf = kd * P.inv_pi + spec * spec_coeff(P.inv_2pi, shin, shade_n, dir, next_dir);
+    coeff = pdf > 0.f ? cosine / pdf * P.inv_p_rr : 0.f;
+  }
+  const V3 f = bsdf * coeff;
+  sink.put(slot, f, c, nee, pm, coeff, idx, true, false);
+  L.pm = pm * f;
+  L.dir = next_dir;
+  L.hit = is_hit(nxt);
+  L.idx = nxt.idx;
+  L.point = hit_point(point, next_dir, nxt);
+  return true;
+}
+
 struct PathOut {
   V3 rad;
   float segs, shadows;
@@ -252,155 +539,26 @@ struct PathOut {
   bool escaped;   // the last of them was an escape
 };
 
-// The bounce loop of one ray: B1's forward (JAX _make_bounce, render_kernel
-// .py:602), with every bounce's record handed to `sink`.  The last bounce
-// is recorded too: on escape (f = 0, nee = 0, c = the stale l_e + l_d with
-// quirks, else 0) and when roulette ends the path (f = 0, coeff = 0).
-template <class Sink>
+// The whole bounce loop of ray i (the mega kernels): init_lane, then
+// bounce_step until the lane dies or max_bounces, every bounce's record
+// handed to `sink`.
+template <bool kClustered, class Sink>
 __device__ __forceinline__ PathOut trace_path(const TraceParams& P, const Tables& T, int i,
                                               Sink& sink) {
-  const int n = P.n;
-  V3 dir = v3(P.d[i], P.d[n + i], P.d[2 * n + i]);
-  V3 rad = zero3(), l_e = rad, l_d = rad, pm = v3(1.f, 1.f, 1.f);
-  float segs = 0.f, shadows = 0.f;
+  Lane L = init_lane<kClustered>(P, T, i);
+  const uint32_t h_orig = hash_orig(P, i);
   int n_reached = 0;
   bool escaped = false;
-  bool alive = P.alive[i] > 0.f;
-  const uint32_t h_orig = P.fused ? fmix32(static_cast<uint32_t>(P.orig[i]) ^ P.k0) : 0u;
-
-  Hit cur = Hit{INFINITY, 0};
-  V3 point = zero3();
-  if (alive) {
-    const V3 o = v3(P.p[i], P.p[n + i], P.p[2 * n + i]);
-    cur = intersect(T.planes, P.n_tri, P.min_dot, P.epsilon, o, dir);
-    point = hit_point(o, dir, cur);
+  if (L.alive) {
+    for (int b = 0; b < P.max_bounces; ++b) {
+      float u[6];
+      draw6(P, i, h_orig, b, b, u);
+      n_reached = b + 1;
+      escaped = !L.hit;
+      if (!bounce_step<kClustered>(P, T, L, b, u, sink, b)) break;
+    }
   }
-
-  for (int b = 0; alive && b < P.max_bounces; ++b) {
-    float u[6];
-#pragma unroll
-    for (int s = 0; s < 6; ++s) {
-      if (P.fused) {
-        const uint32_t ctr = static_cast<uint32_t>(b * 8 + s);
-        u[s] = unit_from_bits(fmix32((h_orig + ctr * kGolden) ^ P.k1));
-      } else {
-        u[s] = P.uniforms[static_cast<size_t>(b * 8 + s) * n + i];
-      }
-    }
-    segs += 1.f;
-    n_reached = b + 1;
-    if (!is_hit(cur)) {
-      // Escape.  Q2: the loop body still adds the stale L_d (and L_e).
-      V3 c = zero3();
-      if (P.quirks) {
-        c = l_e + l_d;
-        rad = rad + pm * c;
-      }
-      sink.put(b, zero3(), c, zero3(), pm, 0.f, 0, false, true);
-      escaped = true;
-      break;
-    }
-    const int idx = cur.idx;
-    const float* row = T.table + kTableStride * idx;
-    const V3 emission = ld3(row);
-    const V3 spec = ld3(row + 3);
-    const float shin = row[6];
-    const V3 face_n = ld3(row + 7);
-    const V3 kd = ld3(row + 10);
-    const V3 shade_n = P.has_vn
-        ? smooth_at(point, T.vtab + kVtabStride * idx, T.vtab + kVtabStride * idx + 9,
-                    T.vtab[kVtabStride * idx + 18])
-        : face_n;
-    // Q1: first-hit emission is kept and re-added every bounce.
-    if (b == 0) {
-      l_e = emission;
-    } else if (!P.quirks) {
-      l_e = zero3();
-    }
-
-    // Russian roulette and the next direction, about the FACE normal.
-    const bool cont = u[3] < P.p_rr;
-    const float phi = P.two_pi * u[4];
-    bool is_spec = false;
-    float cos_t;
-    if (P.no_spec) {
-      cos_t = sqrtf(u[5]);
-    } else {
-      is_spec = (spec.x != 0.f || spec.y != 0.f || spec.z != 0.f) && shin != 0.f;
-      cos_t = powf(u[5], is_spec ? 1.f / (shin + 1.f) : 0.5f);
-    }
-    const float sin_t = sqrtf(fmaxf(1.f - cos_t * cos_t, 0.f));
-    const V3 next_dir = normalize3(rotate_z_to(face_n, v3(sin_t * cosf(phi), sin_t * sinf(phi), cos_t)));
-    const float cosine = dot3(next_dir, shade_n);
-
-    // Next-event estimation; the shadow ray and the next ray share `point`.
-    // l_d = bsdf_direct * nee, and d l_d / d kd = nee (no 1/pi: the
-    // reference's direct BSDF is kd + spec * phong).
-    V3 nee = zero3();
-    V3 l_d_fresh = zero3();
-    Hit nxt;
-    if (P.n_emissive > 0) {
-      shadows += 1.f;
-      int e = P.n_emissive - 1;  // u past cdf[-1] clamps to the last emitter
-      for (int k = 0; k < P.n_emissive; ++k) {
-        if (T.cdf[k] >= u[0]) {
-          e = k;
-          break;
-        }
-      }
-      const float* er = T.etab + P.etab_stride * e;
-      const float sq = sqrtf(u[1]);
-      const float r2 = u[2];
-      const V3 v0 = ld3(er), v1 = ld3(er + 3), v2 = ld3(er + 6);
-      const V3 emm = v3((1.f - sq) * v0.x + sq * (1.f - r2) * v1.x + r2 * sq * v2.x,
-                        (1.f - sq) * v0.y + sq * (1.f - r2) * v1.y + r2 * sq * v2.y,
-                        (1.f - sq) * v0.z + sq * (1.f - r2) * v1.z + r2 * sq * v2.z);
-      const V3 to_light = normalize3(emm - point);
-      const float cos_theta = dot3(shade_n, to_light);
-      const Hit sh = intersect(T.planes, P.n_tri, P.min_dot, P.epsilon, point, to_light);
-      nxt = intersect(T.planes, P.n_tri, P.min_dot, P.epsilon, point, next_dir);
-      bool ok = cos_theta >= 0.f && is_hit(sh);
-      const V3 light_n = P.has_vn
-          ? smooth_at(hit_point(point, to_light, sh), er, er + 17, er[26])
-          : ld3(er + 12);
-      const float cos_theta_p = -dot3(light_n, to_light);
-      ok = ok && cos_theta_p >= 0.f && static_cast<float>(sh.idx) == er[15];
-      if (ok) {
-        const float geo = cos_theta * cos_theta_p / (sh.t * sh.t) / er[16];
-        V3 bsdf_direct = kd;
-        if (!P.no_spec) bsdf_direct = kd + spec * spec_coeff(P.inv_2pi, shin, shade_n, dir, to_light);
-        nee = ld3(er + 9) * geo;
-        l_d_fresh = bsdf_direct * nee;
-      }
-    } else {
-      nxt = intersect(T.planes, P.n_tri, P.min_dot, P.epsilon, point, next_dir);
-    }
-    l_d = l_d_fresh;
-    const V3 c = l_e + l_d;
-    rad = rad + pm * c;
-
-    if (!cont) {
-      sink.put(b, zero3(), c, nee, pm, 0.f, idx, true, false);
-      break;
-    }
-    V3 bsdf;
-    float coeff;
-    if (P.no_spec) {
-      bsdf = kd * P.inv_pi;
-      coeff = cosine * P.cos_scale;  // cosine / pdf(=1/pi) / p_RR
-    } else {
-      const float pdf = is_spec ? powf((shin + 1.f) * cos_t, shin) : P.inv_pi;
-      bsdf = kd * P.inv_pi + spec * spec_coeff(P.inv_2pi, shin, shade_n, dir, next_dir);
-      coeff = pdf > 0.f ? cosine / pdf * P.inv_p_rr : 0.f;
-    }
-    const V3 f = bsdf * coeff;
-    sink.put(b, f, c, nee, pm, coeff, idx, true, false);
-    pm = pm * f;
-    dir = next_dir;
-    cur = nxt;
-    point = hit_point(point, next_dir, nxt);
-  }
-  return PathOut{rad, segs, shadows, n_reached, escaped};
+  return PathOut{L.rad, L.segs, L.shadows, n_reached, escaped};
 }
 
 }  // namespace ipt

@@ -6,6 +6,8 @@
                                              suffix recursion)
     reverse_tile / reverse_tile_plain        B4, the suffix recursion on B3's
                                              records
+    intersect_tile / intersect_tile_plain    B10, the clustered closest-hit
+                                             sweep, launched on its own
 
 They take the arguments and return the outputs of the JAX package's
 render_tile_pallas, render_tile_pallas_rec, grad_tile_pallas and
@@ -22,6 +24,13 @@ reverse_tile_pallas (ops/pallas/render_kernel.py:1440, :1571, :1505, :1640):
     -> radiance (3, n), stats (2, n) per-lane segment and shadow-ray counts,
        records, or the material cotangent (nT, 3).
 
+On a clustered scene (ops/kernels/clusters.py) the kernels and the plain
+versions work in the internal triangle order: the records' tri rows are
+internal, and grad_tile, grad_tile_plain and reverse_tile(perm=...) map the
+cotangent back to global rows.  Every B1-B9 kernel sweeps through B10
+(render_common.cuh intersect); intersect_tile.launches counts each launch
+that ran the clustered sweep, its own included.
+
 Each wrapper launches its CUDA kernel (render_fwd.cu, render_bwd.cu) for
 CUDA tensors and runs its plain version for CPU tensors; it never falls
 back from one to the other on a CUDA tensor.  `<wrapper>.launches` counts
@@ -34,16 +43,24 @@ import ctypes
 import dataclasses
 import functools
 import math
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from inverse_path_tracer_torch.ops import rng
 from inverse_path_tracer_torch.ops.bsdf import INV_2PI, INV_PI, bsdf_from_values
 from inverse_path_tracer_torch.ops.intersect import (
+    Intersection,
+    intersect_clustered,
     intersect_planes,
     plane_rows,
     smooth_normal,
+)
+from inverse_path_tracer_torch.ops.kernels.clusters import (
+    KernelView,
+    kernel_view,
+    to_kernel_order,
+    unperm_rows,
 )
 from inverse_path_tracer_torch.ops.sampling import (
     TWO_PI,
@@ -62,16 +79,26 @@ from inverse_path_tracer_torch.scene.build import SceneData
 Keys = Tuple[int, int]
 
 # render_bwd.cu: records of at most 64 bounces per thread, and kWarps (8) *
-# nT * 3 floats of accumulators in at most 227 KB of shared memory.
+# nT * 3 floats of accumulators in at most 227 KB of shared memory; the
+# internal (cluster-padded) triangle count is held to the same limit.
 GRAD_MAX_BOUNCES = 64
 GRAD_MAX_TRIANGLES = 2048
 _BLOCK = 256  # threads per block of every kernel
 
+# Staged-wavefront lane carry, (CARRY_ROWS, n) float32 rows (the JAX
+# package's layout, ops/pallas/render_kernel.py:120-123): d 0:3, point 3:6,
+# hit 6, idx 7 (internal triangle index as a float), l_e 8:11, l_d 11:14,
+# prev_mult 14:17, alive 17, radiance 18:21, segments 21, shadow rays 22,
+# pad 23.
+CARRY_ROWS = 24
+CAR_ALIVE, CAR_RAD, CAR_STATS = 17, slice(18, 21), slice(21, 23)
+
 
 @dataclasses.dataclass
 class KernelTables:
-    """Device tables of the kernel (the counterpart of _pack_tables,
-    render_kernel.py:1296, without the bf16 Kd split or cluster data)."""
+    """Device tables of the kernels (the counterpart of _pack_tables,
+    render_kernel.py:1296, without the bf16 Kd split), in the kernels'
+    triangle order."""
 
     planes: torch.Tensor  # (nT, 16) face plane + 3 edge planes
     table: torch.Tensor  # (nT, 16) emission, spec, shin, face_n, kd, pad
@@ -79,28 +106,44 @@ class KernelTables:
     etab: torch.Tensor  # (nE, 17|27) verts, emission, face_n, tri, p (+vn, area)
     cdf: torch.Tensor  # (nE,)
     no_spec: bool
+    perm: Optional[torch.Tensor] = None  # internal -> global, None = global order
+    cab: Optional[torch.Tensor] = None  # (C, 8) cluster boxes
+    cluster_k: int = 0  # 0 = dense sweep
+
+    @property
+    def padded_tri(self) -> int:
+        """Triangles of the internal order rounded up to whole clusters."""
+        n = self.planes.shape[0]
+        return -(-n // self.cluster_k) * self.cluster_k if self.cluster_k else n
 
 
-def pack_tables(scene: SceneData, materials: torch.Tensor) -> KernelTables:
+def pack_tables(scene: SceneData, materials: torch.Tensor, cfg=None) -> KernelTables:
+    """The kernels' tables of `scene` with `materials`; with cfg, in the
+    clustered order and with the cluster boxes where cfg clusters the scene
+    (clusters.kernel_view), else dense in global order."""
+    view = kernel_view(scene, cfg)
+    s, materials = view.scene, to_kernel_order(materials, view)
     # flatten(1), not reshape(rows, -1): an emitter-free scene has 0 rows.
     f32 = lambda *xs: torch.cat([x.flatten(1).float() for x in xs], dim=1)
-    table = f32(scene.emission, scene.specular, scene.shininess[:, None],
-                scene.face_normal, materials, torch.zeros_like(materials))
-    ei = scene.emissive_idx
-    ecols = [scene.vertices[ei], scene.emission[ei], scene.face_normal[ei],
-             ei.float()[:, None], scene.emissive_p[:, None]]
+    table = f32(s.emission, s.specular, s.shininess[:, None], s.face_normal, materials,
+                torch.zeros_like(materials))
+    ei = s.emissive_idx
+    ecols = [s.vertices[ei], s.emission[ei], s.face_normal[ei], ei.float()[:, None],
+             s.emissive_p[:, None]]
     vtab = None
-    if scene.has_vertex_normals:
-        vtab = f32(scene.vertices, scene.vertex_normals, scene.area[:, None],
-                   torch.zeros_like(scene.area)[:, None])
-        ecols += [scene.vertex_normals[ei], scene.area[ei][:, None]]
+    if s.has_vertex_normals:
+        vtab = f32(s.vertices, s.vertex_normals, s.area[:, None], torch.zeros_like(s.area)[:, None])
+        ecols += [s.vertex_normals[ei], s.area[ei][:, None]]
     return KernelTables(
-        planes=plane_rows(scene),
+        planes=plane_rows(s),
         table=table.contiguous(),
         vtab=None if vtab is None else vtab.contiguous(),
         etab=f32(*ecols).contiguous(),
-        cdf=scene.emissive_cdf.float().contiguous(),
-        no_spec=scene.specular_idx.shape[0] == 0,
+        cdf=s.emissive_cdf.float().contiguous(),
+        no_spec=s.specular_idx.shape[0] == 0,
+        perm=view.perm,
+        cab=view.cab,
+        cluster_k=view.cluster_k,
     )
 
 
@@ -116,15 +159,18 @@ def _check(p, want):
             raise ValueError(f"{name} must be contiguous")
 
 
-def _check_inputs(cfg, p, d, alive, uniforms, orig, keys):
-    n = p.shape[1]
-    want = {"p": (p, (3, n), torch.float32), "d": (d, (3, n), torch.float32),
-            "alive": (alive, (1, n), torch.float32), "orig": (orig, (1, n), torch.int32)}
+def _check_rng(p, uniforms, keys, rows):
     if (uniforms is None) == (keys is None):
         raise ValueError("pass exactly one of uniforms (external RNG) and keys (fused RNG)")
     if uniforms is not None:
-        want["uniforms"] = (uniforms, (cfg.max_bounces * 8, n), torch.float32)
-    _check(p, want)
+        _check(p, {"uniforms": (uniforms, (rows, p.shape[1]), torch.float32)})
+
+
+def _check_inputs(cfg, p, d, alive, uniforms, orig, keys):
+    n = p.shape[1]
+    _check(p, {"p": (p, (3, n), torch.float32), "d": (d, (3, n), torch.float32),
+               "alive": (alive, (1, n), torch.float32), "orig": (orig, (1, n), torch.int32)})
+    _check_rng(p, uniforms, keys, cfg.max_bounces * 8)
 
 
 def _check_grad_triangles(n_tri):
@@ -164,7 +210,7 @@ def render_tile(
     tables: Optional[KernelTables] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """B1: render one range of rays.  `tables` is pack_tables(scene,
-    materials), packed here when not given."""
+    materials, cfg), packed here when not given."""
     orig = _default_orig(p, orig)
     _check_inputs(cfg, p, d, alive, uniforms, orig, keys)
     if not _on_card(p, scene, materials):
@@ -213,35 +259,39 @@ def grad_tile(
     *,
     tables: Optional[KernelTables] = None,
 ) -> torch.Tensor:
-    """B2: d(sum g * radiance)/d materials (nT, 3) for one range of rays,
-    replaying the forward and running the suffix recursion in one kernel."""
+    """B2: d(sum g * radiance)/d materials (nT, 3), in global rows, for one
+    range of rays, replaying the forward and running the suffix recursion
+    in one kernel."""
     orig = _default_orig(p, orig)
     _check_inputs(cfg, p, d, alive, uniforms, orig, keys)
     _check(p, {"g": (g, (3, p.shape[1]), torch.float32)})
     if not _on_card(p, scene, materials):
         return grad_tile_plain(materials, scene, cfg, p, d, alive, g, uniforms, orig, keys)
-    _check_grad_triangles(scene.n_tri)
     if cfg.max_bounces > GRAD_MAX_BOUNCES:
         raise ValueError(f"grad_tile keeps at most {GRAD_MAX_BOUNCES} bounces of records "
                          f"per thread, got max_bounces={cfg.max_bounces}")
     lib = _library("render_bwd")
     params, tabs = _trace_params(materials, scene, cfg, tables, p, d, alive, uniforms, orig, keys)
+    _check_grad_triangles(tabs.padded_tri)
     partials = _partials(p.shape[1], scene.n_tri, p.device)
     with torch.cuda.device(p.device):
         err = lib.ipt_grad_tile(ctypes.byref(params), g.data_ptr(), partials.data_ptr(),
                                 torch.cuda.current_stream(p.device).cuda_stream)
     _raise_on(lib, err, "render_bwd grad_tile")
     grad_tile.launches += 1
-    return partials.sum(dim=0)
+    _count_sweep(tabs)
+    return unperm_rows(partials.sum(dim=0), tabs.perm)
 
 
-def reverse_tile(n_tri: int, cfg, rec: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
-    """B4: the material cotangent (nT, 3) from B3's records and g (3, n)."""
+def reverse_tile(n_tri: int, cfg, rec: torch.Tensor, g: torch.Tensor,
+                 perm: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """B4: the material cotangent (nT, 3) from B3's records and g (3, n);
+    `perm` (the tables' perm) maps internal rows back to global ones."""
     n = g.shape[1]
     _check(g, {"rec": (rec, (cfg.max_bounces * REC_ROWS, n), torch.float32),
                "g": (g, (3, n), torch.float32)})
     if g.device.type == "cpu":
-        return reverse_tile_plain(n_tri, cfg, rec, g)
+        return reverse_tile_plain(n_tri, cfg, rec, g, perm)
     if g.device.type != "cuda":
         raise ValueError(f"reverse_tile runs on CUDA or CPU tensors, got {g.device}")
     _check_grad_triangles(n_tri)
@@ -253,13 +303,48 @@ def reverse_tile(n_tri: int, cfg, rec: torch.Tensor, g: torch.Tensor) -> torch.T
                                    torch.cuda.current_stream(g.device).cuda_stream)
     _raise_on(lib, err, "render_bwd reverse_tile")
     reverse_tile.launches += 1
-    return partials.sum(dim=0)
+    return unperm_rows(partials.sum(dim=0), perm)
+
+
+def intersect_tile(
+    scene: SceneData,
+    cfg,
+    p: torch.Tensor,
+    d: torch.Tensor,
+    *,
+    tables: Optional[KernelTables] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """B10 on its own: the closest hit of each ray (3, n) through the
+    kernels' sweep (clustered where cfg clusters the scene).  Returns t (n,)
+    float32 (+inf on a miss) and the internal triangle index (n,) int32 (0
+    on a miss)."""
+    n = p.shape[1]
+    _check(p, {"p": (p, (3, n), torch.float32), "d": (d, (3, n), torch.float32)})
+    if not _on_card(p, scene):
+        return intersect_tile_plain(scene, cfg, p, d)
+    lib = _library("render_fwd")
+    params, _ = _trace_params(scene.diffuse, scene, cfg, tables, p, d)
+    t = torch.empty(n, dtype=torch.float32, device=p.device)
+    idx = torch.empty(n, dtype=torch.int32, device=p.device)
+    with torch.cuda.device(p.device):
+        err = lib.ipt_intersect_tile(ctypes.byref(params), t.data_ptr(), idx.data_ptr(),
+                                     torch.cuda.current_stream(p.device).cuda_stream)
+    _raise_on(lib, err, "render_fwd intersect_tile")
+    intersect_tile.launches += 1
+    return t, idx
 
 
 render_tile.launches = 0
 render_tile_rec.launches = 0
 grad_tile.launches = 0
 reverse_tile.launches = 0
+intersect_tile.launches = 0
+
+
+def _count_sweep(tabs: KernelTables) -> None:
+    """One more launch of B10's code, if `tabs` are clustered."""
+    if tabs.cluster_k:
+        intersect_tile.launches += 1
 
 
 class _TraceParams(ctypes.Structure):
@@ -267,11 +352,11 @@ class _TraceParams(ctypes.Structure):
 
     _fields_ = (
         [(f, ctypes.c_void_p) for f in ("p", "d", "alive", "orig", "uniforms", "planes",
-                                         "table", "vtab", "etab", "cdf")]
+                                         "table", "vtab", "etab", "cdf", "cab")]
         + [("k0", ctypes.c_uint32), ("k1", ctypes.c_uint32)]
         + [(f, ctypes.c_int) for f in ("n", "n_tri", "n_emissive", "etab_stride", "has_vn",
                                         "no_spec", "quirks", "fused", "max_bounces",
-                                        "use_smem")]
+                                        "use_smem", "cluster_k", "n_clusters")]
         + [(f, ctypes.c_float) for f in ("p_rr", "min_dot", "epsilon", "two_pi", "inv_pi",
                                           "inv_2pi", "cos_scale", "inv_p_rr")]
     )
@@ -288,6 +373,13 @@ def _library(name: str):
     if name == "render_fwd":
         lib.ipt_render_fwd.argtypes = [params, vp, vp, vp, vp]  # rad stats rec stream
         lib.ipt_render_fwd.restype = ci
+        lib.ipt_init_tile.argtypes = [params, vp, vp]  # carry stream
+        lib.ipt_init_tile.restype = ci
+        # carry_in carry_out rec start k stream
+        lib.ipt_stage_tile.argtypes = [params, vp, vp, vp, ci, ci, vp]
+        lib.ipt_stage_tile.restype = ci
+        lib.ipt_intersect_tile.argtypes = [params, vp, vp, vp]  # t idx stream
+        lib.ipt_intersect_tile.restype = ci
     elif name == "inverse":
         lib.ipt_inverse_grid_blocks.argtypes = [params, ctypes.POINTER(ci)]
         lib.ipt_inverse_grid_blocks.restype = ci
@@ -301,6 +393,9 @@ def _library(name: str):
         # rec g n n_tri max_bounces quirks inv_pi partials stream
         lib.ipt_reverse_tile.argtypes = [vp, vp, ci, ci, ci, ci, cf, vp, vp]
         lib.ipt_reverse_tile.restype = ci
+        # rec g suf_in n n_tri k quirks inv_pi partials suf_out stream
+        lib.ipt_stage_reverse_tile.argtypes = [vp, vp, vp, ci, ci, ci, ci, cf, vp, vp, vp]
+        lib.ipt_stage_reverse_tile.restype = ci
     lib.ipt_error_string.argtypes = [ci]
     lib.ipt_error_string.restype = ctypes.c_char_p
     return lib
@@ -317,24 +412,28 @@ def _partials(n: int, n_tri: int, device) -> torch.Tensor:
     return torch.empty((-(-n // _BLOCK), n_tri, 3), dtype=torch.float32, device=device)
 
 
-def _trace_params(materials, scene, cfg, tabs, p, d, alive, uniforms, orig, keys):
+def _trace_params(materials, scene, cfg, tabs, p, d=None, alive=None, uniforms=None, orig=None,
+                  keys=None):
     """The kernels' TraceParams (pointers into the caller's tensors, which
-    must outlive the launch) and the tables they point to."""
+    must outlive the launch) and the tables they point to (packed here
+    under cfg when `tabs` is None).  The lanes are p's columns."""
     if tabs is None:
-        tabs = pack_tables(scene, materials)
+        tabs = pack_tables(scene, materials, cfg)
     if tabs.planes.device != p.device:
         raise ValueError(f"tables are on {tabs.planes.device}, rays on {p.device}")
     ptr = lambda t: None if t is None else t.data_ptr()
     fused = keys is not None
     k0, k1 = keys if fused else (0, 0)
+    ck = tabs.cluster_k
     params = _TraceParams(
         p=ptr(p), d=ptr(d), alive=ptr(alive), orig=ptr(orig), uniforms=ptr(uniforms),
         planes=ptr(tabs.planes), table=ptr(tabs.table), vtab=ptr(tabs.vtab),
-        etab=ptr(tabs.etab), cdf=ptr(tabs.cdf), k0=k0, k1=k1,
+        etab=ptr(tabs.etab), cdf=ptr(tabs.cdf), cab=ptr(tabs.cab), k0=k0, k1=k1,
         n=p.shape[1], n_tri=scene.n_tri, n_emissive=scene.n_emissive,
         etab_stride=tabs.etab.shape[1], has_vn=int(tabs.vtab is not None),
         no_spec=int(tabs.no_spec), quirks=int(cfg.reference_quirks), fused=int(fused),
-        max_bounces=cfg.max_bounces, use_smem=0, p_rr=cfg.p_rr, min_dot=cfg.min_dot,
+        max_bounces=cfg.max_bounces, use_smem=0, cluster_k=ck,
+        n_clusters=-(-scene.n_tri // ck) if ck else 0, p_rr=cfg.p_rr, min_dot=cfg.min_dot,
         epsilon=cfg.epsilon, two_pi=TWO_PI, inv_pi=INV_PI, inv_2pi=INV_2PI,
         cos_scale=math.pi / cfg.p_rr, inv_p_rr=1.0 / cfg.p_rr,
     )
@@ -355,7 +454,169 @@ def _launch_fwd(materials, scene, cfg, tables, p, d, alive, uniforms, orig, keys
                                  None if rec is None else rec.data_ptr(),
                                  torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(lib, err, "render_fwd")
+    _count_sweep(tabs)
     return rad, stats, rec
+
+
+# --- The plain versions ---------------------------------------------------
+
+
+def sweep(view: KernelView, cfg, o: torch.Tensor, dirs: torch.Tensor) -> Intersection:
+    """The kernels' closest hit (rays (R, 3)) on the view: the clustered
+    sweep on clustered views, else the dense one."""
+    planes = plane_rows(view.scene)
+    if view.cluster_k:
+        return intersect_clustered(planes, view.cab, view.cluster_k, o, dirs, cfg.min_dot,
+                                   cfg.epsilon)
+    return intersect_planes(planes, o, dirs, cfg.min_dot, cfg.epsilon)
+
+
+def _sweep_on(view, cfg, mask, o, dirs) -> Intersection:
+    """sweep() of the lanes in `mask`; the others miss (point = o)."""
+    n = o.shape[0]
+    t = torch.full((n,), float("inf"), dtype=torch.float32, device=o.device)
+    tri = torch.zeros(n, dtype=torch.int64, device=o.device)
+    point, hit = o.clone(), torch.zeros(n, dtype=torch.bool, device=o.device)
+    sel = torch.nonzero(mask).squeeze(1)
+    if sel.numel():
+        sub = sweep(view, cfg, o[sel], dirs[sel])
+        t[sel], tri[sel], point[sel], hit[sel] = sub.t, sub.tri, sub.point, sub.hit
+    return Intersection(t=t, tri=tri, point=point, hit=hit)
+
+
+class Lanes(NamedTuple):
+    """Per-lane state of the bounce loop, (n, ...) each: the rows of the
+    carry (CARRY_ROWS) in the plain versions' form."""
+
+    d: torch.Tensor  # (n, 3) current direction
+    point: torch.Tensor  # (n, 3) pending hit point
+    hit: torch.Tensor  # (n,) bool: the pending ray hit
+    idx: torch.Tensor  # (n,) int64 internal triangle of the pending hit (0 on a miss)
+    l_e: torch.Tensor  # (n, 3)
+    l_d: torch.Tensor  # (n, 3)
+    pm: torch.Tensor  # (n, 3) throughput
+    alive: torch.Tensor  # (n,) bool
+    rad: torch.Tensor  # (n, 3)
+    segs: torch.Tensor  # (n,)
+    shadows: torch.Tensor  # (n,)
+
+    def to_carry(self) -> torch.Tensor:
+        f = lambda x: x.float()[None]
+        return torch.cat([self.d.T, self.point.T, f(self.hit), f(self.idx), self.l_e.T,
+                          self.l_d.T, self.pm.T, f(self.alive), self.rad.T, self.segs[None],
+                          self.shadows[None], torch.zeros_like(self.segs)[None]]).contiguous()
+
+    @classmethod
+    def from_carry(cls, c: torch.Tensor) -> "Lanes":
+        v = lambda lo: c[lo : lo + 3].T
+        return cls(d=v(0), point=v(3), hit=c[6] > 0, idx=c[7].long(), l_e=v(8), l_d=v(11),
+                   pm=v(14), alive=c[CAR_ALIVE] > 0, rad=v(18), segs=c[21], shadows=c[22])
+
+
+def init_lanes(view: KernelView, cfg, p, d, alive) -> Lanes:
+    """The bounce-0 intersection of every live lane (B7's plain version);
+    dead lanes keep a miss at point 0, as in the kernels."""
+    dirs = d.T.contiguous()
+    live = alive[0] > 0
+    cur = _sweep_on(view, cfg, live, p.T.contiguous(), dirs)
+    zero3 = torch.zeros_like(dirs)
+    zero = torch.zeros_like(dirs[:, 0])
+    return Lanes(d=dirs, point=torch.where(live[:, None], cur.point, zero3), hit=cur.hit,
+                 idx=cur.tri, l_e=zero3, l_d=zero3, pm=torch.ones_like(dirs), alive=live,
+                 rad=zero3, segs=zero, shadows=zero)
+
+
+def run_bounces(view: KernelView, materials, cfg, lanes: Lanes, orig, start: int, k: int,
+                uniforms=None, keys=None, with_records=False):
+    """At most k bounces of every live lane from global bounce `start`
+    (ending at cfg.max_bounces): the bounce step of the JAX XLA path
+    (render/forward.py:232-350) over all lanes at once, with the next
+    ray's intersection fused behind the shadow ray as in the kernels.  A
+    lane that dies keeps its state, as a kernel thread that stops does.
+    `materials` are in the view's order; uniforms (k*8, n) are indexed by
+    the local bounce, the fused RNG by the global one.  Returns the lanes
+    and, with_records, the records (k*16, n), zero past a ray's last
+    bounce (render/diff.py REC_ROWS).  Differentiable in `materials`."""
+    scene = view.scene
+    d, point, hit, idx, l_e, l_d, pm, live, rad, segs, shadows = lanes
+    n = d.shape[0]
+    quirks = cfg.reference_quirks
+    no_spec = scene.specular_idx.shape[0] == 0
+    h_orig = rng.hash_orig(keys, orig[0]) if keys is not None else None
+    zero3 = torch.zeros_like(d)
+    rec = (torch.zeros((k * REC_ROWS, n), dtype=torch.float32, device=d.device)
+           if with_records else None)
+
+    def masked(x, m):
+        return torch.where(m.reshape(-1, *([1] * (x.dim() - 1))), x, torch.zeros_like(x))
+
+    for bl in range(k):
+        b = start + bl
+        if b >= cfg.max_bounces or not bool(live.any()):
+            break
+        u = rng.draw(keys, h_orig, b, range(6)) if keys is not None else uniforms[8 * bl : 8 * bl + 6]
+        hit_act = live & hit
+        tri = idx
+        emission = masked(scene.emission[tri], hit)
+        spec = masked(scene.specular[tri], hit)
+        shin = masked(scene.shininess[tri], hit)
+        face_n = masked(scene.face_normal[tri], hit)
+        kd = masked(materials[tri], hit)
+        shade_n = masked(smooth_normal(scene, tri, point), hit)
+        first_hit = hit_act & (b == 0)
+        l_e = torch.where(hit_act[:, None],
+                          torch.where(first_hit[:, None], emission, l_e if quirks else zero3), l_e)
+
+        cont = hit_act & (u[3] < cfg.p_rr)
+        is_spec = None if no_spec else ((spec != 0).any(dim=-1) & (shin != 0))
+        next_dir, pdf = sample_next_dir(face_n, is_spec, shin, u[4], u[5])
+        cosine = dot3(next_dir, shade_n)
+
+        if scene.n_emissive > 0:
+            e_tri, e_p = pick_emissive(scene, u[0])
+            to_light = normalize3(sample_emissive_point(scene, e_tri, u[1], u[2]) - point)
+            cos_theta = dot3(shade_n, to_light)
+            sh = _sweep_on(view, cfg, hit_act, point, to_light)
+            light_n = smooth_normal(scene, e_tri, sh.point)
+            cos_theta_p = -dot3(light_n, to_light)
+            ok = (cos_theta >= 0) & sh.hit & (cos_theta_p >= 0) & (sh.tri == e_tri)
+            st = torch.where(ok, sh.t, torch.ones_like(sh.t))
+            geo = cos_theta * cos_theta_p / st**2 / e_p
+            bsdf_direct = kd if no_spec else bsdf_from_values(kd, spec, shin, shade_n, d, to_light,
+                                                              True)
+            nee = masked(scene.emission[e_tri] * geo[:, None], ok)
+            l_d_fresh = masked(bsdf_direct * nee, ok)
+            shadows = shadows + hit_act.float()
+        else:
+            nee = l_d_fresh = zero3
+        nxt = _sweep_on(view, cfg, cont, point, next_dir)
+        l_d = torch.where(hit_act[:, None], l_d_fresh, l_d)
+        contrib_mask = live if quirks else hit_act
+        c = masked(l_e + l_d, contrib_mask)
+        rad = rad + masked(pm * c, contrib_mask)
+        segs = segs + live.float()
+
+        if no_spec:
+            bsdf = kd * INV_PI
+            coeff = cosine * (math.pi / cfg.p_rr)
+        else:
+            bsdf = bsdf_from_values(kd, spec, shin, shade_n, d, next_dir, False)
+            coeff = torch.where(pdf > 0, cosine / pdf * (1.0 / cfg.p_rr),
+                                torch.zeros_like(cosine))
+        f = bsdf * coeff[:, None]
+        if with_records:
+            rows = [masked(f, cont).T, c.T, masked(nee, hit_act).T, masked(pm, live).T,
+                    masked(coeff, cont)[None], masked(tri, hit_act).float()[None],
+                    hit_act.float()[None], (live & ~hit).float()[None]]
+            rec[bl * REC_ROWS : (bl + 1) * REC_ROWS] = torch.cat(rows).detach()
+        pm = torch.where(cont[:, None], pm * f, pm)
+        d = torch.where(cont[:, None], next_dir, d)
+        point = torch.where(cont[:, None], nxt.point, point)
+        hit = torch.where(cont, nxt.hit, hit)
+        idx = torch.where(cont, nxt.tri, idx)
+        live = cont
+
+    return Lanes(d, point, hit, idx, l_e, l_d, pm, live, rad, segs, shadows), rec
 
 
 def render_tile_plain(
@@ -370,106 +631,24 @@ def render_tile_plain(
     keys: Optional[Keys] = None,
     with_records: bool = False,
 ):
-    """The same function in plain PyTorch on any device: the bounce step of
-    the JAX XLA path (render/forward.py:232-350) over all lanes at once,
-    with the next ray's intersection fused behind the shadow ray as in the
-    kernel.  Differentiable in `materials` by torch autograd.
+    """The same function in plain PyTorch on any device: init_lanes, then
+    run_bounces over all max_bounces bounces.  Differentiable in
+    `materials` by torch autograd.
 
     with_records=True also returns the records (max_bounces*16, n) of
     render/diff.py REC_ROWS, as the JAX _bounce_step does with its
     with_records flag (forward.py:339-349); slots past a ray's last bounce
-    are zero."""
+    are zero, tri rows internal on clustered scenes."""
     orig = _default_orig(p, orig)
     _check_inputs(cfg, p, d, alive, uniforms, orig, keys)
-    n = p.shape[1]
-    quirks = cfg.reference_quirks
-    no_spec = scene.specular_idx.shape[0] == 0
-    planes = plane_rows(scene)
-    h_orig = rng.hash_orig(keys, orig[0]) if keys is not None else None
-
-    def isect(o, dirs):
-        return intersect_planes(planes, o, dirs, cfg.min_dot, cfg.epsilon)
-
-    def masked(x, m):
-        return torch.where(m.reshape(-1, *([1] * (x.dim() - 1))), x, torch.zeros_like(x))
-
-    dirs = d.T.contiguous()
-    cur = isect(p.T.contiguous(), dirs)
-    zero3 = torch.zeros_like(dirs)
-    radiance, l_e, l_d, pm = zero3, zero3, zero3, torch.ones_like(dirs)
-    live = alive[0] > 0
-    segs = torch.zeros(n, dtype=torch.float32, device=p.device)
-    shadows = torch.zeros_like(segs)
-    rec = (torch.zeros((cfg.max_bounces * REC_ROWS, n), dtype=torch.float32, device=p.device)
-           if with_records else None)
-
-    for b in range(cfg.max_bounces):
-        if not bool(live.any()):
-            break
-        u = rng.draw(keys, h_orig, b, range(6)) if keys is not None else uniforms[8 * b : 8 * b + 6]
-        hit_act = live & cur.hit
-        tri = cur.tri
-        emission = masked(scene.emission[tri], cur.hit)
-        spec = masked(scene.specular[tri], cur.hit)
-        shin = masked(scene.shininess[tri], cur.hit)
-        face_n = masked(scene.face_normal[tri], cur.hit)
-        kd = masked(materials[tri], cur.hit)
-        shade_n = masked(smooth_normal(scene, tri, cur.point), cur.hit)
-        first_hit = hit_act & (b == 0)
-        l_e = torch.where(first_hit[:, None], emission, l_e if quirks else zero3)
-
-        cont = hit_act & (u[3] < cfg.p_rr)
-        is_spec = None if no_spec else ((spec != 0).any(dim=-1) & (shin != 0))
-        next_dir, pdf = sample_next_dir(face_n, is_spec, shin, u[4], u[5])
-        cosine = dot3(next_dir, shade_n)
-
-        if scene.n_emissive > 0:
-            e_tri, e_p = pick_emissive(scene, u[0])
-            to_light = normalize3(sample_emissive_point(scene, e_tri, u[1], u[2]) - cur.point)
-            cos_theta = dot3(shade_n, to_light)
-            sh = isect(cur.point, to_light)
-            nxt = isect(cur.point, next_dir)
-            light_n = smooth_normal(scene, e_tri, sh.point)
-            cos_theta_p = -dot3(light_n, to_light)
-            ok = (cos_theta >= 0) & sh.hit & (cos_theta_p >= 0) & (sh.tri == e_tri)
-            st = torch.where(ok, sh.t, torch.ones_like(sh.t))
-            geo = cos_theta * cos_theta_p / st**2 / e_p
-            bsdf_direct = kd if no_spec else bsdf_from_values(
-                kd, spec, shin, shade_n, dirs, to_light, True)
-            nee = masked(scene.emission[e_tri] * geo[:, None], ok)
-            l_d_fresh = masked(bsdf_direct * nee, ok)
-            shadows = shadows + hit_act.float()
-        else:
-            nxt = isect(cur.point, next_dir)
-            nee = l_d_fresh = zero3
-        l_d = torch.where(hit_act[:, None], l_d_fresh, l_d)
-        contrib_mask = live if quirks else hit_act
-        c = masked(l_e + l_d, contrib_mask)
-        radiance = radiance + masked(pm * c, contrib_mask)
-        segs = segs + live.float()
-
-        if no_spec:
-            bsdf = kd * INV_PI
-            coeff = cosine * (math.pi / cfg.p_rr)
-        else:
-            bsdf = bsdf_from_values(kd, spec, shin, shade_n, dirs, next_dir, False)
-            coeff = torch.where(pdf > 0, cosine / pdf * (1.0 / cfg.p_rr),
-                                torch.zeros_like(cosine))
-        f = bsdf * coeff[:, None]
-        if with_records:
-            rows = [masked(f, cont).T, c.T, masked(nee, hit_act).T, masked(pm, live).T,
-                    masked(coeff, cont)[None], masked(tri, hit_act).float()[None],
-                    hit_act.float()[None], (live & ~cur.hit).float()[None]]
-            rec[b * REC_ROWS : (b + 1) * REC_ROWS] = torch.cat(rows).detach()
-        pm = torch.where(cont[:, None], pm * f, pm)
-        dirs = torch.where(cont[:, None], next_dir, dirs)
-        live = cont
-        cur = nxt
-
-    stats = torch.stack([segs, shadows], dim=0)
+    view = kernel_view(scene, cfg)
+    lanes = init_lanes(view, cfg, p, d, alive)
+    lanes, rec = run_bounces(view, to_kernel_order(materials, view), cfg, lanes, orig, 0,
+                             cfg.max_bounces, uniforms, keys, with_records)
+    stats = torch.stack([lanes.segs, lanes.shadows], dim=0)
     if with_records:
-        return radiance.T.contiguous(), stats, rec
-    return radiance.T.contiguous(), stats
+        return lanes.rad.T.contiguous(), stats, rec
+    return lanes.rad.T.contiguous(), stats
 
 
 def render_tile_rec_plain(materials, scene, cfg, p, d, alive, uniforms=None, orig=None,
@@ -479,16 +658,27 @@ def render_tile_rec_plain(materials, scene, cfg, p, d, alive, uniforms=None, ori
                              with_records=True)
 
 
-def reverse_tile_plain(n_tri: int, cfg, rec: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
-    """B4's plain version: render/diff.py backward_from_records on the rows."""
-    return backward_from_records(BounceRecords.from_rows(rec), g.T, n_tri, cfg.reference_quirks)
+def reverse_tile_plain(n_tri: int, cfg, rec: torch.Tensor, g: torch.Tensor,
+                       perm: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """B4's plain version: render/diff.py backward_from_records on the rows,
+    mapped back to global rows with `perm`."""
+    d_mats = backward_from_records(BounceRecords.from_rows(rec), g.T, n_tri,
+                                   cfg.reference_quirks)
+    return unperm_rows(d_mats, perm)
 
 
 def grad_tile_plain(materials, scene, cfg, p, d, alive, g, uniforms=None, orig=None,
                     keys=None) -> torch.Tensor:
     """B2's plain version: the records of render_tile_plain, then the suffix
-    recursion."""
+    recursion, in global rows."""
     with torch.no_grad():
         _, _, rec = render_tile_rec_plain(materials, scene, cfg, p, d, alive, uniforms, orig,
                                           keys)
-    return reverse_tile_plain(scene.n_tri, cfg, rec, g)
+    return reverse_tile_plain(scene.n_tri, cfg, rec, g, kernel_view(scene, cfg).perm)
+
+
+def intersect_tile_plain(scene: SceneData, cfg, p: torch.Tensor, d: torch.Tensor):
+    """B10's plain version: ops/intersect.py intersect_clustered on the
+    kernels' view (the dense sweep on scenes cfg does not cluster)."""
+    hit = sweep(kernel_view(scene, cfg), cfg, p.T.contiguous(), d.T.contiguous())
+    return hit.t, hit.tri.to(torch.int32)

@@ -34,7 +34,7 @@ kernels B2 (grad_tile) and B4 (reverse_tile) run this recursion on the card.
 from __future__ import annotations
 
 import math
-from typing import NamedTuple
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -67,25 +67,47 @@ class BounceRecords(NamedTuple):
                    tri=v[:, 13].long(), hit=v[:, 14] > 0, esc=v[:, 15] > 0)
 
 
-def backward_from_records(
-    records: BounceRecords, g: torch.Tensor, n_tri: int, quirks: bool
-) -> torch.Tensor:
-    """Records + radiance cotangent g (n, 3) -> material cotangent (nT, 3),
-    by the suffix recursion of the module docstring, run backwards over the
-    bounces in the order of the kernels' (render_bwd.cu reverse_path)."""
-    iota = torch.arange(n_tri, device=g.device)
-    d_mats = torch.zeros((n_tri, 3), dtype=g.dtype, device=g.device)
-    suf = torch.zeros_like(g)
-    esc_next = torch.zeros(g.shape[0], dtype=torch.bool, device=g.device)
+def _scatter(tri: torch.Tensor, hit: torch.Tensor, ct: torch.Tensor, n_tri: int) -> torch.Tensor:
+    """sum over the lanes that hit of ct into rows tri, (nT, 3), as one-hot
+    contractions over chunks of lanes (one chunk at the tests' sizes)."""
+    iota = torch.arange(n_tri, device=ct.device)
+    out = torch.zeros((n_tri, 3), dtype=ct.dtype, device=ct.device)
+    step = max(1, (1 << 26) // max(n_tri, 1))
+    for lo in range(0, ct.shape[0], step):
+        s = slice(lo, lo + step)
+        onehot = ((tri[s][:, None] == iota[None, :]) & hit[s][:, None]).to(ct.dtype)
+        out = out + torch.einsum("rt,rc->tc", onehot, ct[s])
+    return out
+
+
+def suffix_recursion(
+    records: BounceRecords, g: torch.Tensor, n_tri: int, quirks: bool,
+    suf: torch.Tensor, esc_next: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The suffix recursion of the module docstring over every slot of
+    `records`, backwards, in the order of the kernels (render_bwd.cu
+    reverse_path), from the carry (suf (n, 3), esc_next (n,) bool) of the
+    bounces after the last slot.  A zero slot (f = c = 0, no hit) adds
+    nothing and sets suf to 0 * suf.  Returns (d_mats (nT, 3), suf, esc):
+    the carry toward the bounces before the first slot."""
     zero = torch.zeros_like(g)
+    d_mats = torch.zeros((n_tri, 3), dtype=g.dtype, device=g.device)
     for k in range(records.f.shape[0] - 1, -1, -1):
         pm, f, nee, hit = records.pm[k], records.f[k], records.nee[k], records.hit[k]
         ct = pm * suf * (records.coeff[k] * INV_PI)[:, None] + g * pm * nee
         if quirks:
             ct = torch.where(esc_next[:, None], ct + g * (pm * f) * nee, ct)
         ct = torch.where(hit[:, None], ct, zero)
-        onehot = ((records.tri[k][:, None] == iota[None, :]) & hit[:, None]).to(g.dtype)
-        d_mats = d_mats + torch.einsum("rt,rc->tc", onehot, ct)
+        d_mats = d_mats + _scatter(records.tri[k], hit, ct, n_tri)
         suf = g * records.c[k] + f * suf
         esc_next = records.esc[k]
-    return d_mats
+    return d_mats, suf, esc_next
+
+
+def backward_from_records(
+    records: BounceRecords, g: torch.Tensor, n_tri: int, quirks: bool
+) -> torch.Tensor:
+    """Records + radiance cotangent g (n, 3) -> material cotangent (nT, 3):
+    suffix_recursion from a zero carry."""
+    esc = torch.zeros(g.shape[0], dtype=torch.bool, device=g.device)
+    return suffix_recursion(records, g, n_tri, quirks, torch.zeros_like(g), esc)[0]

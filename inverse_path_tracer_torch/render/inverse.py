@@ -25,8 +25,9 @@ Two routes (trace_transport_range):
   * cfg.backend="auto" (needs p_spec == 0): per launch the B5 kernel
     (ops/kernels/inverse_kernel.py inverse_tile), whose grid lives in shared
     memory, on scenes where inverse_grid_fits(); B6 (inverse_tile_rec) and
-    grids_from_edge_records otherwise.  On CPU tensors the wrappers run
-    their plain versions.
+    grids_from_edge_records otherwise, which maps the internal triangle
+    indices of a clustered scene (ops/kernels/clusters.py) back to global
+    ones.  On CPU tensors the wrappers run their plain versions.
 
 Rays follow render/forward.py: launches of cfg.tile_size global sample
 indices.  With cfg.rng="fused" the bounce uniforms are the counter hash of
@@ -56,6 +57,7 @@ from inverse_path_tracer_torch.ops.kernels.inverse_kernel import (
     inverse_tile,
     inverse_tile_rec,
 )
+from inverse_path_tracer_torch.ops.kernels.clusters import kernel_perm
 from inverse_path_tracer_torch.ops.kernels.render_kernel import pack_tables
 from inverse_path_tracer_torch.ops.sampling import (
     pick_emissive,
@@ -241,7 +243,8 @@ def trace_transport_range(
     if cfg.backend == "plain":
         route, grid = "wavefront", _zero_grids(nt, dev)
     else:
-        tables = pack_tables(scene, scene.diffuse) if dev.type == "cuda" else None
+        tables = pack_tables(scene, scene.diffuse, cfg) if dev.type == "cuda" else None
+        perm = kernel_perm(scene, cfg)
         route = "grid" if inverse_grid_fits(scene) else "records"
         grid = torch.zeros((nt + 1, nt, N_QUANT), dtype=torch.float64, device=dev)
     totals = torch.zeros(2, dtype=torch.float64, device=dev)
@@ -257,7 +260,7 @@ def trace_transport_range(
             grid += out
         else:
             rec, stats = inverse_tile_rec(scene, cfg, tables=tables, **a)
-            grid += grids_from_edge_records(rec, pixel, scene, cfg)
+            grid += grids_from_edge_records(rec, pixel, scene, cfg, perm)
         totals += stats.sum(dim=1, dtype=torch.float64)
     grids = _grids_from_cols(grid) if route == "wavefront" else grids_from_acc(grid)
     counts = totals.to(torch.int64)

@@ -269,3 +269,159 @@ def test_extraction_routes_and_p_spec(card, scene0):
     spec, _ = trace_transport_range(scene0, img, 3, cfg.with_(p_spec=0.25, backend="plain"), 0,
                                     cfg.n_samples)
     assert bool(torch.isfinite(spec.w_sum).all())
+
+
+def assert_carry_equal(got, want):
+    """Carries of a kernel and its plain version: equal, with the pending
+    hit compared only where the lane is alive (a dead lane's point may
+    differ in its last bits, which nothing reads)."""
+    live = want[17] > 0
+    rows = [r for r in range(24) if r not in (3, 4, 5)]
+    assert torch.equal(got[rows], want[rows])
+    torch.testing.assert_close(got[3:6, live], want[3:6, live], rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("mode", ["external", "fused"])
+def test_staged_kernels_match_plain(card, mode):
+    """B7, B8 (stage 0 and a partial last stage, with and without records),
+    B9 and B10 against their plain versions on the flat large scene."""
+    from inverse_path_tracer_torch import large_scene
+    from inverse_path_tracer_torch.ops.kernels.render_kernel import (
+        intersect_tile,
+        intersect_tile_plain,
+        pack_tables,
+    )
+    from inverse_path_tracer_torch.ops.kernels.staged_kernel import (
+        init_tile,
+        init_tile_plain,
+        stage_reverse_tile,
+        stage_reverse_tile_plain,
+        stage_tile,
+        stage_tile_plain,
+    )
+
+    scene = large_scene(card, vertex_normals=False)
+    cfg = RenderConfig(width=32, height=32, spp=4, max_bounces=6, stage_bounces=4)
+    args = tile_args(scene, cfg, card, mode)
+    n, k = cfg.n_samples, 4
+    tabs = pack_tables(scene, scene.diffuse, cfg)
+    assert tabs.cluster_k == 768 and tabs.perm is not None
+    mats = scene.diffuse
+    before = (init_tile.launches, stage_tile.launches, stage_reverse_tile.launches,
+              intersect_tile.launches)
+    carry = init_tile(mats, scene, cfg, args["p"], args["d"], args["alive"], tables=tabs)
+    assert_carry_equal(carry, init_tile_plain(mats, scene, cfg, args["p"], args["d"],
+                                              args["alive"]))
+    u = args.get("uniforms")
+    u = None if u is None else torch.cat([u, torch.zeros_like(u[:16])])
+    suf = torch.zeros((4, n), device=card)
+    g = torch.rand((3, n), generator=torch.Generator().manual_seed(3)).to(card)
+    for s in range(2):
+        u_s = None if u is None else u[s * 32 : (s + 1) * 32].contiguous()
+        st = (mats, scene, cfg, carry, args["orig"], s * k, k, u_s, args.get("keys"))
+        out, rec = stage_tile(*st, with_rec=True, tables=tabs)
+        out_p, rec_p = stage_tile_plain(*st, with_rec=True)
+        assert_carry_equal(out, out_p)
+        assert torch.equal(rec, rec_p)
+        assert torch.equal(stage_tile(*st, tables=tabs), out)
+        dm, suf_out = stage_reverse_tile(scene.n_tri, cfg, k, rec, g, suf)
+        dm_p, suf_p = stage_reverse_tile_plain(scene.n_tri, cfg, k, rec, g, suf)
+        assert_grad_close(dm, dm_p)
+        torch.testing.assert_close(suf_out, suf_p, rtol=1e-6, atol=0)
+        carry, suf = out, suf_out
+    t, idx = intersect_tile(scene, cfg, args["p"], args["d"], tables=tabs)
+    t_p, idx_p = intersect_tile_plain(scene, cfg, args["p"], args["d"])
+    assert torch.equal(t, t_p) and torch.equal(idx, idx_p)
+    after = (init_tile.launches, stage_tile.launches, stage_reverse_tile.launches,
+             intersect_tile.launches)
+    # B10 ran inside B7 and the four B8 launches, and once alone.
+    assert tuple(a - b for a, b in zip(after, before)) == (1, 4, 2, 6)
+
+
+def test_staged_render_and_gradients_on_the_card(card):
+    """The staged path equals the mega path on the card and the plain
+    staged path; its gradient and loss_and_grad_range's agree."""
+    from inverse_path_tracer_torch import large_scene, loss_and_grad_range
+    from inverse_path_tracer_torch.ops.kernels.staged_kernel import init_tile, stage_tile
+    from inverse_path_tracer_torch.ops.tonemap import tonemap_mean
+
+    scene = large_scene(card, vertex_normals=False)
+    cfg = RenderConfig(width=16, height=16, spp=4, max_bounces=6, tile_size=512)
+    before = (init_tile.launches, stage_tile.launches)
+    staged, st = render_samples(scene.diffuse, scene, 2, cfg)
+    assert (init_tile.launches - before[0], stage_tile.launches - before[1]) == (2, 4)
+    mega, sm = render_samples(scene.diffuse, scene, 2, cfg.with_(wavefront="mega"))
+    plain, sp = render_samples(scene.diffuse, scene, 2, cfg.with_(backend="plain"))
+    assert torch.equal(staged, mega) and torch.equal(staged, plain)
+    assert [int(x) for x in st] == [int(x) for x in sm] == [int(x) for x in sp]
+    grads = {}
+    for name, c in (("staged", cfg), ("mega", cfg.with_(wavefront="mega")),
+                    ("plain", cfg.with_(backend="plain"))):
+        m = scene.diffuse.clone().requires_grad_()
+        vals, _ = render_samples(m, scene, 2, c)
+        tonemap_mean(vals, cfg.spp).mean().backward()
+        grads[name] = m.grad
+    assert_grad_close(grads["staged"], grads["plain"])
+    assert_grad_close(grads["mega"], grads["plain"])
+    n = cfg.n_samples
+    _, d_mats, _ = loss_and_grad_range(
+        scene.diffuse, scene, 2, cfg, 0, n,
+        lambda v, lo: tonemap_mean(v, cfg.spp).sum() / (n // cfg.spp * 3))
+    torch.testing.assert_close(d_mats, grads["staged"], rtol=1e-5, atol=1e-9)
+
+
+def test_clustered_kernels_match_dense_plain(card, monkeypatch):
+    """B1-B4 and B6 with clustered tables on the flat large scene against
+    the plain versions of the dense sweep in global order; B5 with
+    clustered tables on scene 0 (clusters of 8)."""
+    from inverse_path_tracer_torch import large_scene
+    from inverse_path_tracer_torch.ops.kernels import clusters
+    from inverse_path_tracer_torch.ops.kernels.inverse_kernel import (
+        grids_from_edge_records,
+        inverse_tile,
+        inverse_tile_plain,
+        inverse_tile_rec,
+        inverse_tile_rec_plain,
+    )
+    from inverse_path_tracer_torch.ops.kernels.render_kernel import pack_tables
+
+    scene = large_scene(card, vertex_normals=False)
+    cfg = RenderConfig(width=32, height=32, spp=4, max_bounces=8)
+    args = tile_args(scene, cfg, card, "fused")
+    g = torch.rand((3, cfg.n_samples), generator=torch.Generator().manual_seed(2)).to(card)
+    mats = scene.diffuse
+    tabs = pack_tables(scene, mats, cfg)
+    perm = tabs.perm
+    rk, sk = render_tile(mats, scene, cfg, tables=tabs, **args)
+    _, _, rec = render_tile_rec(mats, scene, cfg, tables=tabs, **args)
+    d2 = grad_tile(mats, scene, cfg, g=g, tables=tabs, **args)
+    d4 = reverse_tile(scene.n_tri, cfg, rec, g, perm)
+    rec6, st6 = inverse_tile_rec(scene, cfg, tables=pack_tables(scene, mats, cfg), **args)
+    pix = torch.rand((3, cfg.n_samples), generator=torch.Generator().manual_seed(4)).to(card)
+    grid6 = grids_from_edge_records(rec6, pix.T, scene, cfg, perm)
+    monkeypatch.setattr(clusters, "CLUSTER_MIN_TP", 1 << 30)  # the dense sweep
+    rp, sp = render_tile_plain(mats, scene, cfg, **args)
+    _, _, rec_p = render_tile_rec_plain(mats, scene, cfg, **args)
+    assert torch.equal(rk, rp) and torch.equal(sk, sp)
+    r, q = rec.view(8, 16, -1), rec_p.view(8, 16, -1)
+    hit = q[:, 14] > 0
+    assert torch.equal(perm[r[:, 13].long()][hit], q[:, 13].long()[hit])  # tri, mapped back
+    assert torch.equal(r[:, [0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 14, 15]],
+                       q[:, [0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 14, 15]])
+    want = grad_tile_plain(mats, scene, cfg, g=g, **args)
+    assert_grad_close(d2, want)
+    assert_grad_close(d4, want)
+    grid_p, st_p = inverse_tile_plain(scene, cfg, pix=pix, **args)
+    assert torch.equal(st6, st_p)
+    grid_close(grid6.float(), grid_p)
+
+    monkeypatch.setattr(clusters, "CLUSTER_MIN_TP", 8)
+    scene0 = load_scene(SCENE0, asset_root=ASSET_ROOT).to(card)
+    cfg8 = cfg.with_(cluster_k=8)
+    args0 = tile_args(scene0, cfg8, card, "fused")
+    grid, st5 = inverse_tile(scene0, cfg8, pix=pix, **args0)
+    assert pack_tables(scene0, scene0.diffuse, cfg8).cluster_k == 8
+    monkeypatch.setattr(clusters, "CLUSTER_MIN_TP", 1 << 30)
+    grid_p0, st_p0 = inverse_tile_plain(scene0, cfg8, pix=pix, **args0)
+    grid_close(grid, grid_p0)
+    assert torch.equal(st5, st_p0)

@@ -45,7 +45,9 @@ def test_importing_the_port_loads_no_jax():
             "inverse_path_tracer_torch.utils.checkpoint, inverse_path_tracer_torch.render.inverse, "
             "inverse_path_tracer_torch.ops.kernels.inverse_kernel, "
             "inverse_path_tracer_torch.models.gcn, inverse_path_tracer_torch.data.pipeline, "
-            "inverse_path_tracer_torch.utils.metrics; "
+            "inverse_path_tracer_torch.utils.metrics, inverse_path_tracer_torch.assets, "
+            "inverse_path_tracer_torch.ops.kernels.clusters, "
+            "inverse_path_tracer_torch.ops.kernels.staged_kernel; "
             "bad = [m for m in sys.modules if m.split('.')[0] in %r]; "
             "assert not bad, bad" % (FORBIDDEN,))
     env = dict(os.environ, PYTHONPATH=REPO)
