@@ -66,13 +66,18 @@ Phases, each failing loudly (any failure exits nonzero):
      against its plain version on those inputs (16 bounces), timed beside
      its plain version and its bound;
  16. the large scene (assets.large_scene: the box plus a 1280-triangle
-     sphere, 1298 triangles, clustered at the auto width 768) at 64x64/4
-     spp/8 bounces, fused RNG and external uniforms: B7, B8 (stages 0 and
-     1, records) and B10 against their plain versions, exact on the flat
+     sphere, 1298 triangles, clustered at the auto width) at 64x64/4 spp/8
+     bounces, fused RNG and external uniforms: B7, B8 (stages 0 and 1,
+     records; per-lane and with the live-lane count of the staged
+     orchestration) and B10 against their plain versions, exact on the flat
      variant and within the vertex-normal bounds of phase 3 on the other
      (the plain stages start from the kernel's carries); B9 on B8's records
      within the gradient tolerance; staged against mega on the card, bit
-     for bit with equal counts on the flat scene and scene 0;
+     for bit with equal counts on the flat scene and scene 0; then a flat
+     scene whose sweep tables exceed a block's shared memory (the box plus a
+     3840-triangle sphere), so that the clustered kernels read their planes
+     through L1: B1, B7 and B8 (both stages, per lane and with the live-lane
+     count) against their plain versions, bit for bit;
  17. clustered B1-B4 and B6 on the flat large scene against the plain
      versions of the dense sweep in global order (radiance, counts and
      records equal, triangle rows mapped back; gradients and grids within
@@ -80,23 +85,29 @@ Phases, each failing loudly (any failure exits nonzero):
  18. the large-scene main path, the vertex-normal scene at 512x512/64
      spp/16 bounces, fused RNG, wavefront "auto" (staged): render_samples
      with the launches of B7, B8 and B10 (one warm-up, 3 timed runs, rays/s,
-     a profile) and the same forward at wavefront="mega" (2 timed runs);
-     fwd+bwd through the staged autograd Function (B7, B8 and B9 launches;
-     1 warm-up, 2 timed runs, a profile); loss_and_grad_range staged, its
-     gradient equal to autograd's (rtol 1e-5), 2 timed runs; the forward at
-     cluster_k 128 and 32, timed once each;
+     a profile with B8's sum over the render) and the same forward at
+     wavefront="mega" (2 timed runs); the forward at each cluster width of
+     WIDTHS (2 timed runs each), the fastest printed beside the auto width;
+     fwd+bwd through the staged autograd Function (B7, B8 and B9 launches; 1
+     warm-up, 2 timed runs, a profile); loss_and_grad_range staged, its
+     gradient equal to autograd's (rtol 1e-5), 2 timed runs;
  19. the finite-difference gate of phase 8 on the large vertex-normal scene
      through the staged gradient;
  20. the large vertex-normal scene extracted at 500x500/100 spp/16 bounces
      through clustered B6 and the records reduction: timed, no NaN, visited
      rows summing to 1;
- 21. B7, B8 (stage 0 and stage 2) and B9 at the first 2^20-ray launch of
-     the large render, each against its plain version there and timed
-     beside it and its bound; B10 as B1 on that launch with clustered
-     tables against dense tables, with the share of (ray, cluster) box
-     tests that entered.
+ 21. B7, B8 (stages 0 to 3, with the live-lane count) and B9 at the first
+     2^20-ray launch of the large render, each against its plain version
+     there and timed beside its bound (bounds count the pairs and box tests
+     the plain version's sweeps did); B10 as B1 on that launch with
+     clustered tables at the auto
+     width and at JAX's 768 against dense tables, with the (ray, group) and
+     (ray, cluster) box tests and the shares that entered; clustered B2, B3
+     on that launch and clustered B6 on the first launch of the large
+     extraction, timed; ptxas's registers and spills of the clustered
+     kernels.
 
-The line before the last is a JSON object of the kernels; the last line is
+The kernels' JSON object, then the card's name and power limit, then, last,
 {"ok": true, "device": {...}}.  Needs CUDA; exits nonzero without it.
 """
 
@@ -105,6 +116,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -120,6 +132,15 @@ PEAK_BYTES = 3.35e12
 # a divide; each edge plane is two 3-term dot products and a + t*b.
 FACE_PLANE_OPS = 5 + 6 + 2
 EDGE_PLANE_OPS = 5 + 6 + 2
+# f32 operations of a (ray, box) slab test (render_common.cuh enters): 6
+# subtractions, 6 multiplies and 10 min/max.
+BOX_OPS = 6 + 6 + 10
+# A block's opt-in dynamic shared memory on the H100 (render_common.cuh
+# kMaxSmem).
+SMEM_OPT_IN = 232448
+# The cluster widths phase 18 times the large forward at: this card's auto
+# width (16), the widths between it and JAX's, and JAX's auto width (768).
+WIDTHS = (16, 32, 64, 128, 768)
 
 CHECK = dict(width=64, height=64, spp=4, max_bounces=8)
 MAIN = dict(width=512, height=512, spp=64, max_bounces=16)
@@ -181,6 +202,48 @@ def cuda_ms(fn, iters: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def kernel_label(mangled: str) -> str:
+    """A readable name of a kernel of this package from its mangled one,
+    e.g. stage_kernel<false, true>."""
+    m = re.match(r"_ZN(\d+)", mangled)  # the anonymous namespace, then the name
+    if not m or not mangled[m.end():].startswith("_GLOBAL__N"):
+        return mangled
+    pos = m.end() + int(m.group(1))
+    m = re.match(r"\d+", mangled[pos:])
+    if not m:
+        return mangled
+    end = pos + m.end() + int(m.group(0))
+    name, rest = mangled[pos + m.end() : end], mangled[end:]
+    args = re.match(r"I((?:L[bi]\d+E)+)E", rest)
+    if not args:
+        return name
+    vals = [{"b0": "false", "b1": "true"}.get(t + v, v)
+            for t, v in re.findall(r"L([bi])(\d+)E", args.group(1))]
+    return f"{name}<{', '.join(vals)}>"
+
+
+def ptxas_report(log: str):
+    """[(kernel, registers, spill store bytes, spill load bytes, stack
+    bytes)] from the output of nvcc -Xptxas -v."""
+    out, cur = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            cur = {"kernel": kernel_label(m.group(1))}
+            out.append(cur)
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and cur is not None:
+            cur.update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                       spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur is not None:
+            cur["registers"] = int(m.group(1))
+    return [(k["kernel"], k.get("registers"), k.get("spill_stores"), k.get("spill_loads"),
+             k.get("stack")) for k in out]
 
 
 def fixture(device, cube_kd=None):
@@ -382,7 +445,9 @@ def main_path(device):
 
 
 def profile_once(what, fn):
-    """Device time by kernel from torch.profiler over one call of fn."""
+    """Device time by kernel from torch.profiler over one call of fn:
+    logged, and returned as {kernel: (ms, launches)} ({} when the profiler
+    recorded no device time)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -399,11 +464,12 @@ def profile_once(what, fn):
     busy = sum(ms for ms, _ in kernels.values())
     if busy <= 0:
         log("profile: the profiler recorded no device time (device busy share not measured)")
-        return
+        return {}
     log(f"profile ({what}, profiler on): wall {wall_ms:.3f} ms, device busy "
         f"{busy:.3f} ms ({100 * busy / wall_ms:.1f}%)")
     for name, (ms, count) in sorted(kernels.items(), key=lambda kv: -kv[1][0])[:8]:
         log(f"  {ms:10.3f} ms  x{count:<5d} {name[:100]}")
+    return kernels
 
 
 def fwd_bwd_path(device):
@@ -1211,6 +1277,84 @@ def check_staged_vs_plain(device):
     return worst
 
 
+def over_budget_scene(device):
+    """The box plus a flat lat-long sphere of 3840 triangles (3858 in all),
+    built from a file written under build/chip_smoke/: its clustered sweep
+    tables (64-byte plane rows, 32-byte cluster and group boxes) exceed a
+    block's opt-in shared memory."""
+    from inverse_path_tracer_torch import ASSET_ROOT, build_scene
+    from inverse_path_tracer_torch.assets.make_fixture import sphere_obj_text
+    from inverse_path_tracer_torch.scene.dsl import ObjectParams
+
+    os.makedirs(OUT_DIR, exist_ok=True)
+    sphere = os.path.join(OUT_DIR, "sphere_3840.obj")
+    with open(sphere, "w") as f:
+        f.write(sphere_obj_text(rings=16, segments=128, normals=False))
+    box = ObjectParams(pos=(0, 0, 4), scl=(2, 2, 2),
+                       obj_file="CornellBox/CornellBox-Empty-CO.obj",
+                       mtl_file="CornellBox/CornellBox-Empty-CO.mtl")
+    ball = ObjectParams(pos=(0, -1.5, 4), obj_file=sphere, mtl_file="*Kd 0.5 0.5 0.5*")
+    return build_scene([box, ball], asset_root=ASSET_ROOT).to(device)
+
+
+def check_l1_branch(device):
+    """Phase 16, last case: on over_budget_scene, whose clustered kernels
+    read their sweep tables through L1, B1, B7 and B8 (every stage, with
+    records, per lane and with the live-lane count of the staged
+    orchestration) against their plain versions, bit for bit."""
+    import torch
+
+    from inverse_path_tracer_torch import RenderConfig
+    from inverse_path_tracer_torch.ops.kernels.render_kernel import (
+        pack_tables,
+        render_tile,
+        render_tile_plain,
+    )
+    from inverse_path_tracer_torch.ops.kernels.staged_kernel import (
+        init_tile,
+        init_tile_plain,
+        stage_tile,
+        stage_tile_plain,
+    )
+
+    cfg = RenderConfig(**CHECK)
+    k, n = cfg.stage_bounces, cfg.n_samples
+    scene = over_budget_scene(device)
+    mats = scene.diffuse
+    tabs = pack_tables(scene, mats, cfg)
+    nbytes = tabs.planes.numel() * 4 + (tabs.cab.shape[0] + tabs.gab.shape[0]) * 32
+    if nbytes <= SMEM_OPT_IN:
+        raise AssertionError(f"the sweep tables ({nbytes} bytes) fit in shared memory")
+    a = tile_inputs(scene, cfg, 51, n, device, external=False)
+    rk, sk = render_tile(mats, scene, cfg, tables=tabs, **a)
+    rp, sp = render_tile_plain(mats, scene, cfg, **a)
+    checks = {"B1": torch.equal(rk, rp) and torch.equal(sk, sp)}
+    carry = init_tile(mats, scene, cfg, a["p"], a["d"], a["alive"], tables=tabs)
+    checks["B7"] = torch.equal(carry, init_tile_plain(mats, scene, cfg, a["p"], a["d"],
+                                                      a["alive"]))
+    for s in range(cfg.max_bounces // k):
+        st = (mats, scene, cfg, carry, a["orig"], s * k, k, None, a["keys"])
+        out, rec = stage_tile(*st, with_rec=True, tables=tabs)
+        out_p, rec_p = stage_tile_plain(*st, with_rec=True)
+        order = torch.sort((carry[17] <= 0).to(torch.int32), stable=True).indices
+        live = (carry[17] > 0).sum(dtype=torch.int32).reshape(1)
+        out_l, rec_l = stage_tile(mats, scene, cfg, carry[:, order].contiguous(),
+                                  a["orig"][:, order].contiguous(), s * k, k, None, a["keys"],
+                                  with_rec=True, tables=tabs, live=live)
+        checks[f"B8 stage {s}"] = (torch.equal(out, out_p) and torch.equal(rec, rec_p)
+                                   and torch.equal(out_l, out[:, order])
+                                   and torch.equal(rec_l, rec[:, order]))
+        carry = out
+    torch.cuda.synchronize()
+    ok = all(checks.values())
+    log(f"check L1 branch: {scene.n_tri} triangles, clusters of {tabs.cluster_k}, sweep tables "
+        f"{nbytes} bytes > {SMEM_OPT_IN} of a block's shared memory, {shape(cfg)}: "
+        + ", ".join(f"{key} bit-equal {v}" for key, v in checks.items())
+        + f" -> {'OK' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("a clustered kernel disagrees with its plain version on the L1 branch")
+
+
 def check_clustered_vs_dense(device):
     """Phase 17: B1-B4 and B6 with clustered tables on the flat large scene
     against the plain versions of the dense sweep in global order; B5 with
@@ -1311,8 +1455,9 @@ def check_clustered_vs_dense(device):
 
 def large_main_path(device):
     """Phase 18: the large vertex-normal scene at 512x512/64 spp/16 bounces,
-    staged: the forward (B7, B8, B10 launches), mega beside it, fwd+bwd (B7,
-    B8, B9), loss_and_grad_range, and the forward at cluster_k 128 and 32.
+    staged: the forward (B7, B8, B10 launches), mega beside it, the forward
+    at each cluster width of WIDTHS, fwd+bwd (B7, B8, B9) and
+    loss_and_grad_range.
     Returns ({kernel: launches on its path}, the scene)."""
     import torch
 
@@ -1322,6 +1467,7 @@ def large_main_path(device):
         loss_and_grad_range,
         render_samples,
     )
+    from inverse_path_tracer_torch.ops.kernels import clusters
     from inverse_path_tracer_torch.ops.kernels.render_kernel import intersect_tile
     from inverse_path_tracer_torch.ops.kernels.staged_kernel import (
         init_tile,
@@ -1336,12 +1482,15 @@ def large_main_path(device):
     label = f"large scene ({scene.n_tri} triangles, vertex normals) {shape(cfg)}"
 
     def timed_runs(what, fn, runs, stats_of):
+        times = []
         for k in range(runs):
             out = []
             t = cuda_ms(lambda: out.append(fn(k + 2)), 1)
             st = stats_of(out[0])
             rays = int(st.segments) + int(st.shadow_rays)
             log(f"{what} run {k}: {t:.3f} ms, rays {rays}, {rays / (t / 1e3):.6e} rays/s")
+            times.append(t)
+        return times
 
     init_tile.launches = stage_tile.launches = intersect_tile.launches = 0
     vals, stats = render_samples(mats, scene, 0, cfg, device=device)
@@ -1362,12 +1511,24 @@ def large_main_path(device):
     render = lambda key, c=cfg: render_samples(mats, scene, key, c, device=device)
     render(1)  # warm-up
     timed_runs("large forward staged", render, 3, lambda o: o[1])
-    profile_once("one large staged render", lambda: render(7))
+    prof = profile_once("one large staged render", lambda: render(7))
+    b8 = [(ms, count) for name, (ms, count) in prof.items() if "stage_kernel" in name]
+    if b8:
+        log(f"B8 over the large staged render: {sum(ms for ms, _ in b8):.3f} ms in "
+            f"{sum(c for _, c in b8)} launches (profiler on)")
     mega = cfg.with_(wavefront="mega")
     timed_runs("large forward mega", lambda key: render(key, mega), 2, lambda o: o[1])
-    for ck in (128, 32):
-        timed_runs(f"large forward staged cluster_k {ck}", lambda key: render(key, cfg.with_(
-            cluster_k=ck)), 1, lambda o: o[1])
+    best = {}
+    for ck in WIDTHS:
+        c = cfg.with_(cluster_k=ck)
+        render(1, c)  # warm-up
+        best[ck] = min(timed_runs(f"large forward staged cluster_k {ck}",
+                                  lambda key: render(key, c), 2, lambda o: o[1]))
+    auto = clusters.cluster_k_for(scene.n_tri, cfg)
+    fastest = min(best, key=best.get)
+    log(f"cluster widths, best of 2 runs each: " + ", ".join(f"{ck}: {t:.3f} ms"
+                                                             for ck, t in best.items())
+        + f"; fastest {fastest}, auto width {auto} (auto is the fastest: {auto == fastest})")
 
     def fwd_bwd(key):
         m = mats.clone().requires_grad_()
@@ -1417,7 +1578,8 @@ def large_main_path(device):
 
 def large_vn_extraction(device, scene):
     """Phase 20: the large vertex-normal scene at 500x500/100 spp/16
-    bounces through clustered B6 and the records reduction."""
+    bounces through clustered B6 and the records reduction.  Returns the
+    target image it extracts against."""
     import torch
 
     from inverse_path_tracer_torch import (
@@ -1452,21 +1614,43 @@ def large_vn_extraction(device, scene):
     t2 = cuda_ms(lambda: trace_transport_range(scene, target, 0, cfg, 0, cfg.n_samples,
                                                device=device), 1)
     log(f"large extraction run 1: {t2:.3f} ms, {rays / (t2 / 1e3):.6e} rays/s")
+    return target
 
 
-def large_kernel_timing(device, launches, check_err):
-    """Phase 21: B7, B8 and B9 at the first 2^20-ray launch of the large
-    render (the vertex-normal scene, fused RNG), each against its plain
-    version there (at least 97% of lanes agreeing) and timed beside it and
-    its bound; B10 as B1 on that launch with clustered and dense tables."""
+def clustered_ptxas():
+    """ptxas's report of the clustered kernels (the instantiations whose
+    last template argument, kClustered, is true): [(library, kernel,
+    registers, spill store bytes, spill load bytes)]."""
+    from inverse_path_tracer_torch.ops.kernels import build
+
+    return [(lib, kernel, regs, st, ld)
+            for lib, text in build.build_log.items()
+            for kernel, regs, st, ld, _ in ptxas_report(text) if kernel.endswith("true>")]
+
+
+def large_kernel_timing(device, launches, check_err, large_target):
+    """Phase 21: B7, B8 (stages 0 to 3) and B9 at the first 2^20-ray launch
+    of the large render (the vertex-normal scene, fused RNG), each against
+    its plain version there (at least 97% of lanes agreeing) and timed
+    beside its bound, B8 with the live-lane count as the staged
+    orchestration passes it; B10 as B1 on that launch with clustered tables
+    at the auto width and at JAX's 768 and with dense tables, with the box
+    tests and the shares that entered; clustered B2 and B3 on that launch
+    and clustered B6 on the first launch of the large extraction (phase 20,
+    `large_target` its target), timed; ptxas's registers and spills of the
+    clustered kernels."""
     import torch
 
     from inverse_path_tracer_torch import RenderConfig, large_scene
     from inverse_path_tracer_torch.ops.intersect import counting_sweeps
+    from inverse_path_tracer_torch.ops.kernels.inverse_kernel import inverse_tile_rec
     from inverse_path_tracer_torch.ops.kernels.render_kernel import (
+        CAR_ALIVE,
+        grad_tile,
         pack_tables,
         render_tile,
         render_tile_plain,
+        render_tile_rec,
     )
     from inverse_path_tracer_torch.ops.kernels.staged_kernel import (
         init_tile,
@@ -1480,12 +1664,15 @@ def large_kernel_timing(device, launches, check_err):
 
     cfg = RenderConfig(**MAIN)
     k = cfg.stage_bounces
+    n_stages = -(-cfg.max_bounces // k)
     scene = large_scene(device)
     mats = scene.diffuse
     n = min(cfg.tile_size, cfg.n_samples)
     a = tile_inputs(scene, cfg, 0, n, device, external=False)
     keys = a["keys"]
     tabs = pack_tables(scene, mats, cfg)
+    jax_width = cfg.with_(cluster_k=768)
+    tabs768 = pack_tables(scene, mats, jax_width)
     dense = pack_tables(scene, mats)
     bins = _scene_bins(scene, cfg)
     nt = scene.n_tri
@@ -1495,30 +1682,36 @@ def large_kernel_timing(device, launches, check_err):
         carry0_p = init_tile_plain(mats, scene, cfg, a["p"], a["d"], a["alive"])
     inputs, counts, agree = {}, {}, {"init_tile": lanes_equal(carry0, carry0_p, True)}
     carry, orig = carry0, a["orig"]
-    for s in range(3):
+    for s in range(n_stages):
         order = _binned_order(carry, *bins, cfg.bin_cells)
         carry, orig = carry[:, order].contiguous(), orig[:, order].contiguous()
-        inputs[s] = (carry, orig)
-        out = stage_tile(mats, scene, cfg, carry, orig, s * k, k, keys=keys, tables=tabs)
-        if s in (0, 2):
-            with counting_sweeps() as c:
-                out_p = stage_tile_plain(mats, scene, cfg, carry, orig, s * k, k, keys=keys)
-            counts[s] = dict(c)
-            agree[f"stage_tile {s}"] = lanes_equal(out, out_p, True)
+        live = (carry[CAR_ALIVE] > 0).sum(dtype=torch.int32).reshape(1)
+        inputs[s] = (carry, orig, live)
+        out = stage_tile(mats, scene, cfg, carry, orig, s * k, k, keys=keys, tables=tabs,
+                         live=live)
+        with counting_sweeps() as c:
+            out_p = stage_tile_plain(mats, scene, cfg, carry, orig, s * k, k, keys=keys)
+        counts[s] = dict(c)
+        agree[f"stage_tile {s}"] = lanes_equal(out, out_p, True)
         carry = out
-    c0, o0 = inputs[0]
-    _, rec0 = stage_tile(mats, scene, cfg, c0, o0, 0, k, keys=keys, with_rec=True, tables=tabs)
+    c0, o0, live0 = inputs[0]
+    _, rec0 = stage_tile(mats, scene, cfg, c0, o0, 0, k, keys=keys, with_rec=True, tables=tabs,
+                         live=live0)
     g = torch.rand((3, n), generator=torch.Generator().manual_seed(5)).to(device)
     suf = torch.zeros((4, n), device=device)
     dm, suf_o = stage_reverse_tile(nt, cfg, k, rec0, g, suf)
     dm_p, suf_p = stage_reverse_tile_plain(nt, cfg, k, rec0, g, suf)
     b9_ok = grad_close(dm, dm_p) and bool(torch.allclose(suf_o, suf_p, rtol=1e-5, atol=1e-6))
     rb, sb = render_tile(mats, scene, cfg, tables=tabs, **a)
+    rj, sj = render_tile(mats, scene, jax_width, tables=tabs768, **a)
     rd, sd = render_tile(mats, scene, cfg, tables=dense, **a)
     with counting_sweeps() as c_b1:
         rp, sp = render_tile_plain(mats, scene, cfg, **a)
+    with counting_sweeps() as c_768:
+        render_tile_plain(mats, scene, jax_width, **a)
     torch.cuda.synchronize()
     agree["cluster_sweep (B1)"] = lanes_equal(rb, rp, True)
+    agree["B1 at 768"] = lanes_equal(rj, rb, True)
     agree["dense B1"] = lanes_equal(rd, rb, True)
     ok = all(f >= 0.97 for f, _ in agree.values()) and b9_ok
     log(f"large launch (3, {n}), clusters of {tabs.cluster_k}: " + ", ".join(
@@ -1528,36 +1721,51 @@ def large_kernel_timing(device, launches, check_err):
     if not ok:
         raise AssertionError("a staged kernel disagrees with its plain version at full shape")
 
-    c2, o2 = inputs[2]
+    def stage(s):
+        c, o, lv = inputs[s]
+        return lambda: stage_tile(mats, scene, cfg, c, o, s * k, k, keys=keys, tables=tabs,
+                                  live=lv)
+
+    def stage_plain(s):
+        c, o, _ = inputs[s]
+        return lambda: stage_tile_plain(mats, scene, cfg, c, o, s * k, k, keys=keys)
+
     timed = {
         "init_tile": (lambda: init_tile(mats, scene, cfg, a["p"], a["d"], a["alive"],
                                         tables=tabs),
                       lambda: init_tile_plain(mats, scene, cfg, a["p"], a["d"], a["alive"])),
-        "stage_tile": (lambda: stage_tile(mats, scene, cfg, c0, o0, 0, k, keys=keys, tables=tabs),
-                       lambda: stage_tile_plain(mats, scene, cfg, c0, o0, 0, k, keys=keys)),
-        "stage_tile 2": (lambda: stage_tile(mats, scene, cfg, c2, o2, 2 * k, k, keys=keys,
-                                            tables=tabs),
-                         lambda: stage_tile_plain(mats, scene, cfg, c2, o2, 2 * k, k, keys=keys)),
+        "stage_tile": (stage(0), stage_plain(0)),
+        **{f"stage_tile {s}": (stage(s), stage_plain(s) if s == 2 else None)
+           for s in range(1, n_stages)},
         "stage_reverse_tile": (lambda: stage_reverse_tile(nt, cfg, k, rec0, g, suf),
                                lambda: stage_reverse_tile_plain(nt, cfg, k, rec0, g, suf)),
         "cluster_sweep": (lambda: render_tile(mats, scene, cfg, tables=tabs, **a),
                           lambda: render_tile_plain(mats, scene, cfg, **a)),
+        "cluster_sweep at 768": (lambda: render_tile(mats, scene, jax_width, tables=tabs768,
+                                                     **a), None),
         "dense B1": (lambda: render_tile(mats, scene, cfg, tables=dense, **a), None),
     }
+    for fn, _ in timed.values():
+        fn()  # warm-up
     ms = {key: cuda_ms(fn, 5) for key, (fn, _) in timed.items()}
     plain_ms = {key: cuda_ms(fn, 1) for key, (_, fn) in timed.items() if fn is not None}
 
-    # Bounds, from this launch's data.  Operations: the (ray, triangle)
-    # pairs the clustered sweeps of the plain version swept (the hot cluster
-    # for every ray it sweeps, another cluster only where the ray enters its
-    # box before its closest hit), at FACE_PLANE_OPS each over the f32 peak
-    # (a floor, as in phase 10); the dense B1 sweeps every triangle.  B9:
-    # RECURSION_OPS per reached slot.  Bytes: each input read once, each
-    # output written once: rays (7 floats) in and the carry (24) out for B7;
-    # the carry in and out and orig for B8; for B9 the reached records, a
-    # flag pair where a lane stopped before the stage's last slot, g, the
-    # carry in and out and d materials.
-    f_ops = lambda pairs: pairs * FACE_PLANE_OPS / PEAK_F32_OPS * 1e3
+    # Bounds, from this launch's data.  Operations: what the clustered
+    # sweeps of the plain version did, the same tests as the kernel's (the
+    # hot cluster for every ray it sweeps, a group or cluster box where the
+    # ray reached it, the clusters that the ray enters before its closest
+    # hit): the (ray, triangle) pairs at FACE_PLANE_OPS each and the (ray,
+    # box) tests at BOX_OPS each, over the f32 peak (a floor, as in phase
+    # 10); the dense B1 sweeps every triangle.  B9: RECURSION_OPS per
+    # reached slot.  Bytes: each input read once, each output written once:
+    # rays (7 floats) in and the carry (24) out for B7; the carry in and out
+    # and orig for B8; for B9 the reached records, a flag pair where a lane
+    # stopped before the stage's last slot, g, the carry in and out and d
+    # materials.
+    def f_ops(c):
+        work = c["pairs"] * FACE_PLANE_OPS + (c["group_tests"] + c["tests"]) * BOX_OPS
+        return work / PEAK_F32_OPS * 1e3
+
     f_bytes = lambda nbytes: nbytes / PEAK_BYTES * 1e3
     rr = rec0.view(k, 16, -1)
     reached = ((rr[:, 14] + rr[:, 15]) > 0)
@@ -1565,25 +1773,64 @@ def large_kernel_timing(device, launches, check_err):
     stopped = float((reached.sum(dim=0) < k).sum())
     primaries, shadows = float(a["alive"].sum()), float(sd[1].sum())
     dense_pairs = (primaries + 2 * shadows) * nt
+    ray_bytes = f_bytes(n * (3 + 3 + 1 + 1 + 3 + 2) * 4)
     bounds = {
-        "init_tile": bound(f_ops(c_init["pairs"]), f_bytes(n * (7 + 24) * 4)),
-        "stage_tile": bound(f_ops(counts[0]["pairs"]), f_bytes(n * (48 + 1) * 4)),
-        "stage_tile 2": bound(f_ops(counts[2]["pairs"]), f_bytes(n * (48 + 1) * 4)),
+        "init_tile": bound(f_ops(c_init), f_bytes(n * (7 + 24) * 4)),
+        "stage_tile": bound(f_ops(counts[0]), f_bytes(n * (48 + 1) * 4)),
+        **{f"stage_tile {s}": bound(f_ops(counts[s]), f_bytes(n * (48 + 1) * 4))
+           for s in range(1, n_stages)},
         "stage_reverse_tile": bound(n_reached * RECURSION_OPS / PEAK_F32_OPS * 1e3,
                                     f_bytes(n_reached * 16 * 4 + stopped * 2 * 4
                                             + n * (3 + 8) * 4 + nt * 3 * 4)),
-        "cluster_sweep": bound(f_ops(c_b1["pairs"]), f_bytes(n * (3 + 3 + 1 + 1 + 3 + 2) * 4)),
-        "dense B1": bound(f_ops(dense_pairs), f_bytes(n * (3 + 3 + 1 + 1 + 3 + 2) * 4)),
+        "cluster_sweep": bound(f_ops(c_b1), ray_bytes),
+        "cluster_sweep at 768": bound(f_ops(c_768), ray_bytes),
+        "dense B1": bound(dense_pairs * FACE_PLANE_OPS / PEAK_F32_OPS * 1e3, ray_bytes),
     }
-    share = c_b1["entered"] / max(c_b1["tests"], 1)
-    log(f"large launch (3, {n}): B1 clustered sweeps {c_b1['pairs']:.0f} (ray, triangle) pairs "
-        f"against {dense_pairs:.0f} dense; (ray, cluster) box tests {c_b1['tests']} of which "
-        f"{c_b1['entered']} entered ({100 * share:.2f}%); B7 {c_init['pairs']:.0f} pairs, B8 "
-        f"stage 0 {counts[0]['pairs']:.0f}, stage 2 {counts[2]['pairs']:.0f}; B9 reached "
-        f"slots {n_reached:.0f}")
-    log(f"B10 as B1 on the large launch: clustered {ms['cluster_sweep']:.4f} ms, dense "
-        f"{ms['dense B1']:.4f} ms ({ms['dense B1'] / ms['cluster_sweep']:.3f}x), entered share "
-        f"{100 * share:.2f}%")
+    for what, c in (("B1 clustered", c_b1), ("B1 at 768", c_768), ("B7", c_init),
+                    *((f"B8 stage {s}", counts[s]) for s in range(n_stages))):
+        log(f"large launch (3, {n}) sweep work, {what}: {c['pairs']:.0f} (ray, triangle) pairs, "
+            f"(ray, group) box tests {c['group_tests']} of which {c['group_entered']} entered "
+            f"({100 * c['group_entered'] / max(c['group_tests'], 1):.2f}%), (ray, cluster) box "
+            f"tests {c['tests']} of which {c['entered']} entered "
+            f"({100 * c['entered'] / max(c['tests'], 1):.2f}%)")
+    log(f"large launch (3, {n}): dense sweeps {dense_pairs:.0f} pairs; B9 reached slots "
+        f"{n_reached:.0f}")
+    log(f"B10 as B1 on the large launch: clusters of {tabs.cluster_k} {ms['cluster_sweep']:.4f} "
+        f"ms, of 768 {ms['cluster_sweep at 768']:.4f} ms, dense {ms['dense B1']:.4f} ms")
+    b8_sum = sum(ms[key] for key in ms if key.startswith("stage_tile"))
+    log(f"B8 at the large launch: stages 0-{n_stages - 1} "
+        + ", ".join(f"{ms[key]:.4f}" for key in ms if key.startswith("stage_tile"))
+        + f" ms, sum {b8_sum:.4f} ms, bound sum "
+        f"{sum(bounds[key][0] for key in ms if key.startswith('stage_tile')):.4f} ms")
+
+    # Clustered B2 and B3 on this launch, clustered B6 on the first launch of
+    # the large extraction: times beside B10's.
+    g3 = torch.rand((3, n), generator=torch.Generator().manual_seed(9)).to(device)
+    golden_cfg = RenderConfig(**GOLDEN)
+    a6, _, _ = first_extraction_launch(scene, golden_cfg, large_target)
+    tab6 = pack_tables(scene, mats, golden_cfg)
+    more = {
+        "render_bwd_grad (B2) clustered": lambda: grad_tile(mats, scene, cfg, g=g3, tables=tabs,
+                                                            **a),
+        "render_fwd_rec (B3) clustered": lambda: render_tile_rec(mats, scene, cfg, tables=tabs,
+                                                                 **a),
+        "inverse_rec (B6) clustered, extraction launch": lambda: inverse_tile_rec(
+            scene, golden_cfg, tables=tab6, **a6),
+    }
+    for what, fn in more.items():
+        fn()  # warm-up
+        log(f"{what} at (3, {n}): {cuda_ms(fn, 3):.4f} ms (clusters of {tabs.cluster_k})")
+
+    report = clustered_ptxas()
+    for lib, kernel, regs, st, ld in report:
+        log(f"  ptxas {lib} {kernel}: {regs} registers, spill stores {st} B, spill loads {ld} B")
+    b8_b1 = [(st, ld) for _, kernel, _, st, ld in report
+             if kernel.startswith(("stage_kernel", "render_fwd_kernel<false"))]
+    if b8_b1:
+        log(f"clustered B8 and B1 spill-free: {all(st == 0 and ld == 0 for st, ld in b8_b1)}")
+    else:
+        log("clustered B8 and B1 spills: not reported (render_fwd was built before this run)")
+
     kernels = []
     for key, (b_ms, b_by) in bounds.items():
         pm = plain_ms.get(key)
@@ -1602,7 +1849,6 @@ def large_kernel_timing(device, launches, check_err):
             "library_ms": None,
         })
     return kernels
-
 
 
 def main() -> int:
@@ -1627,9 +1873,9 @@ def main() -> int:
     built = build.build()
     log(f"build: {time.perf_counter() - t0:.2f} s ({', '.join(built) or 'cached'})")
     for name, text in build.build_log.items():
-        for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  ptxas {name}: {line.strip()}")
+        for kernel, regs, st, ld, stack in ptxas_report(text):
+            log(f"  ptxas {name} {kernel}: {regs} registers, spill stores {st} B, spill loads "
+                f"{ld} B, stack {stack} B")
 
     check_err = check_kernel_vs_plain(device)
     launches = {"render_fwd": main_path(device)}
@@ -1646,13 +1892,14 @@ def main() -> int:
     gcn_pipeline(device, graph, target)
     kernels += inverse_kernel_timing(device, launches, check_err, target, large)
     check_err.update(check_staged_vs_plain(device))
+    check_l1_branch(device)
     for name, e in check_clustered_vs_dense(device).items():
         check_err[name] = max(check_err[name], e)
     staged_launches, large_vn = large_main_path(device)
     launches.update(staged_launches)
     fd_gate(device, large_vn, large_vn.diffuse, label="large scene (staged)")
-    large_vn_extraction(device, large_vn)
-    kernels += large_kernel_timing(device, launches, check_err)
+    large_target = large_vn_extraction(device, large_vn)
+    kernels += large_kernel_timing(device, launches, check_err, large_target)
     for k in kernels:  # the later checks of B1-B6 (clustered tables) count too
         k["max_abs_err"] = max(float(k["max_abs_err"]), check_err.get(k["name"], 0.0))
     for k in kernels:

@@ -135,50 +135,65 @@ def enters_box(box: torch.Tensor, p: torch.Tensor, inv_d: torch.Tensor, t_best: 
 def intersect_clustered(
     planes: torch.Tensor,  # (nT, 16) in internal order
     cab: torch.Tensor,  # (C, 8) cluster boxes (ops/kernels/clusters.py)
+    gab: torch.Tensor,  # (G, 8) boxes of the groups of `group` clusters 1..
     cluster_k: int,
+    group: int,
     p: torch.Tensor,  # (R, 3)
     d: torch.Tensor,  # (R, 3)
     min_dot: float = 1e-4,
     epsilon: float = 1e-2,
 ) -> Intersection:
-    """The clustered sweep of B10 (render_common.cuh intersect): clusters in
-    ascending order, cluster 0 swept for every ray, any other only for the
-    rays that enter its box no later than their closest hit so far; a
-    cluster's hit replaces the running one only when strictly closer, so
-    ties keep the lowest index.  Equal to intersect_planes on the same
-    planes, bit for bit, because every triangle of a cluster lies inside
-    its padded box."""
+    """The clustered sweep of B10 (render_common.cuh intersect): cluster 0
+    swept for every ray; then, group by group, the clusters of a group's
+    box that the ray enters no later than its closest hit so far, each
+    swept where the ray enters its own box no later than the closest hit so
+    far; a cluster's hit replaces the running one only when strictly
+    closer, so ties keep the lowest index.  Equal to intersect_planes on
+    the same planes, bit for bit, because every triangle of a cluster lies
+    inside its padded box and every cluster box inside its group's box."""
     n_tri, n_rays = planes.shape[0], p.shape[0]
     t_best = torch.full((n_rays,), float("inf"), dtype=torch.float32, device=p.device)
     best = torch.zeros(n_rays, dtype=torch.int64, device=p.device)
     inv_d = inv_dir(d)
-    for c in range(cab.shape[0]):
+
+    def sweep_cluster(c, rows):
         lo, hi = c * cluster_k, min((c + 1) * cluster_k, n_tri)
-        if c == 0:
-            rows = torch.arange(n_rays, device=p.device)
-        else:
-            rows = torch.nonzero(enters_box(cab[c], p, inv_d, t_best)).squeeze(1)
-            if _counts is not None:
-                _counts["tests"] += n_rays
-                _counts["entered"] += rows.numel()
         if _counts is not None:
             _counts["pairs"] += rows.numel() * (hi - lo)
         if rows.numel() == 0:
-            continue
+            return
         t_c, i_c = _min_over(planes[lo:hi], p[rows], d[rows], min_dot, epsilon)
         better = t_c < t_best[rows]
         t_best[rows] = torch.where(better, t_c, t_best[rows])
         best[rows] = torch.where(better, i_c + lo, best[rows])
+
+    def entering(box, rows):
+        got = rows[enters_box(box, p[rows], inv_d[rows], t_best[rows])]
+        return got, rows.numel(), got.numel()
+
+    sweep_cluster(0, torch.arange(n_rays, device=p.device))
+    for g in range(gab.shape[0]):
+        rows_g, tested, entered = entering(gab[g], torch.arange(n_rays, device=p.device))
+        if _counts is not None:
+            _counts["group_tests"] += tested
+            _counts["group_entered"] += entered
+        for c in range(1 + g * group, min(1 + (g + 1) * group, cab.shape[0])):
+            rows, tested, entered = entering(cab[c], rows_g)
+            if _counts is not None:
+                _counts["tests"] += tested
+                _counts["entered"] += entered
+            sweep_cluster(c, rows)
     return _resolve(t_best, best, p, d)
 
 
 @contextlib.contextmanager
 def counting_sweeps():
-    """Counts, inside the block, the clustered sweeps' (ray, cluster) box
-    tests of clusters 1.., how many of them entered, and the (ray,
-    triangle) pairs swept: yields the dict of running totals."""
+    """Counts, inside the block, the clustered sweeps' (ray, group) box
+    tests and how many of them entered, the (ray, cluster) box tests of
+    clusters 1.. inside entered groups and how many of them entered, and
+    the (ray, triangle) pairs swept: yields the dict of running totals."""
     global _counts
-    _counts = {"tests": 0, "entered": 0, "pairs": 0}
+    _counts = {"group_tests": 0, "group_entered": 0, "tests": 0, "entered": 0, "pairs": 0}
     try:
         yield _counts
     finally:

@@ -32,6 +32,10 @@ from inverse_path_tracer_torch.scene.build import SceneData
 # small scene set these module constants.
 CLUSTER_MIN_TP = 512
 CLUSTER_K = 0
+# The auto width on the H100 (cluster_k_for) and the clusters per group box
+# (clusters.group_boxes, the first level of the kernels' two-level box test).
+CLUSTER_AUTO_K = 16
+CLUSTER_GROUP = 8
 
 # Fields of SceneData indexed by triangle.
 _TRI_FIELDS = ("vertices", "vertex_normals", "face_normal", "center", "area", "edge_out",
@@ -43,10 +47,21 @@ def _round_up(x: int, m: int) -> int:
 
 
 def cluster_k_for(n_tri: int, cfg) -> int:
-    """The cluster width of the sweep (0 = dense).  Auto: half the padded
-    triangle count, clamped to [256, 1024] and rounded up to a multiple of
-    128 (one hot cluster plus one or a few cold ones); cfg.cluster_k, then
-    CLUSTER_K, override it, rounded up to a multiple of 8."""
+    """The cluster width of the sweep (0 = dense): CLUSTER_AUTO_K on scenes
+    of at least CLUSTER_MIN_TP padded triangles; cfg.cluster_k, then
+    CLUSTER_K, override it, rounded up to a multiple of 8.
+
+    The auto width is the H100's: each thread skips clusters for its own
+    ray, so narrow clusters pay.  On an H100 80GB HBM3 (700 W) the
+    1298-triangle large scene's staged forward (512x512/64 spp/16 bounces,
+    tools/time_render_fwd.py, two runs each in one call) took 186-191 ms at
+    width 16, 207-210 ms at 32, 276 ms at 64, 357-360 ms at 128 and 692-695
+    ms at 768.  The JAX package's auto width, tuned for a TPU that skips a
+    cluster for a whole block of rays and so prefers wide clusters, is half
+    the padded count clamped to [256, 1024]: 768 on the large scene, which
+    puts 59% of its triangles in the always-swept hot cluster.
+    cfg.cluster_k=768 gives that layout, and JAX's kernel_perm, bit for
+    bit."""
     tp8 = _round_up(max(n_tri, 8), 8)
     if tp8 < CLUSTER_MIN_TP:
         return 0
@@ -55,7 +70,7 @@ def cluster_k_for(n_tri: int, cfg) -> int:
             if k < 0:
                 raise ValueError(f"cluster_k must be positive, got {k}")
             return _round_up(k, 8)
-    return min(1024, max(256, _round_up(tp8 // 2, 128)))
+    return CLUSTER_AUTO_K
 
 
 def _expand_bits(v: torch.Tensor) -> torch.Tensor:
@@ -128,6 +143,21 @@ def cluster_boxes(vertices: torch.Tensor, cluster_k: int) -> torch.Tensor:
     return torch.cat([lo_c - m, hi_c + m, torch.zeros_like(lo_c[:, :2])], dim=1).contiguous()
 
 
+def group_boxes(cab: torch.Tensor, group: int) -> torch.Tensor:
+    """(ceil((C - 1) / group), 8) boxes of the groups of `group` consecutive
+    clusters 1.. (cluster 0 is swept for every ray): rows [lo xyz, hi xyz,
+    0, 0], the exact union of the group's cluster boxes, so that a ray that
+    enters a cluster's box no later than t also enters its group's box no
+    later than t (the slab test is monotone in the box's bounds)."""
+    rest = cab[1:, :6]
+    n_groups = -(-rest.shape[0] // group)
+    pad = n_groups * group - rest.shape[0]
+    inf = torch.full((pad, 3), float("inf"), dtype=cab.dtype, device=cab.device)
+    lo = torch.cat([rest[:, 0:3], inf]).reshape(n_groups, group, 3).min(dim=1).values
+    hi = torch.cat([rest[:, 3:6], -inf]).reshape(n_groups, group, 3).max(dim=1).values
+    return torch.cat([lo, hi, torch.zeros_like(lo[:, :2])], dim=1).contiguous()
+
+
 class KernelView(NamedTuple):
     """A scene as the kernels see it."""
 
@@ -135,6 +165,8 @@ class KernelView(NamedTuple):
     perm: Optional[torch.Tensor]  # internal -> global, None = global order
     cluster_k: int  # 0 = dense sweep
     cab: Optional[torch.Tensor]  # (C, 8) cluster boxes
+    gab: Optional[torch.Tensor] = None  # (G, 8) boxes of the groups of clusters 1..
+    group: int = 0  # clusters per group box
 
 
 def permute_scene(scene: SceneData, perm: torch.Tensor) -> SceneData:
@@ -159,7 +191,8 @@ def kernel_view(scene: SceneData, cfg) -> KernelView:
         return KernelView(scene, None, 0, None)
     perm = kernel_perm(scene, cfg)
     view = scene if perm is None else permute_scene(scene, perm)
-    return KernelView(view, perm, ck, cluster_boxes(view.vertices, ck))
+    cab = cluster_boxes(view.vertices, ck)
+    return KernelView(view, perm, ck, cab, group_boxes(cab, CLUSTER_GROUP), CLUSTER_GROUP)
 
 
 def to_kernel_order(materials: torch.Tensor, view: KernelView) -> torch.Tensor:

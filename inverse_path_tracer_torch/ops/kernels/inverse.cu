@@ -53,7 +53,6 @@ using namespace ipt;
 
 constexpr int kQuant = 9;
 constexpr int kInvRows = 8;
-constexpr int kMaxSmem = 232448;  // opt-in dynamic shared memory of a block
 
 __host__ __device__ inline int grid_floats(int n_tri) { return (n_tri + 1) * n_tri * kQuant; }
 
@@ -209,7 +208,7 @@ __global__ void __launch_bounds__(kThreads)
   float* grid = reinterpret_cast<float*>(smem4);
   const int g_count = grid_floats(P.n_tri);
   for (int e = threadIdx.x; e < g_count; e += blockDim.x) grid[e] = 0.f;
-  const Tables T = stage_tables(P, grid + ((g_count + 3) & ~3));
+  const Tables T = stage_tables<kClustered>(P, grid + ((g_count + 3) & ~3));
   __syncthreads();
 
   const int n = P.n;
@@ -225,10 +224,10 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 template <bool kClustered>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, min_blocks(kClustered))
     inverse_rec_kernel(const TraceParams P, float* rec, float* stats) {
   extern __shared__ float4 smem4[];
-  const Tables T = stage_tables(P, reinterpret_cast<float*>(smem4));
+  const Tables T = stage_tables<kClustered>(P, reinterpret_cast<float*>(smem4));
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= P.n) return;
   const RecordSink sink{rec, P.n, i};
@@ -238,14 +237,10 @@ __global__ void __launch_bounds__(kThreads)
   stats[P.n + i] = o.shadows;
 }
 
-size_t table_bytes(const TraceParams& P) {
-  return static_cast<size_t>(table_floats(P.n_tri, P.has_vn, P.n_emissive, P.etab_stride)) *
-         sizeof(float);
-}
-
 // B5's dynamic shared memory: the padded grid, then the tables.
 size_t grid_smem_bytes(const TraceParams& P) {
-  return static_cast<size_t>((grid_floats(P.n_tri) + 3) & ~3) * sizeof(float) + table_bytes(P);
+  return static_cast<size_t>((grid_floats(P.n_tri) + 3) & ~3) * sizeof(float) +
+         smem_table_bytes(P);
 }
 
 // Per device and sweep, the dynamic shared memory inverse_grid_kernel was
@@ -310,6 +305,8 @@ int ipt_inverse_grid(const TraceParams* Pin, const float* pix, float* partials, 
                      int blocks, void* stream) {
   TraceParams P = *Pin;
   P.use_smem = 1;
+  if (P.cluster_k && !(aligned16(P.planes) && aligned16(P.cab) && aligned16(P.gab)))
+    return static_cast<int>(cudaErrorMisalignedAddress);  // the TMA copy's sources
   const size_t smem = grid_smem_bytes(P);
   int capacity = 0;
   const cudaError_t err =
@@ -326,15 +323,16 @@ int ipt_inverse_grid(const TraceParams* Pin, const float* pix, float* partials, 
 }
 
 // B6: records (max_bounces * 8, n) and stats (2, n) for the rays of *Pin.
-// The tables are staged in shared memory when they fit in 48 KB, as B1's.
+// The tables go to shared memory as B1's (render_common.cuh smem_tables).
 int ipt_inverse_rec(const TraceParams* Pin, float* rec, float* stats, void* stream) {
   TraceParams P = *Pin;
   if (P.n <= 0) return 0;
-  const size_t smem = table_bytes(P);
-  P.use_smem = smem <= static_cast<size_t>(kSmemLimit);
+  const size_t dyn = smem_tables(P, 0);
   const int blocks = (P.n + kThreads - 1) / kThreads;
-  const size_t dyn = P.use_smem ? smem : 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = P.cluster_k ? allow_smem(inverse_rec_kernel<true>, dyn)
+                                : allow_smem(inverse_rec_kernel<false>, dyn);
+  if (err != cudaSuccess) return static_cast<int>(err);
   if (P.cluster_k) {
     inverse_rec_kernel<true><<<blocks, kThreads, dyn, s>>>(P, rec, stats);
   } else {

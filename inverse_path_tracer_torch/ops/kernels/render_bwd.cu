@@ -186,12 +186,12 @@ __host__ __device__ inline size_t acc_floats(int n_tri) {
 }
 
 template <int kCap, bool kClustered>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, min_blocks(kClustered))
     grad_tile_kernel(const TraceParams P, const float* g, float* partials) {
   extern __shared__ float4 smem4[];
   float* acc = reinterpret_cast<float*>(smem4);
   zero_acc(acc, P.n_tri);
-  const Tables T = stage_tables(P, acc + acc_floats(P.n_tri));
+  const Tables T = stage_tables<kClustered>(P, acc + acc_floats(P.n_tri));
   __syncthreads();
 
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
@@ -273,14 +273,6 @@ __global__ void __launch_bounds__(kThreads)
   write_partial(acc, n_tri, partials);
 }
 
-// Opts a kernel into more than 48 KB of dynamic shared memory when needed.
-template <class K>
-cudaError_t allow_smem(K kernel, size_t bytes) {
-  if (bytes <= static_cast<size_t>(kSmemLimit)) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(bytes));
-}
-
 }  // namespace
 
 extern "C" {
@@ -292,11 +284,7 @@ int ipt_grad_tile(const TraceParams* Pin, const float* g, float* partials, void*
   if (P.n <= 0) return 0;
   if (P.max_bounces > 64) return static_cast<int>(cudaErrorInvalidValue);
   const size_t acc = acc_floats(P.n_tri) * sizeof(float);
-  const size_t tabs =
-      static_cast<size_t>(table_floats(P.n_tri, P.has_vn, P.n_emissive, P.etab_stride)) *
-      sizeof(float);
-  P.use_smem = acc + tabs <= static_cast<size_t>(kSmemLimit);
-  const size_t dyn = acc + (P.use_smem ? tabs : 0);
+  const size_t dyn = acc + smem_tables(P, acc);
   auto kernel = P.cluster_k
       ? (P.max_bounces <= 16 ? grad_tile_kernel<16, true> : grad_tile_kernel<64, true>)
       : (P.max_bounces <= 16 ? grad_tile_kernel<16, false> : grad_tile_kernel<64, false>);

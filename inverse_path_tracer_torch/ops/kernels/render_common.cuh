@@ -36,15 +36,19 @@
 // package's _make_geom, render_kernel.py:358-527).  On scenes of at least
 // 512 padded triangles the tables are in an internal order whose
 // contiguous runs of cluster_k triangles are spatially compact clusters
-// (ops/kernels/clusters.py).  intersect() sweeps cluster 0 (the largest
-// triangles) for every ray and any other cluster only where this thread's
-// ray enters its margin-padded box no later than its closest hit so far:
-// a per-ray skip where the TPU kernel skips a cluster for a whole ray
-// block.  Clusters go in ascending order and a hit replaces the running
-// one only when strictly closer, so the result is the dense sweep's, ties
-// to the lowest internal index.  Bound: the (ray, triangle) tests of the
-// entered clusters, f32 ALU as the dense sweep; the box tests are 6 mul,
-// 6 sub and 10 min/max per (ray, cluster).
+// (ops/kernels/clusters.py; 16 by default on this card), and runs of
+// cluster_group clusters 1.. have a group box, the union of theirs.
+// intersect() sweeps cluster 0 (the largest triangles) for every ray; then
+// it tests each group's box and, where this thread's ray enters it no later
+// than its closest hit so far, the boxes of the group's clusters, sweeping
+// a cluster where the ray enters its margin-padded box no later than its
+// closest hit: a per-ray skip where the TPU kernel skips a cluster for a
+// whole ray block.  Clusters go in ascending order and a hit replaces the
+// running one only when strictly closer, so the result is the dense
+// sweep's, ties to the lowest internal index.  The plane rows and the boxes
+// are copied into shared memory by TMA where they fit (stage_tables).
+// Bound: the (ray, triangle) tests swept and the (ray, box) tests, f32 ALU
+// as the dense sweep; a box test is 6 mul, 6 sub and 10 min/max.
 
 #pragma once
 
@@ -61,8 +65,17 @@ constexpr int kVtabStride = 20;   // verts 0:9 vertex normals 9:18 area 18
 // (+ vertex normals 17:26, area 26 on vertex-normal scenes).
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kSmemLimit = 48 * 1024;
+constexpr int kSmemLimit = 48 * 1024;  // shared memory without an opt-in
+constexpr int kMaxSmem = 232448;       // a block's opt-in dynamic shared memory
 constexpr uint32_t kGolden = 0x9E3779B9u;
+
+// The register budget of a kernel, __launch_bounds__'s minimum blocks per
+// SM: two blocks of kThreads for the clustered kernels, whose sweep tables
+// (~85 KB of shared memory on the large scene) let two blocks share an SM,
+// which leaves 128 registers a thread; 0 (none) for the dense kernels,
+// which keep ptxas's own choice (a minimum of 1 made ptxas give B1 98
+// registers, and it ran 25% slower on scene 0).
+__host__ __device__ constexpr int min_blocks(bool clustered) { return clustered ? 2 : 0; }
 constexpr int kRecRows = 16;
 constexpr int kCarryRows = 24;
 
@@ -80,10 +93,12 @@ struct TraceParams {
   const float* etab;      // (nE, etab_stride)
   const float* cdf;       // (nE,)
   const float* cab;       // (n_clusters, 8) cluster boxes, or null (dense sweep)
+  const float* gab;       // (n_groups, 8) boxes of the groups of clusters 1..
   uint32_t k0, k1;
   int n, n_tri, n_emissive, etab_stride;
   int has_vn, no_spec, quirks, fused, max_bounces, use_smem;
   int cluster_k, n_clusters;  // 0, 0: the dense sweep
+  int cluster_group, n_groups;  // clusters per group box, group boxes
   float p_rr, min_dot, epsilon;
   float two_pi, inv_pi, inv_2pi, cos_scale, inv_p_rr;
 };
@@ -94,6 +109,8 @@ struct Tables {
   const float* vtab;
   const float* etab;
   const float* cdf;
+  const float* cab;
+  const float* gab;
 };
 
 // Floats the scene tables take in shared memory, each array padded to 16
@@ -105,12 +122,104 @@ inline long long table_floats(int n_tri, int has_vn, int n_emissive, int etab_st
          padded((long long)n_emissive * etab_stride) + padded(n_emissive);
 }
 
-// Copies the tables into shared memory at `s` when P.use_smem (then
-// synchronises the block); otherwise the block reads them from global
-// memory through L1.  Every thread of the block must call it.
+// Bytes of the tables a block keeps in shared memory: every table on the
+// dense sweep; on clustered tables the sweep's own, the plane rows (64
+// bytes each) and the cluster and group boxes (32 bytes each), which it
+// reads once per (ray, triangle) or (ray, box) test.  The material,
+// vertex-normal and emitter tables are read once per hit and stay in
+// global memory.
+inline size_t smem_table_bytes(const TraceParams& P) {
+  if (!P.cluster_k)
+    return static_cast<size_t>(table_floats(P.n_tri, P.has_vn, P.n_emissive, P.etab_stride)) * 4;
+  return (static_cast<size_t>(P.n_tri) * kPlaneStride +
+          static_cast<size_t>(P.n_clusters + P.n_groups) * 8) * 4;
+}
+
+inline bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
+
+// Sets P.use_smem for a kernel that needs `other` bytes of shared memory
+// besides the tables, and returns the table bytes it then adds (0: the
+// block reads the tables through L1).  Dense: every table, where the total
+// fits in 48 KB.  Clustered: the sweep's tables, copied by TMA, where the
+// total fits in a block's 227 KB and the sources are 16-byte aligned (torch
+// allocations are); a larger scene (above ~3,500 triangles) reads its
+// planes through L1, the same function at a lower speed.
+inline size_t smem_tables(TraceParams& P, size_t other) {
+  const size_t bytes = smem_table_bytes(P);
+  if (P.cluster_k) {
+    P.use_smem = other + bytes <= static_cast<size_t>(kMaxSmem) && aligned16(P.planes) &&
+                 aligned16(P.cab) && aligned16(P.gab);
+  } else {
+    P.use_smem = other + bytes <= static_cast<size_t>(kSmemLimit);
+  }
+  return P.use_smem ? bytes : 0;
+}
+
+// Opts a kernel into more than 48 KB of dynamic shared memory when needed.
+template <class K>
+cudaError_t allow_smem(K kernel, size_t bytes) {
+  if (bytes <= static_cast<size_t>(kSmemLimit)) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(bytes));
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// One TMA bulk copy of `bytes` (a multiple of 16, both ends 16-byte
+// aligned) from global to shared memory, completing on mbarrier `bar`.
+__device__ __forceinline__ void bulk_load(float* dst, const float* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
+      ::"r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// The scene tables a block reads, staged at `s` when P.use_smem (the block
+// is then synchronised); otherwise the global copies, read through L1.
+// Every thread of the block must call it.  Dense: every table, copied by
+// the block's threads.  Clustered: the plane rows and the cluster and group
+// boxes, by one thread's TMA bulk copies on an mbarrier that every thread
+// waits on.
+template <bool kClustered>
 __device__ __forceinline__ Tables stage_tables(const TraceParams& P, float* s) {
-  Tables T{P.planes, P.table, P.vtab, P.etab, P.cdf};
-  if (P.use_smem) {
+  Tables T{P.planes, P.table, P.vtab, P.etab, P.cdf, P.cab, P.gab};
+  if (!P.use_smem) return T;
+  if constexpr (kClustered) {
+    __shared__ alignas(8) uint64_t bar_storage;
+    const uint32_t bar = smem_u32(&bar_storage);
+    float* planes = s;
+    float* cab = planes + static_cast<size_t>(P.n_tri) * kPlaneStride;
+    float* gab = cab + static_cast<size_t>(P.n_clusters) * 8;
+    const uint32_t b_planes = static_cast<uint32_t>(P.n_tri) * kPlaneStride * 4;
+    const uint32_t b_cab = static_cast<uint32_t>(P.n_clusters) * 32;
+    const uint32_t b_gab = static_cast<uint32_t>(P.n_groups) * 32;
+    if (threadIdx.x == 0) {
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(1u) : "memory");
+      asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+      asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+                   ::"r"(bar), "r"(b_planes + b_cab + b_gab)
+                   : "memory");
+      bulk_load(planes, P.planes, b_planes, bar);
+      if (b_cab) bulk_load(cab, P.cab, b_cab, bar);
+      if (b_gab) bulk_load(gab, P.gab, b_gab, bar);
+    }
+    __syncthreads();  // the barrier is initialised before anyone waits on it
+    uint32_t done = 0;
+    do {
+      asm volatile(
+          "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+          "selp.b32 %0, 1, 0, p;\n}"
+          : "=r"(done)
+          : "r"(bar), "r"(0u)
+          : "memory");
+    } while (!done);
+    T.planes = planes;
+    T.cab = cab;
+    T.gab = gab;
+  } else {
     auto stage = [&](const float* src, int count) {
       for (int k = threadIdx.x; k < count; k += blockDim.x) s[k] = src[k];
       const float* out = s;
@@ -167,16 +276,41 @@ struct Hit {
   int idx;  // 0 on miss
 };
 
+// Relative margins of the divide-free pre-test of sweep(): wide against
+// the 2^-24 rounding of one product or quotient (see sweep()).
+constexpr float kPretestLo = 0.999f;
+constexpr float kPretestHi = 1.001f;
+
 // Sweeps triangles [lo, hi) for the ray o + t*dir, updating the closest
 // hit (t_best, best); strict `<` keeps the lowest index on exact ties.
+//
+// Most pairs are rejected, so a divide-free pre-test keeps the exact IEEE
+// divide t = a0 / -b0 off their path.  With s = |b0| and a = a0 signed so
+// that t = a / s, a pair goes on to the exact test only where s >= min_dot,
+// a >= (eps * kPretestLo) * s and a <= (t_best * s) * kPretestHi.  This
+// never drops a pair the exact test accepts: accepted, fl(a / s) >= eps and
+// fl(a / s) < t_best give a >= eps * s / (1 + u) and a < t_best * s (u =
+// 2^-24), and each product above rounds once, at most by a factor 1 +- u
+// while it stays normal, which the margins 1 -+ 1e-3 cover many times over.
+// The products stay normal because eps and min_dot are positive and eps *
+// min_dot >= 1e-30 (every product is at least that, t_best being an
+// accepted t >= eps): the kernels' wrappers refuse other values
+// (render_kernel.py _trace_params), since a run-time switch around the
+// pre-test took back most of its gain.  Survivors then take the exact test,
+// so the result is bit for bit that of the exact test alone.  Tested by a
+// float32 mirror in tests/test_torch_cluster.py.
 __device__ __forceinline__ void sweep(const float* __restrict__ planes, int lo, int hi,
                                       float min_dot, float eps, V3 o, V3 dir, float& t_best,
                                       int& best) {
+  const float eps_lo = eps * kPretestLo;
   for (int k = lo; k < hi; ++k) {
     const float4* q = reinterpret_cast<const float4*>(planes + kPlaneStride * k);
     const float4 f = q[0];
     const float b0 = dir.x * f.x + dir.y * f.y + dir.z * f.z;
     const float a0 = o.x * f.x + o.y * f.y + o.z * f.z + f.w;
+    const float s = fabsf(b0);
+    const float a = b0 < 0.f ? a0 : -a0;
+    if (!(s >= min_dot && a >= eps_lo * s && a <= (t_best * s) * kPretestHi)) continue;
     const float t = a0 / (-b0);
     if (fabsf(b0) >= min_dot && t >= eps && t < t_best) {
       bool inside = true;
@@ -204,12 +338,15 @@ __device__ __forceinline__ float inv_component(float c) {
 }
 
 // True where the ray's [0, inf) enters the box [lo xyz, hi xyz] at or
-// before t_best (the JAX package's _slab_rows, render_kernel.py:384).
+// before t_best (the JAX package's _slab_rows, render_kernel.py:384).  A
+// box row is 8 floats, 32-byte aligned: two 16-byte loads.
 __device__ __forceinline__ bool enters(const float* __restrict__ box, V3 o, V3 inv,
                                        float t_best) {
-  const float tx1 = (box[0] - o.x) * inv.x, tx2 = (box[3] - o.x) * inv.x;
-  const float ty1 = (box[1] - o.y) * inv.y, ty2 = (box[4] - o.y) * inv.y;
-  const float tz1 = (box[2] - o.z) * inv.z, tz2 = (box[5] - o.z) * inv.z;
+  const float4 a = reinterpret_cast<const float4*>(box)[0];  // lo xyz, hi x
+  const float4 b = reinterpret_cast<const float4*>(box)[1];  // hi yz
+  const float tx1 = (a.x - o.x) * inv.x, tx2 = (a.w - o.x) * inv.x;
+  const float ty1 = (a.y - o.y) * inv.y, ty2 = (b.x - o.y) * inv.y;
+  const float tz1 = (a.z - o.z) * inv.z, tz2 = (b.y - o.z) * inv.z;
   const float t_min = fmaxf(fmaxf(fminf(tx1, tx2), fminf(ty1, ty2)), fminf(tz1, tz2));
   const float t_max = fminf(fminf(fmaxf(tx1, tx2), fmaxf(ty1, ty2)), fmaxf(tz1, tz2));
   return t_max >= fmaxf(t_min, 0.f) && t_min <= t_best;
@@ -229,11 +366,16 @@ __device__ __forceinline__ Hit intersect(const TraceParams& P, const Tables& T, 
   } else {
     const V3 inv = v3(inv_component(dir.x), inv_component(dir.y), inv_component(dir.z));
     sweep(T.planes, 0, min(P.cluster_k, P.n_tri), P.min_dot, P.epsilon, o, dir, t_best, best);
-    for (int c = 1; c < P.n_clusters; ++c) {
-      if (!enters(P.cab + 8 * c, o, inv, t_best)) continue;
-      const int lo = c * P.cluster_k;
-      sweep(T.planes, lo, min(lo + P.cluster_k, P.n_tri), P.min_dot, P.epsilon, o, dir, t_best,
-            best);
+    for (int g = 0; g < P.n_groups; ++g) {
+      if (!enters(T.gab + 8 * g, o, inv, t_best)) continue;
+      const int c_lo = 1 + g * P.cluster_group;
+      const int c_hi = min(c_lo + P.cluster_group, P.n_clusters);
+      for (int c = c_lo; c < c_hi; ++c) {
+        if (!enters(T.cab + 8 * c, o, inv, t_best)) continue;
+        const int lo = c * P.cluster_k;
+        sweep(T.planes, lo, min(lo + P.cluster_k, P.n_tri), P.min_dot, P.epsilon, o, dir, t_best,
+              best);
+      }
     }
   }
   return Hit{t_best, best};

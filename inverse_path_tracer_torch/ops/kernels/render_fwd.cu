@@ -26,8 +26,11 @@
 // edge planes), the per-triangle material table and the emitter table are
 // staged in shared memory when they fit in 48 KB and otherwise read
 // through the L1 cache from global memory, so any triangle count is
-// correct.  Every thread of a warp reads the same plane row at the same
-// time, which is a shared-memory broadcast.  t is an exact IEEE divide.
+// correct (on clustered tables, the plane rows and boxes go to shared
+// memory by TMA up to a block's 227 KB: render_common.cuh stage_tables).
+// Every thread of a warp reads the same plane row at the same time, which
+// is a shared-memory broadcast.  t is an exact IEEE divide, behind a
+// divide-free pre-test that rejects most pairs (render_common.cuh sweep).
 // The file is compiled with -fmad=false so that every sum rounds exactly
 // as in the plain PyTorch version (render_kernel.py render_tile_plain),
 // which lets the two agree bit for bit on geometry.
@@ -42,8 +45,10 @@
 // the local one.  A thread stops where its lane dies or its global bounce
 // reaches max_bounces, and zeroes the record slots it did not reach (the
 // partial last stage).  The host sorts the lanes between stages, live ones
-// first (render/forward.py), so trailing blocks hold dead lanes only: each
-// of their threads copies its carry, zeroes its records and exits.  B10's
+// first (render/forward.py), and counts them on the device; B8 is a
+// persistent kernel whose warps take 32-lane chunks of that live prefix
+// from a global counter and then copy the dead lanes' carry and zero their
+// records with 16-byte stores (stage_kernel).  B10's
 // standalone kernel, intersect_kernel, runs intersect() for one ray per
 // thread, so that the clustered sweep can be checked and timed alone.
 //
@@ -65,10 +70,10 @@ namespace {
 using namespace ipt;
 
 template <bool kRecords, bool kClustered>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, min_blocks(kClustered))
     render_fwd_kernel(const TraceParams P, float* rad, float* stats, float* rec) {
   extern __shared__ float4 smem4[];
-  const Tables T = stage_tables(P, reinterpret_cast<float*>(smem4));
+  const Tables T = stage_tables<kClustered>(P, reinterpret_cast<float*>(smem4));
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= P.n) return;
   const int n = P.n;
@@ -90,22 +95,21 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 template <bool kClustered>
-__global__ void __launch_bounds__(kThreads) init_kernel(const TraceParams P, float* carry) {
+__global__ void __launch_bounds__(kThreads, min_blocks(kClustered))
+    init_kernel(const TraceParams P, float* carry) {
   extern __shared__ float4 smem4[];
-  const Tables T = stage_tables(P, reinterpret_cast<float*>(smem4));
+  const Tables T = stage_tables<kClustered>(P, reinterpret_cast<float*>(smem4));
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= P.n) return;
   store_lane(carry, P.n, i, init_lane<kClustered>(P, T, i));
 }
 
+// Lane i of a stage: its carry in, at most k bounces, its carry out and,
+// with kRecords, its records (zero past its last bounce of the stage).
 template <bool kRecords, bool kClustered>
-__global__ void __launch_bounds__(kThreads)
-    stage_kernel(const TraceParams P, const float* carry_in, float* carry_out, float* rec,
-                 int start, int k) {
-  extern __shared__ float4 smem4[];
-  const Tables T = stage_tables(P, reinterpret_cast<float*>(smem4));
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= P.n) return;
+__device__ __forceinline__ void stage_lane(const TraceParams& P, const Tables& T,
+                                           const float* carry_in, float* carry_out, float* rec,
+                                           int start, int k, int i) {
   Lane L = load_lane(carry_in, P.n, i);
   const uint32_t h_orig = hash_orig(P, i);
   int reached = 0;
@@ -129,11 +133,67 @@ __global__ void __launch_bounds__(kThreads)
   store_lane(carry_out, P.n, i, L);
 }
 
+// dst[lo:hi] = src[lo:hi] (or 0 where src is null), shared by `workers`
+// threads, this one `worker`: 16-byte loads and stores between a scalar
+// head and tail where both pointers are 16-byte aligned.
+__device__ __forceinline__ void copy_span(const float* src, float* dst, size_t lo, size_t hi,
+                                          size_t worker, size_t workers) {
+  const bool vec = ((reinterpret_cast<uintptr_t>(src) | reinterpret_cast<uintptr_t>(dst)) & 15) == 0;
+  size_t lo4 = (lo + 3) & ~size_t(3), hi4 = hi & ~size_t(3);
+  if (!vec || lo4 >= hi4) lo4 = hi4 = hi;  // all scalar
+  for (size_t j = lo + worker; j < lo4; j += workers) dst[j] = src ? src[j] : 0.f;
+  for (size_t j = lo4 / 4 + worker; j < hi4 / 4; j += workers) {
+    reinterpret_cast<float4*>(dst)[j] =
+        src ? reinterpret_cast<const float4*>(src)[j] : make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+  for (size_t j = hi4 + worker; j < hi; j += workers) dst[j] = src ? src[j] : 0.f;
+}
+
+// B8, persistent: as many blocks as fit on the card at once, each staging
+// the scene tables once.  The host sorts the carry live lanes first and
+// passes the length of that prefix in *live (a device int; null: every
+// lane may be alive).  Warps take 32-lane chunks of the prefix from the
+// global counter *next (zero at launch) and run stage_lane on them; a warp
+// that finds the queue empty copies its share of the carry of the lanes
+// past the prefix, which are dead, and zeroes their records.  Each lane's
+// arithmetic is stage_lane's whatever its place, so the result is the
+// per-lane kernel's.
+template <bool kRecords, bool kClustered>
+__global__ void __launch_bounds__(kThreads, min_blocks(kClustered))
+    stage_kernel(const TraceParams P, const float* carry_in, float* carry_out, float* rec,
+                 int start, int k, const int* live, int* next) {
+  extern __shared__ float4 smem4[];
+  const Tables T = stage_tables<kClustered>(P, reinterpret_cast<float*>(smem4));
+  const int n = P.n;
+  const int n_live = live == nullptr ? n : min(max(*live, 0), n);
+  const int lane = threadIdx.x & 31;
+  for (;;) {
+    int base = 0;
+    if (lane == 0) base = atomicAdd(next, 32);
+    base = __shfl_sync(0xffffffffu, base, 0);
+    if (base >= n_live) break;
+    const int i = base + lane;
+    if (i < n_live) stage_lane<kRecords, kClustered>(P, T, carry_in, carry_out, rec, start, k, i);
+  }
+  const size_t worker = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const size_t workers = static_cast<size_t>(gridDim.x) * blockDim.x;
+  for (int r = 0; r < kCarryRows; ++r) {
+    const size_t row = static_cast<size_t>(r) * n;
+    copy_span(carry_in, carry_out, row + n_live, row + n, worker, workers);
+  }
+  if constexpr (kRecords) {
+    for (int r = 0; r < k * kRecRows; ++r) {
+      const size_t row = static_cast<size_t>(r) * n;
+      copy_span(nullptr, rec, row + n_live, row + n, worker, workers);
+    }
+  }
+}
+
 template <bool kClustered>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, min_blocks(kClustered))
     intersect_kernel(const TraceParams P, float* t_out, int* idx_out) {
   extern __shared__ float4 smem4[];
-  const Tables T = stage_tables(P, reinterpret_cast<float*>(smem4));
+  const Tables T = stage_tables<kClustered>(P, reinterpret_cast<float*>(smem4));
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= P.n) return;
   const int n = P.n;
@@ -143,13 +203,36 @@ __global__ void __launch_bounds__(kThreads)
   idx_out[i] = h.idx;
 }
 
-// The tables go to shared memory when they fit in 48 KB (as B1's).
-size_t prepare(TraceParams& P) {
-  const size_t smem =
-      static_cast<size_t>(table_floats(P.n_tri, P.has_vn, P.n_emissive, P.etab_stride)) *
-      sizeof(float);
-  P.use_smem = smem <= static_cast<size_t>(kSmemLimit);
-  return P.use_smem ? smem : 0;
+// Launches `kernel` on blocks of kThreads threads with `dyn` bytes of
+// dynamic shared memory (opted into above 48 KB); returns the cudaError_t.
+template <class K, class... Args>
+int launch(K kernel, int blocks, size_t dyn, void* stream, Args... args) {
+  cudaError_t err = allow_smem(kernel, dyn);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<blocks, kThreads, dyn, static_cast<cudaStream_t>(stream)>>>(args...);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int blocks_for(int n) { return (n + kThreads - 1) / kThreads; }
+
+// B8's persistent launch: as many blocks as fit on the card at once with
+// `dyn` bytes of dynamic shared memory, at most one per kThreads lanes.
+template <class K>
+int launch_persistent(K kernel, size_t dyn, void* stream, const TraceParams& P,
+                      const float* carry_in, float* carry_out, float* rec, int start, int k,
+                      const int* live, int* next) {
+  cudaError_t err = allow_smem(kernel, dyn);
+  int dev = 0, sms = 0, per_sm = 0;
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, dyn);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+  const int blocks = min(per_sm * sms, blocks_for(P.n));
+  kernel<<<blocks, kThreads, dyn, static_cast<cudaStream_t>(stream)>>>(P, carry_in, carry_out, rec,
+                                                                      start, k, live, next);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -161,63 +244,46 @@ extern "C" {
 int ipt_render_fwd(const TraceParams* Pin, float* rad, float* stats, float* rec, void* stream) {
   TraceParams P = *Pin;
   if (P.n <= 0) return 0;
-  const size_t dyn = prepare(P);
-  const int blocks = (P.n + kThreads - 1) / kThreads;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const size_t dyn = smem_tables(P, 0);
+  const int b = blocks_for(P.n);
   if (P.cluster_k) {
-    if (rec == nullptr) {
-      render_fwd_kernel<false, true><<<blocks, kThreads, dyn, s>>>(P, rad, stats, nullptr);
-    } else {
-      render_fwd_kernel<true, true><<<blocks, kThreads, dyn, s>>>(P, rad, stats, rec);
-    }
-  } else if (rec == nullptr) {
-    render_fwd_kernel<false, false><<<blocks, kThreads, dyn, s>>>(P, rad, stats, nullptr);
-  } else {
-    render_fwd_kernel<true, false><<<blocks, kThreads, dyn, s>>>(P, rad, stats, rec);
+    return rec == nullptr
+        ? launch(render_fwd_kernel<false, true>, b, dyn, stream, P, rad, stats, rec)
+        : launch(render_fwd_kernel<true, true>, b, dyn, stream, P, rad, stats, rec);
   }
-  return static_cast<int>(cudaGetLastError());
+  return rec == nullptr
+      ? launch(render_fwd_kernel<false, false>, b, dyn, stream, P, rad, stats, rec)
+      : launch(render_fwd_kernel<true, false>, b, dyn, stream, P, rad, stats, rec);
 }
 
 // B7: the initial carry (kCarryRows, n) of the rays of *Pin.
 int ipt_init_tile(const TraceParams* Pin, float* carry, void* stream) {
   TraceParams P = *Pin;
   if (P.n <= 0) return 0;
-  const size_t dyn = prepare(P);
-  const int blocks = (P.n + kThreads - 1) / kThreads;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (P.cluster_k) {
-    init_kernel<true><<<blocks, kThreads, dyn, s>>>(P, carry);
-  } else {
-    init_kernel<false><<<blocks, kThreads, dyn, s>>>(P, carry);
-  }
-  return static_cast<int>(cudaGetLastError());
+  const size_t dyn = smem_tables(P, 0);
+  const int b = blocks_for(P.n);
+  return P.cluster_k ? launch(init_kernel<true>, b, dyn, stream, P, carry)
+                     : launch(init_kernel<false>, b, dyn, stream, P, carry);
 }
 
 // B8: at most k bounces from global bounce `start` of the lanes of
 // carry_in (kCarryRows, n) into carry_out, and records (k * 16, n) unless
 // rec is null.  P.uniforms, when not null, holds the stage's k * 8 rows.
+// *live (device; null: n) bounds the lanes that may be alive, all of them
+// first; *next is a device int set to 0, the kernel's work counter.
 int ipt_stage_tile(const TraceParams* Pin, const float* carry_in, float* carry_out, float* rec,
-                   int start, int k, void* stream) {
+                   int start, int k, const int* live, int* next, void* stream) {
   TraceParams P = *Pin;
   if (P.n <= 0) return 0;
-  const size_t dyn = prepare(P);
-  const int blocks = (P.n + kThreads - 1) / kThreads;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const size_t dyn = smem_tables(P, 0);
+  auto go = [&](auto kernel) {
+    return launch_persistent(kernel, dyn, stream, P, carry_in, carry_out, rec, start, k, live,
+                             next);
+  };
   if (P.cluster_k) {
-    if (rec == nullptr) {
-      stage_kernel<false, true><<<blocks, kThreads, dyn, s>>>(P, carry_in, carry_out, nullptr,
-                                                             start, k);
-    } else {
-      stage_kernel<true, true><<<blocks, kThreads, dyn, s>>>(P, carry_in, carry_out, rec, start,
-                                                            k);
-    }
-  } else if (rec == nullptr) {
-    stage_kernel<false, false><<<blocks, kThreads, dyn, s>>>(P, carry_in, carry_out, nullptr,
-                                                            start, k);
-  } else {
-    stage_kernel<true, false><<<blocks, kThreads, dyn, s>>>(P, carry_in, carry_out, rec, start, k);
+    return rec == nullptr ? go(stage_kernel<false, true>) : go(stage_kernel<true, true>);
   }
-  return static_cast<int>(cudaGetLastError());
+  return rec == nullptr ? go(stage_kernel<false, false>) : go(stage_kernel<true, false>);
 }
 
 // B10: t (n,) and the internal triangle index (n,) of the closest hit of
@@ -225,15 +291,10 @@ int ipt_stage_tile(const TraceParams* Pin, const float* carry_in, float* carry_o
 int ipt_intersect_tile(const TraceParams* Pin, float* t, int* idx, void* stream) {
   TraceParams P = *Pin;
   if (P.n <= 0) return 0;
-  const size_t dyn = prepare(P);
-  const int blocks = (P.n + kThreads - 1) / kThreads;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (P.cluster_k) {
-    intersect_kernel<true><<<blocks, kThreads, dyn, s>>>(P, t, idx);
-  } else {
-    intersect_kernel<false><<<blocks, kThreads, dyn, s>>>(P, t, idx);
-  }
-  return static_cast<int>(cudaGetLastError());
+  const size_t dyn = smem_tables(P, 0);
+  const int b = blocks_for(P.n);
+  return P.cluster_k ? launch(intersect_kernel<true>, b, dyn, stream, P, t, idx)
+                     : launch(intersect_kernel<false>, b, dyn, stream, P, t, idx);
 }
 
 const char* ipt_error_string(int code) {

@@ -108,7 +108,9 @@ class KernelTables:
     no_spec: bool
     perm: Optional[torch.Tensor] = None  # internal -> global, None = global order
     cab: Optional[torch.Tensor] = None  # (C, 8) cluster boxes
+    gab: Optional[torch.Tensor] = None  # (G, 8) boxes of the groups of clusters 1..
     cluster_k: int = 0  # 0 = dense sweep
+    group: int = 0  # clusters per group box
 
     @property
     def padded_tri(self) -> int:
@@ -143,7 +145,9 @@ def pack_tables(scene: SceneData, materials: torch.Tensor, cfg=None) -> KernelTa
         no_spec=s.specular_idx.shape[0] == 0,
         perm=view.perm,
         cab=view.cab,
+        gab=view.gab,
         cluster_k=view.cluster_k,
+        group=view.group,
     )
 
 
@@ -352,11 +356,12 @@ class _TraceParams(ctypes.Structure):
 
     _fields_ = (
         [(f, ctypes.c_void_p) for f in ("p", "d", "alive", "orig", "uniforms", "planes",
-                                         "table", "vtab", "etab", "cdf", "cab")]
+                                         "table", "vtab", "etab", "cdf", "cab", "gab")]
         + [("k0", ctypes.c_uint32), ("k1", ctypes.c_uint32)]
         + [(f, ctypes.c_int) for f in ("n", "n_tri", "n_emissive", "etab_stride", "has_vn",
                                         "no_spec", "quirks", "fused", "max_bounces",
-                                        "use_smem", "cluster_k", "n_clusters")]
+                                        "use_smem", "cluster_k", "n_clusters",
+                                        "cluster_group", "n_groups")]
         + [(f, ctypes.c_float) for f in ("p_rr", "min_dot", "epsilon", "two_pi", "inv_pi",
                                           "inv_2pi", "cos_scale", "inv_p_rr")]
     )
@@ -375,8 +380,8 @@ def _library(name: str):
         lib.ipt_render_fwd.restype = ci
         lib.ipt_init_tile.argtypes = [params, vp, vp]  # carry stream
         lib.ipt_init_tile.restype = ci
-        # carry_in carry_out rec start k stream
-        lib.ipt_stage_tile.argtypes = [params, vp, vp, vp, ci, ci, vp]
+        # carry_in carry_out rec start k live next stream
+        lib.ipt_stage_tile.argtypes = [params, vp, vp, vp, ci, ci, vp, vp, vp]
         lib.ipt_stage_tile.restype = ci
         lib.ipt_intersect_tile.argtypes = [params, vp, vp, vp]  # t idx stream
         lib.ipt_intersect_tile.restype = ci
@@ -417,6 +422,10 @@ def _trace_params(materials, scene, cfg, tabs, p, d=None, alive=None, uniforms=N
     """The kernels' TraceParams (pointers into the caller's tensors, which
     must outlive the launch) and the tables they point to (packed here
     under cfg when `tabs` is None).  The lanes are p's columns."""
+    if not (cfg.epsilon > 0 and cfg.min_dot > 0 and cfg.epsilon * cfg.min_dot >= 1e-30):
+        # The range of render_common.cuh sweep()'s divide-free pre-test.
+        raise ValueError("the kernels need epsilon > 0, min_dot > 0 and epsilon * min_dot >= "
+                         f"1e-30, got epsilon {cfg.epsilon}, min_dot {cfg.min_dot}")
     if tabs is None:
         tabs = pack_tables(scene, materials, cfg)
     if tabs.planes.device != p.device:
@@ -428,12 +437,14 @@ def _trace_params(materials, scene, cfg, tabs, p, d=None, alive=None, uniforms=N
     params = _TraceParams(
         p=ptr(p), d=ptr(d), alive=ptr(alive), orig=ptr(orig), uniforms=ptr(uniforms),
         planes=ptr(tabs.planes), table=ptr(tabs.table), vtab=ptr(tabs.vtab),
-        etab=ptr(tabs.etab), cdf=ptr(tabs.cdf), cab=ptr(tabs.cab), k0=k0, k1=k1,
+        etab=ptr(tabs.etab), cdf=ptr(tabs.cdf), cab=ptr(tabs.cab), gab=ptr(tabs.gab),
+        k0=k0, k1=k1,
         n=p.shape[1], n_tri=scene.n_tri, n_emissive=scene.n_emissive,
         etab_stride=tabs.etab.shape[1], has_vn=int(tabs.vtab is not None),
         no_spec=int(tabs.no_spec), quirks=int(cfg.reference_quirks), fused=int(fused),
         max_bounces=cfg.max_bounces, use_smem=0, cluster_k=ck,
-        n_clusters=-(-scene.n_tri // ck) if ck else 0, p_rr=cfg.p_rr, min_dot=cfg.min_dot,
+        n_clusters=-(-scene.n_tri // ck) if ck else 0, cluster_group=tabs.group,
+        n_groups=0 if tabs.gab is None else tabs.gab.shape[0], p_rr=cfg.p_rr, min_dot=cfg.min_dot,
         epsilon=cfg.epsilon, two_pi=TWO_PI, inv_pi=INV_PI, inv_2pi=INV_2PI,
         cos_scale=math.pi / cfg.p_rr, inv_p_rr=1.0 / cfg.p_rr,
     )
@@ -466,8 +477,8 @@ def sweep(view: KernelView, cfg, o: torch.Tensor, dirs: torch.Tensor) -> Interse
     sweep on clustered views, else the dense one."""
     planes = plane_rows(view.scene)
     if view.cluster_k:
-        return intersect_clustered(planes, view.cab, view.cluster_k, o, dirs, cfg.min_dot,
-                                   cfg.epsilon)
+        return intersect_clustered(planes, view.cab, view.gab, view.cluster_k, view.group, o, dirs,
+                                   cfg.min_dot, cfg.epsilon)
     return intersect_planes(planes, o, dirs, cfg.min_dot, cfg.epsilon)
 
 

@@ -107,13 +107,20 @@ def stage_tile(
     with_rec: bool = False,
     *,
     tables: Optional[KernelTables] = None,
+    live: Optional[torch.Tensor] = None,
 ):
     """B8: at most k bounces of every live lane of `carry` from global
-    bounce `start`.  Returns the carry out, or (carry out, records (k*16,
+    bounce `start`.  `live`, when given, is a (1,) int32 tensor on the
+    carry's device: every lane at or past column live[0] is dead (the
+    staged orchestration sorts live lanes first and counts them on the
+    device), so the kernel only copies those lanes; the result does not
+    depend on it.  Returns the carry out, or (carry out, records (k*16,
     n)) when with_rec."""
     n = carry.shape[1]
     _check(carry, {"carry": (carry, (CARRY_ROWS, n), torch.float32),
                    "orig": (orig, (1, n), torch.int32)})
+    if live is not None:
+        _check(carry, {"live": (live, (1,), torch.int32)})
     _check_rng(carry, uniforms, keys, k * 8)
     if not _on_card(carry, scene, materials):
         return stage_tile_plain(materials, scene, cfg, carry, orig, start, k, uniforms, keys,
@@ -125,9 +132,11 @@ def stage_tile(
     out = torch.empty_like(carry)
     rec = (torch.empty((k * REC_ROWS, n), dtype=torch.float32, device=carry.device)
            if with_rec else None)
+    work = torch.zeros(1, dtype=torch.int32, device=carry.device)  # the kernel's work counter
     with torch.cuda.device(carry.device):
         err = lib.ipt_stage_tile(ctypes.byref(params), carry.data_ptr(), out.data_ptr(),
                                  None if rec is None else rec.data_ptr(), start, k,
+                                 None if live is None else live.data_ptr(), work.data_ptr(),
                                  torch.cuda.current_stream(carry.device).cuda_stream)
     _raise_on(lib, err, "render_fwd stage_tile")
     stage_tile.launches += 1
@@ -173,8 +182,9 @@ def init_tile_plain(materials, scene, cfg, p, d, alive) -> torch.Tensor:
 
 
 def stage_tile_plain(materials, scene, cfg, carry, orig, start, k, uniforms=None, keys=None,
-                     with_rec=False):
-    """B8's plain version: render_kernel.run_bounces on the carry's lanes."""
+                     with_rec=False, live=None):
+    """B8's plain version: render_kernel.run_bounces on the carry's lanes
+    (`live` only bounds where the kernel looks for live lanes)."""
     view = kernel_view(scene, cfg)
     lanes, rec = run_bounces(view, to_kernel_order(materials, view), cfg,
                              Lanes.from_carry(carry), orig, start, k, uniforms, keys, with_rec)

@@ -223,8 +223,10 @@ def _staged_launch(kern, materials, scene, cfg, a, base: int, bins, with_rec: bo
         orig = orig[:, order].contiguous()
         local = orig[0].long() - base
         u_s = None if u is None else u[s * k * 8 : (s + 1) * k * 8][:, local].contiguous()
+        # The live lanes come first; B8 takes their count on the device.
+        live = (carry[CAR_ALIVE] > 0).sum(dtype=torch.int32).reshape(1)
         out = kern.stage(materials, scene, cfg, carry, orig, s * k, k, uniforms=u_s,
-                         keys=a["keys"], with_rec=with_rec)
+                         keys=a["keys"], with_rec=with_rec, live=live)
         if with_rec:
             carry, rec = out
             stages.append(_StageRecords(rec, order, local))

@@ -4,13 +4,22 @@ CPU, against the JAX package.
   * cluster_k_for, kernel_perm and the packed tables (internal padded
     triangle count, plane rows, material table, emitter table with internal
     emitter indices, cluster boxes) equal JAX's _pack_tables exactly, on
-    the generated 1298-triangle large scene at cluster_k 0 (auto) and 128
-    and on scene 0 with CLUSTER_MIN_TP set to 8 in both packages and
-    cluster_k=8.
-  * The plain clustered sweep equals the dense sweep over the same
-    (permuted) planes bit for bit, on random rays with zero direction
-    components and origins inside cluster boxes.
+    the generated 1298-triangle large scene at cluster_k 768 (JAX's auto
+    width) and 128 and on scene 0 with CLUSTER_MIN_TP set to 8 in both
+    packages and cluster_k=8.
+  * The plain clustered sweep, two-level (group boxes, then cluster
+    boxes), equals the dense sweep over the same (permuted) planes bit for
+    bit, on random rays with zero direction components and origins inside
+    cluster boxes, at several widths and group sizes; every group box
+    contains its clusters' boxes; group_boxes equals a direct computation.
+  * A float32 mirror of the kernels' divide-free pre-test
+    (render_common.cuh sweep) never rejects a pair that the exact test
+    accepts, on adversarial values next to eps, t_best and min_dot; the
+    kernels' wrappers refuse epsilon and min_dot outside its range.
 """
+
+import os
+import re
 
 import numpy as np
 import pytest
@@ -30,7 +39,7 @@ from inverse_path_tracer_torch.ops.intersect import (
     intersect_planes,
     plane_rows,
 )
-from inverse_path_tracer_torch.ops.kernels import clusters
+from inverse_path_tracer_torch.ops.kernels import clusters, render_kernel
 from inverse_path_tracer_torch.ops.kernels.render_kernel import (
     intersect_tile,
     intersect_tile_plain,
@@ -86,15 +95,17 @@ def assert_tables_equal(js, ts, jcfg, tcfg):
     np.testing.assert_array_equal(tabs.etab[:, 15].numpy(), inv[ts.emissive_idx.numpy()])
 
 
-@pytest.mark.parametrize("cluster_k,vertex_normals", [(0, True), (128, True), (0, False)])
+@pytest.mark.parametrize("cluster_k,vertex_normals", [(768, True), (128, True), (768, False)])
 def test_tables_match_jax_on_the_large_scene(tmp_path, cluster_k, vertex_normals):
     js = jax_large_scene(tmp_path, vertex_normals)
     ts = large_scene(vertex_normals=vertex_normals)
     assert ts.n_tri == 1298 and ts.has_vertex_normals == vertex_normals
     np.testing.assert_array_equal(ts.vertices.numpy(), np.asarray(js.vertices))
+    if cluster_k == 768:  # JAX's auto width on this scene
+        assert jrk.cluster_k_for(ts.n_tri, jipt.RenderConfig()) == 768
     jcfg = jipt.RenderConfig(cluster_k=cluster_k)
     tcfg = RenderConfig(cluster_k=cluster_k)
-    assert clusters.cluster_k_for(ts.n_tri, tcfg) == (768 if cluster_k == 0 else 128)
+    assert clusters.cluster_k_for(ts.n_tri, tcfg) == cluster_k
     assert_tables_equal(js, ts, jcfg, tcfg)
 
 
@@ -110,9 +121,10 @@ def test_tables_match_jax_on_a_small_clustered_scene(small_clusters):
 def test_cluster_policy():
     cfg = RenderConfig()
     assert clusters.cluster_k_for(30, cfg) == 0 and clusters.cluster_k_for(504, cfg) == 0
-    assert clusters.cluster_k_for(505, cfg) == 256  # pads to 512
-    assert clusters.cluster_k_for(1298, cfg) == 768
-    assert clusters.cluster_k_for(4000, cfg) == 1024
+    # The auto width of this card on every clustered scene (pads to 512 and up).
+    for n_tri in (505, 1298, 4000):
+        assert clusters.cluster_k_for(n_tri, cfg) == clusters.CLUSTER_AUTO_K == 16
+    assert clusters.cluster_k_for(1298, cfg.with_(cluster_k=768)) == 768
     assert clusters.kernel_perm(large_scene(), cfg.with_(tri_order="file")) is None
     with pytest.raises(ValueError, match="tri_order"):
         RenderConfig(tri_order="z")
@@ -140,7 +152,7 @@ def random_rays(view, n, seed):
     return torch.from_numpy(o.astype(np.float32)), torch.from_numpy(d.astype(np.float32))
 
 
-@pytest.mark.parametrize("vertex_normals,cluster_k", [(False, 0), (True, 0), (False, 32)])
+@pytest.mark.parametrize("vertex_normals,cluster_k", [(False, 0), (True, 0), (False, 768)])
 def test_clustered_sweep_equals_dense(vertex_normals, cluster_k):
     scene = large_scene(vertex_normals=vertex_normals)
     cfg = RenderConfig(cluster_k=cluster_k)
@@ -148,14 +160,16 @@ def test_clustered_sweep_equals_dense(vertex_normals, cluster_k):
     planes = plane_rows(view.scene)
     p, d = random_rays(view, 3000, seed=cluster_k + vertex_normals)
     with counting_sweeps() as counts:
-        got = intersect_clustered(planes, view.cab, view.cluster_k, p, d, cfg.min_dot,
-                                  cfg.epsilon)
+        got = intersect_clustered(planes, view.cab, view.gab, view.cluster_k, view.group, p, d,
+                                  cfg.min_dot, cfg.epsilon)
     want = intersect_planes(planes, p, d, cfg.min_dot, cfg.epsilon)
     assert torch.equal(got.t, want.t) and torch.equal(got.tri, want.tri)
     assert torch.equal(got.point, want.point) and torch.equal(got.hit, want.hit)
     assert 0.3 < float(want.hit.float().mean()) < 1.0
-    # Some clusters were skipped, and fewer pairs swept than the dense sweep.
-    assert 0 < counts["entered"] < counts["tests"]
+    # Some groups and clusters were skipped, and fewer pairs swept than the
+    # dense sweep.
+    assert 0 < counts["group_entered"] < counts["group_tests"]
+    assert 0 < counts["entered"] <= counts["tests"]
     assert counts["pairs"] < p.shape[0] * scene.n_tri
     # B10's wrapper on CPU tensors is its plain version and launches nothing.
     before = intersect_tile.launches
@@ -179,3 +193,115 @@ def test_permuted_view_is_the_same_scene():
     for c in range(view.cab.shape[0]):
         v = view.scene.vertices[c * ck : (c + 1) * ck].reshape(-1, 3)
         assert bool((v >= view.cab[c, 0:3]).all() and (v <= view.cab[c, 3:6]).all())
+
+
+@pytest.mark.parametrize("vertex_normals,cluster_k,group", [
+    (False, 16, 8), (True, 32, 8), (False, 32, 3), (True, 64, 1), (False, 128, 2),
+    (True, 16, 64)])
+def test_two_level_sweep_equals_dense(vertex_normals, cluster_k, group):
+    scene = large_scene(vertex_normals=vertex_normals)
+    view = clusters.kernel_view(scene, RenderConfig(cluster_k=cluster_k))
+    cab = view.cab
+    gab = clusters.group_boxes(cab, group)
+    n_clusters = cab.shape[0]
+    assert gab.shape == (-(-(n_clusters - 1) // group), 8)
+    for g in range(gab.shape[0]):  # each group box holds its clusters' boxes
+        member = cab[1 + g * group : 1 + (g + 1) * group]
+        assert bool((gab[g, 0:3] <= member[:, 0:3]).all() and (gab[g, 3:6] >= member[:, 3:6]).all())
+    planes = plane_rows(view.scene)
+    p, d = random_rays(view, 2000, seed=cluster_k + group)
+    with counting_sweeps() as counts:
+        got = intersect_clustered(planes, cab, gab, cluster_k, group, p, d)
+    want = intersect_planes(planes, p, d)
+    assert torch.equal(got.t, want.t) and torch.equal(got.tri, want.tri)
+    assert torch.equal(got.point, want.point) and torch.equal(got.hit, want.hit)
+    assert counts["group_tests"] == p.shape[0] * gab.shape[0]
+    assert 0 < counts["group_entered"] <= counts["group_tests"]
+    assert counts["pairs"] < p.shape[0] * scene.n_tri
+
+
+@pytest.mark.parametrize("group", [1, 3, 8])
+def test_group_boxes_match_a_direct_computation(group):
+    g = np.random.default_rng(group)
+    lo = g.normal(size=(11, 3)).astype(np.float32)
+    hi = lo + g.random((11, 3)).astype(np.float32)
+    cab = torch.from_numpy(np.concatenate([lo, hi, np.zeros((11, 2), np.float32)], axis=1))
+    got = clusters.group_boxes(cab, group).numpy()
+    want = []
+    for first in range(1, 11, group):  # cluster 0 is in no group
+        rows = slice(first, min(first + group, 11))
+        want.append(np.concatenate([lo[rows].min(0), hi[rows].max(0), np.zeros(2, np.float32)]))
+    np.testing.assert_array_equal(got, np.stack(want))
+
+
+def pretest_constants():
+    """The relative margins of render_common.cuh's divide-free pre-test."""
+    path = os.path.join(os.path.dirname(clusters.__file__), "render_common.cuh")
+    src = open(path).read()
+    return [np.float32(re.search(rf"{name} = ([0-9.e+-]+)f;", src).group(1))
+            for name in ("kPretestLo", "kPretestHi")]
+
+
+def pretest(a0, b0, t_best, min_dot, eps):
+    """A float32 mirror of the kernels' pre-test (render_common.cuh sweep):
+    with s = |b0| and a = a0 signed so that the exact t = a0 / -b0 is a / s,
+    keep a pair only where s >= min_dot, a >= (eps * lo) * s and a <=
+    (t_best * s) * hi; products only, each rounded once."""
+    lo, hi = (torch.tensor(c) for c in pretest_constants())
+    s = b0.abs()
+    a = torch.where(b0 < 0, a0, -a0)
+    return (s >= min_dot) & (a >= (eps * lo) * s) & (a <= (t_best * s) * hi)
+
+
+def exact_test(a0, b0, t_best, min_dot, eps):
+    t = a0 / (-b0)
+    return (b0.abs() >= min_dot) & (t >= eps) & (t < t_best)
+
+
+CASES = ["near_eps", "near_t_best", "near_min_dot", "random", "smallest_eps"]
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_pretest_never_rejects_an_accepted_pair(case):
+    g = np.random.default_rng(CASES.index(case))
+    n = 400_000
+    f32 = lambda x: torch.from_numpy(np.asarray(x, dtype=np.float32))
+    # smallest_eps: eps * min_dot at the least value the kernels accept.
+    eps = f32(2e-26 if case == "smallest_eps" else 1e-2)
+    min_dot = f32(1e-4)
+    b0 = f32(g.choice([-1.0, 1.0], n) * 10.0 ** g.uniform(-4.5, 1, n))
+    t_best = f32(10.0 ** g.uniform(-2.5, 3, n))
+    t_best[: n // 50] = float("inf")
+    if case in ("near_eps", "smallest_eps"):
+        target = eps.expand(n)
+    elif case == "near_t_best":
+        target = torch.where(torch.isinf(t_best), f32(1e3).expand(n), t_best)
+    else:
+        target = f32(10.0 ** g.uniform(-3, 3, n))
+    if case == "near_min_dot":
+        b0 = f32(g.choice([-1.0, 1.0], n)) * min_dot * f32(1 + g.integers(-4, 5, n) * 2.0 ** -23)
+    # a0 such that t = a0 / -b0 lands on and a few ulps around the target.
+    a0 = target * (-b0)
+    steps = f32(g.integers(-6, 7, n)).to(torch.int32)
+    a0 = f32(np.asarray(a0.numpy().view(np.int32) + steps.numpy(), np.int32).view(np.float32))
+    accepted = exact_test(a0, b0, t_best, min_dot, eps)
+    kept = pretest(a0, b0, t_best, min_dot, eps)
+    assert int(accepted.sum()) > n // 20
+    assert not bool((accepted & ~kept).any())
+    # The pre-test is a real filter: most rejected pairs are rejected by it.
+    if case == "random":
+        assert int((~kept).sum()) > int((~accepted).sum()) // 2
+
+
+@pytest.mark.parametrize("epsilon,min_dot", [(0.0, 1e-4), (-1e-2, 1e-4), (1e-2, 0.0),
+                                             (1e-28, 1e-4)])
+def test_kernels_refuse_values_outside_the_pretest_range(epsilon, min_dot):
+    """The kernels' wrappers refuse epsilon and min_dot outside the range
+    where the pre-test is exact (render_kernel.py _trace_params)."""
+    scene = large_scene(vertex_normals=False)
+    cfg = RenderConfig(epsilon=epsilon, min_dot=min_dot)
+    p = torch.zeros((3, 4))
+    with pytest.raises(ValueError, match="epsilon > 0, min_dot > 0"):
+        render_kernel._trace_params(scene.diffuse, scene, cfg, None, p, p)
+    params, _ = render_kernel._trace_params(scene.diffuse, scene, RenderConfig(), None, p, p)
+    assert params.cluster_k == clusters.CLUSTER_AUTO_K and params.n_groups > 0

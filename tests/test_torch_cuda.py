@@ -281,11 +281,14 @@ def assert_carry_equal(got, want):
     torch.testing.assert_close(got[3:6, live], want[3:6, live], rtol=RTOL, atol=ATOL)
 
 
-@pytest.mark.parametrize("mode", ["external", "fused"])
-def test_staged_kernels_match_plain(card, mode):
-    """B7, B8 (stage 0 and a partial last stage, with and without records),
-    B9 and B10 against their plain versions on the flat large scene."""
+@pytest.mark.parametrize("mode,cluster_k", [("external", 0), ("fused", 0), ("fused", 768)])
+def test_staged_kernels_match_plain(card, mode, cluster_k):
+    """B7, B8 (stage 0 and a partial last stage, with and without records,
+    with and without the live-lane count), B9 and B10 against their plain
+    versions on the flat large scene, at the auto cluster width and at JAX's
+    layout (768)."""
     from inverse_path_tracer_torch import large_scene
+    from inverse_path_tracer_torch.ops.kernels import clusters
     from inverse_path_tracer_torch.ops.kernels.render_kernel import (
         intersect_tile,
         intersect_tile_plain,
@@ -301,11 +304,12 @@ def test_staged_kernels_match_plain(card, mode):
     )
 
     scene = large_scene(card, vertex_normals=False)
-    cfg = RenderConfig(width=32, height=32, spp=4, max_bounces=6, stage_bounces=4)
+    cfg = RenderConfig(width=32, height=32, spp=4, max_bounces=6, stage_bounces=4,
+                       cluster_k=cluster_k)
     args = tile_args(scene, cfg, card, mode)
     n, k = cfg.n_samples, 4
     tabs = pack_tables(scene, scene.diffuse, cfg)
-    assert tabs.cluster_k == 768 and tabs.perm is not None
+    assert tabs.cluster_k == (cluster_k or clusters.CLUSTER_AUTO_K) and tabs.perm is not None
     mats = scene.diffuse
     before = (init_tile.launches, stage_tile.launches, stage_reverse_tile.launches,
               intersect_tile.launches)
@@ -324,6 +328,14 @@ def test_staged_kernels_match_plain(card, mode):
         assert_carry_equal(out, out_p)
         assert torch.equal(rec, rec_p)
         assert torch.equal(stage_tile(*st, tables=tabs), out)
+        # Live lanes first and their count on the device: the same stage.
+        order = torch.sort((carry[17] <= 0).to(torch.int32), stable=True).indices
+        live = (carry[17] > 0).sum(dtype=torch.int32).reshape(1)
+        st_sorted = (mats, scene, cfg, carry[:, order].contiguous(),
+                     args["orig"][:, order].contiguous(), s * k, k,
+                     None if u_s is None else u_s[:, order].contiguous(), args.get("keys"))
+        out_l, rec_l = stage_tile(*st_sorted, with_rec=True, tables=tabs, live=live)
+        assert torch.equal(out_l, out[:, order]) and torch.equal(rec_l, rec[:, order])
         dm, suf_out = stage_reverse_tile(scene.n_tri, cfg, k, rec, g, suf)
         dm_p, suf_p = stage_reverse_tile_plain(scene.n_tri, cfg, k, rec, g, suf)
         assert_grad_close(dm, dm_p)
@@ -334,8 +346,8 @@ def test_staged_kernels_match_plain(card, mode):
     assert torch.equal(t, t_p) and torch.equal(idx, idx_p)
     after = (init_tile.launches, stage_tile.launches, stage_reverse_tile.launches,
              intersect_tile.launches)
-    # B10 ran inside B7 and the four B8 launches, and once alone.
-    assert tuple(a - b for a, b in zip(after, before)) == (1, 4, 2, 6)
+    # B10 ran inside B7 and the six B8 launches, and once alone.
+    assert tuple(a - b for a, b in zip(after, before)) == (1, 6, 2, 8)
 
 
 def test_staged_render_and_gradients_on_the_card(card):

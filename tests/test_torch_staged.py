@@ -292,10 +292,12 @@ def test_large_scene_staged_render_matches_jax(tmp_path):
 
     js = jax_large_scene(tmp_path, vertex_normals=False)
     ts = large_scene(vertex_normals=False)
-    shape = dict(width=4, height=4, spp=2, max_bounces=4)
+    # JAX's auto width (768) on both sides.
+    shape = dict(width=4, height=4, spp=2, max_bounces=4, cluster_k=768)
     jcfg = jipt.RenderConfig(tile_size=32, backend="pallas", rng="external", fast_recip=False,
                              **shape)
     assert jfwd._use_staged(jcfg, js)
+    assert jrk.cluster_k_for(js.n_tri, jcfg.with_(cluster_k=0)) == 768
     key = jax.random.PRNGKey(2)
     want, want_st = jfwd.render_samples(js.diffuse, js, key, jcfg)
     p, d, u = jax_rays_and_uniforms(js, jcfg, key)
