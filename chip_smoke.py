@@ -7,12 +7,14 @@ Phases, each failing loudly (any failure exits nonzero):
   1. the card's name and power limit (nvidia-smi);
   2. build every CUDA kernel from the sources here (render_fwd.cu: B1, B3,
      B7, B8 and B10's own launch; render_bwd.cu: B2, B4 and B9; inverse.cu:
-     B5 and B6; every kernel sweeps through B10 in render_common.cuh), one
+     B5 and B6's two sinks; every kernel sweeps through B10 in
+     render_common.cuh), one
      nvcc per source, in parallel;
   3. each kernel against its plain PyTorch version on the card, on the
      scene-0 fixture at 64x64/4 spp/8 bounces: external uniforms with quirks
      on and off, the fused RNG, a specular (Ks > 0) variant and a small
-     vertex-normal mesh.  Radiance and records rtol 1e-4 / atol 1e-5 and
+     vertex-normal mesh (242 triangles: clustered, then again with the
+     dense sweep, CLUSTER_MIN_TP raised).  Radiance and records rtol 1e-4 / atol 1e-5 and
      equal ray counts; B3's radiance and counts equal B1's; gradients rtol
      1e-4 with an absolute floor of 1e-6 of the largest entry (the kernels
      and the plain one-hot contraction sum in different orders); the
@@ -40,14 +42,19 @@ Phases, each failing loudly (any failure exits nonzero):
      (tests/test_utils.py:66-71); ms per step;
  10. per-kernel timing at the main path's launch shape beside its bound and
      its plain version;
- 11. B5 (dense edge grid) and B6 (edge records) against their plain
-     versions at 64x64/4 spp/8 bounces: scene 0 and the specular variant
-     (B5 and B6) and the vertex-normal scene (B6), external uniforms and the
-     fused RNG.  Grids rtol 1e-4 with an absolute floor of 1e-6 of the
-     largest entry (shared-memory atomics add in no fixed order) and equal
-     visit counts; records: the hit and nee_ok rows equal, the other rows
-     within rtol 1e-4 / atol 1e-5 where their mask is set; B5's grid against
-     B6's records reduced, rtol 1e-4;
+ 11. B5 (dense edge grid) and B6 (edge records, and the global-grid sink)
+     against their plain versions at 64x64/4 spp/8 bounces: scene 0 and
+     the specular variant (B5 and B6), the vertex-normal scene (B6;
+     clustered, and dense as in phase 3) and the large scene (B6,
+     clustered), external uniforms and the fused RNG.  Grids against their
+     plain versions rtol 1e-4 with an absolute floor of 1e-6 of the largest
+     entry (atomics add in no fixed order) and equal visit counts; records:
+     the hit and nee_ok rows equal, the other rows within rtol 1e-4 / atol
+     1e-5 where their mask is set; B5's grid against B6's records reduced by
+     grids_from_edge_records, the same tolerance; B6's float64 global grid
+     against them within rtol 1e-9 and a floor of 1e-12 of the largest
+     entry (GRID64_RTOL: the same float32 quantities, float64 sums in
+     another order), with B5's float32 grid's reading at that measure;
  12. the extraction main path at the reference dataset configuration: scene
      0 at 500x500/100 spp/16 bounces, fused RNG, extract_graph through B5
      (24 launches of 2^20 samples): 1 warm-up and 3 timed runs, rays/s, a
@@ -56,15 +63,19 @@ Phases, each failing loudly (any failure exits nonzero):
      within 0.03 of artifacts/exp100/data.npz[0], and gcn0_params.npz on the
      port's graph predicting Kd with mean |error| < 0.05;
  13. the vertex-normal scene (242 triangles) extracted at the same
-     configuration through B6 and the records reduction: timed once, no
-     NaN, visited rows summing to 1;
+     configuration through B6's global-grid sink: no launch of the records
+     sink, no NaN, visited rows summing to 1, 1 warm-up and 3 timed runs, a
+     profile with no aten::nonzero and B6's share of the device time.  No
+     main path runs B6's records sink: its launch count is 0, and phase 15
+     holds it against its plain version;
  14. train_gcn from a fresh init on the port's scene-0 graph (2000 Adam
      steps at lr 1e-4; last L1 < first), then render_with_materials with
      gcn0's prediction at 500x500/100 spp and its PSNR against the target;
- 15. B5 at the first 2^20-ray launch of scene 0's extraction and B6 at the
-     first of the vertex-normal scene's (the path that runs each), each
-     against its plain version on those inputs (16 bounces), timed beside
-     its plain version and its bound;
+ 15. B5 at the first 2^20-ray launch of scene 0's extraction and B6 (both
+     sinks) at the first of the vertex-normal scene's, B5 and the records
+     against their plain versions and the global grid against the records
+     reduced on those inputs (16 bounces), each timed beside its plain
+     version and its bound;
  16. the large scene (assets.large_scene: the box plus a 1280-triangle
      sphere, 1298 triangles, clustered at the auto width) at 64x64/4 spp/8
      bounces, fused RNG and external uniforms: B7, B8 (stages 0 and 1,
@@ -78,10 +89,11 @@ Phases, each failing loudly (any failure exits nonzero):
      3840-triangle sphere), so that the clustered kernels read their planes
      through L1: B1, B7 and B8 (both stages, per lane and with the live-lane
      count) against their plain versions, bit for bit;
- 17. clustered B1-B4 and B6 on the flat large scene against the plain
+ 17. clustered B1-B4 and B6 (both sinks) on the flat large scene against the plain
      versions of the dense sweep in global order (radiance, counts and
      records equal, triangle rows mapped back; gradients and grids within
-     their tolerances), and B5 with clusters of 8 on scene 0;
+     their tolerances, the global grid within phase 11's float64 one), and
+     B5 with clusters of 8 on scene 0;
  18. the large-scene main path, the vertex-normal scene at 512x512/64
      spp/16 bounces, fused RNG, wavefront "auto" (staged): render_samples
      with the launches of B7, B8 and B10 (one warm-up, 3 timed runs, rays/s,
@@ -94,8 +106,7 @@ Phases, each failing loudly (any failure exits nonzero):
  19. the finite-difference gate of phase 8 on the large vertex-normal scene
      through the staged gradient;
  20. the large vertex-normal scene extracted at 500x500/100 spp/16 bounces
-     through clustered B6 and the records reduction: timed, no NaN, visited
-     rows summing to 1;
+     through clustered B6's global-grid sink, as phase 13;
  21. B7, B8 (stages 0 to 3, with the live-lane count) and B9 at the first
      2^20-ray launch of the large render, each against its plain version
      there and timed beside its bound (bounds count the pairs and box tests
@@ -103,8 +114,8 @@ Phases, each failing loudly (any failure exits nonzero):
      clustered tables at the auto
      width and at JAX's 768 against dense tables, with the (ray, group) and
      (ray, cluster) box tests and the shares that entered; clustered B2, B3
-     on that launch and clustered B6 on the first launch of the large
-     extraction, timed; ptxas's registers and spills of the clustered
+     on that launch and clustered B6 (both sinks) on the first launch of the
+     large extraction, timed; ptxas's registers and spills of the clustered
      kernels.
 
 The kernels' JSON object, then the card's name and power limit, then, last,
@@ -113,6 +124,7 @@ The kernels' JSON object, then the card's name and power limit, then, last,
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -158,6 +170,7 @@ KERNELS = {
                            "inverse_path_tracer_tpu/ops/pallas/render_kernel.py:1640"),
     "inverse_grid": ("inverse.cu", "inverse_path_tracer_tpu/ops/pallas/inverse_kernel.py:271"),
     "inverse_rec": ("inverse.cu", "inverse_path_tracer_tpu/ops/pallas/inverse_kernel.py:338"),
+    "inverse_global": ("inverse.cu", "inverse_path_tracer_tpu/ops/pallas/inverse_kernel.py:338"),
     "init_tile": ("render_fwd.cu", "inverse_path_tracer_tpu/ops/pallas/render_kernel.py:1677"),
     "stage_tile": ("render_fwd.cu", "inverse_path_tracer_tpu/ops/pallas/render_kernel.py:1711"),
     "stage_reverse_tile": ("render_bwd.cu",
@@ -169,6 +182,8 @@ KERNELS = {
 # reverse_path): ct = pm*suf*(coeff/pi) + g*pm*nee (3+3+1+3+3+3), suf =
 # g*c + f*suf (9), and the 3 adds of the warp sum into d materials.
 RECURSION_OPS = 28
+# Bytes of the global-grid sink's float64 adds per edge (9 quantities).
+N_QUANT_BYTES = 9 * 8
 GOLDEN_PNG = os.path.join(REPO, "artifacts", "bench_golden_0.png")
 EXP100 = os.path.join(REPO, "artifacts", "exp100")
 # The eye row of the JAX package's extraction of the in-repo fixture
@@ -287,6 +302,22 @@ def variant_scenes(device):
             ("vertex_normals", vn.to(device), vn.diffuse.to(device))]
 
 
+@contextlib.contextmanager
+def sweep_layout(dense: bool):
+    """Within the block, every scene takes the dense sweep when `dense`
+    (ops/kernels/clusters.py CLUSTER_MIN_TP raised past any scene); the
+    package's own threshold otherwise."""
+    from inverse_path_tracer_torch.ops.kernels import clusters
+
+    own = clusters.CLUSTER_MIN_TP
+    if dense:
+        clusters.CLUSTER_MIN_TP = 1 << 30
+    try:
+        yield
+    finally:
+        clusters.CLUSTER_MIN_TP = own
+
+
 def tile_inputs(scene, cfg, key, n, device, external):
     """Rays of the first n samples and either external uniforms (seeded
     torch.rand) or fused-RNG key words."""
@@ -332,6 +363,7 @@ def check_kernel_vs_plain(device):
     import torch
 
     from inverse_path_tracer_torch import RenderConfig
+    from inverse_path_tracer_torch.ops.kernels.clusters import kernel_perm
     from inverse_path_tracer_torch.ops.kernels.render_kernel import (
         grad_tile,
         grad_tile_plain,
@@ -350,20 +382,30 @@ def check_kernel_vs_plain(device):
         ("external_no_quirks", scene0, mats0, cfg0.with_(reference_quirks=False), True),
         ("fused", scene0, mats0, cfg0, False),
     ]
-    cases += [(name, s, m, cfg0, False) for name, s, m in variant_scenes(device)]
+    variants = variant_scenes(device)
+    cases += [(name, s, m, cfg0, False) for name, s, m in variants]
+    # The vertex-normal mesh pads to 248 triangles and is clustered; the
+    # dense instances of the kernels are held on it with the dense sweep.
+    cases += [(f"{name}_dense", s, m, cfg0, False) for name, s, m in variants
+              if name == "vertex_normals"]
     worst = dict.fromkeys(KERNELS, 0.0)
     for name, scene, mats, cfg, external in cases:
-        a = tile_inputs(scene, cfg, 11, cfg.n_samples, device, external)
-        g = torch.rand((3, cfg.n_samples), generator=torch.Generator().manual_seed(3)).to(device)
-        rk, sk = render_tile(mats, scene, cfg, **a)
-        rp, sp = render_tile_plain(mats, scene, cfg, **a)
-        rr, sr, rec = render_tile_rec(mats, scene, cfg, **a)
-        _, _, rec_p = render_tile_rec_plain(mats, scene, cfg, **a)
-        dk = grad_tile(mats, scene, cfg, g=g, **a)
-        dp = grad_tile_plain(mats, scene, cfg, g=g, **a)
-        d4 = reverse_tile(scene.n_tri, cfg, rec, g)
-        d4p = reverse_tile_plain(scene.n_tri, cfg, rec, g)
-        torch.cuda.synchronize()
+        with sweep_layout(name.endswith("_dense")):
+            a = tile_inputs(scene, cfg, 11, cfg.n_samples, device, external)
+            g = torch.rand((3, cfg.n_samples), generator=torch.Generator().manual_seed(3))
+            g = g.to(device)
+            rk, sk = render_tile(mats, scene, cfg, **a)
+            rp, sp = render_tile_plain(mats, scene, cfg, **a)
+            rr, sr, rec = render_tile_rec(mats, scene, cfg, **a)
+            _, _, rec_p = render_tile_rec_plain(mats, scene, cfg, **a)
+            dk = grad_tile(mats, scene, cfg, g=g, **a)
+            dp = grad_tile_plain(mats, scene, cfg, g=g, **a)
+            perm = kernel_perm(scene, cfg)  # clustered scenes: the records' rows are internal
+            d4 = reverse_tile(scene.n_tri, cfg, rec, g, perm)
+            d4p = reverse_tile_plain(scene.n_tri, cfg, rec, g, perm)
+            torch.cuda.synchronize()
+        if name.startswith("vertex_normals") and (perm is None) != name.endswith("_dense"):
+            raise AssertionError(f"{name}: the sweep layout is not the one the case names")
         if not all(bool(torch.isfinite(t).all()) for t in (rk, rp, rec, dk, dp, d4, d4p)):
             raise AssertionError(f"{name}: non-finite output")
         errs = {"render_fwd": float((rk - rp).abs().max()),
@@ -375,7 +417,7 @@ def check_kernel_vs_plain(device):
         same = torch.equal(rr, rk) and torch.equal(sr, sk)
         b4_is_b2 = bool(torch.allclose(d4, dk, rtol=1e-5, atol=0))
         b4_ok = grad_close(d4, d4p) and b4_is_b2
-        if name == "vertex_normals":
+        if name.startswith("vertex_normals"):
             # Knife-edge bound (tests/test_pallas.py:219-223): grazing hits on
             # curved geometry may resolve differently within an ulp.
             close = torch.isclose(rk, rp, rtol=1e-4, atol=1e-5).all(dim=0).float().mean()
@@ -392,7 +434,8 @@ def check_kernel_vs_plain(device):
             for k, e in errs.items():
                 worst[k] = max(worst[k], e)
         ok = ok and same and b4_ok
-        log(f"check {name}: max |kernel - plain| B1 {errs['render_fwd']:.3e}, B3 records "
+        log(f"check {name} ({'dense' if perm is None else 'clustered'}): max |kernel - plain| "
+            f"B1 {errs['render_fwd']:.3e}, B3 records "
             f"{errs['render_fwd_rec']:.3e}, B2 {errs['render_bwd_grad']:.3e}, B4 "
             f"{errs['render_bwd_reverse']:.3e}; segments {seg_k:.0f} vs {seg_p:.0f}, {detail}, "
             f"B3 = B1 {same}, B4 = B2 within 1e-5 {b4_is_b2} (bit-equal {torch.equal(d4, dk)})"
@@ -444,10 +487,11 @@ def main_path(device):
     return launches
 
 
-def profile_once(what, fn):
+def profile_once(what, fn, ops=()):
     """Device time by kernel from torch.profiler over one call of fn:
     logged, and returned as {kernel: (ms, launches)} ({} when the profiler
-    recorded no device time)."""
+    recorded no device time).  With `ops`, the calls of each named CPU op
+    are logged too and returned beside: (kernels, {op: calls})."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -456,20 +500,26 @@ def profile_once(what, fn):
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.key_averages()
     kernels = {
         e.key: (getattr(e, "self_device_time_total", 0.0) / 1e3, e.count)
-        for e in prof.key_averages()
+        for e in events
         if e.device_type == torch.autograd.DeviceType.CUDA
     }
+    calls = {op: sum(e.count for e in events if e.key == op) for op in ops}
     busy = sum(ms for ms, _ in kernels.values())
     if busy <= 0:
         log("profile: the profiler recorded no device time (device busy share not measured)")
-        return {}
-    log(f"profile ({what}, profiler on): wall {wall_ms:.3f} ms, device busy "
-        f"{busy:.3f} ms ({100 * busy / wall_ms:.1f}%)")
-    for name, (ms, count) in sorted(kernels.items(), key=lambda kv: -kv[1][0])[:8]:
-        log(f"  {ms:10.3f} ms  x{count:<5d} {name[:100]}")
-    return kernels
+        kernels = {}
+    else:
+        log(f"profile ({what}, profiler on): wall {wall_ms:.3f} ms, device busy "
+            f"{busy:.3f} ms ({100 * busy / wall_ms:.1f}%)")
+        for name, (ms, count) in sorted(kernels.items(), key=lambda kv: -kv[1][0])[:8]:
+            log(f"  {ms:10.3f} ms  x{count:<5d} {name[:100]}")
+    if not ops:
+        return kernels
+    log(f"profile ({what}): CPU op calls " + ", ".join(f"{k} {v}" for k, v in calls.items()))
+    return kernels, calls
 
 
 def fwd_bwd_path(device):
@@ -646,60 +696,119 @@ def records_match(rec, rec_p):
     return ok, err, same
 
 
-def check_inverse_vs_plain(device):
-    """Phase 11: B5 and B6 against their plain versions on the card at
-    64x64/4 spp/8 bounces, scene 0, the specular variant and the vertex-normal
-    scene (B6 alone: its grid does not fit B5), each under external uniforms
-    and the fused RNG; B5's grid against B6's records reduced.  Returns the
-    largest |kernel - plain| of each."""
+def grid_match(got, want):
+    """(ok, max |d|): grids within rtol 1e-4 with an absolute floor of 1e-6
+    of the largest entry (atomics add in no fixed order) and visit counts
+    equal."""
     import torch
 
-    from inverse_path_tracer_torch import RenderConfig
+    floor = 1e-6 * float(want.abs().max())
+    ok = (bool(torch.allclose(got, want, rtol=1e-4, atol=floor))
+          and torch.equal(got[..., 8], want[..., 8]) and bool(torch.isfinite(got).all()))
+    return ok, float((got - want).abs().max())
+
+
+# B6's float64 global grid against B6's records reduced on the same rays:
+# the same float32 quantities summed in float64 in another order.  The
+# tolerance: rtol 1e-9 with an absolute floor of 1e-12 of the largest entry.
+# A grid summed in float32 (B5's) misses it by orders of magnitude.
+GRID64_RTOL, GRID64_FLOOR = 1e-9, 1e-12
+
+
+def grid64_gap(got, want) -> float:
+    """The smallest rtol at which float64 grids agree under the absolute
+    floor GRID64_FLOOR of the largest entry."""
+    floor = GRID64_FLOOR * float(want.abs().max())
+    excess = ((got.double() - want).abs() - floor).clamp_min(0)
+    return float((excess / want.abs().clamp_min(1e-300)).max())
+
+
+def grid64_match(got, want):
+    """(ok, the gap of grid64_gap): within GRID64_RTOL, visit counts equal,
+    finite."""
+    import torch
+
+    gap = grid64_gap(got, want)
+    ok = (gap <= GRID64_RTOL and torch.equal(got[..., 8], want[..., 8])
+          and bool(torch.isfinite(got).all()))
+    return ok, gap
+
+
+def check_inverse_vs_plain(device):
+    """Phase 11: B5 and B6 (both sinks) against their plain versions on the
+    card at 64x64/4 spp/8 bounces, scene 0, the specular variant, the
+    vertex-normal scene (B6 alone: its grid does not fit B5; clustered, and
+    again with the dense sweep) and the large scene (B6 clustered), each
+    under external uniforms and the fused RNG; B5's grid against B6's
+    records reduced (rtol 1e-4), B6's global grid against them (grid64_match).
+    Returns the largest |kernel - plain| of each."""
+    import torch
+
+    from inverse_path_tracer_torch import RenderConfig, large_scene
     from inverse_path_tracer_torch.ops.kernels.inverse_kernel import (
         grids_from_edge_records,
         inverse_grid_fits,
         inverse_tile,
+        inverse_tile_global,
         inverse_tile_plain,
         inverse_tile_rec,
         inverse_tile_rec_plain,
+        unperm_grid,
     )
+    from inverse_path_tracer_torch.ops.kernels.render_kernel import pack_tables
 
     cfg = RenderConfig(**CHECK)
     scene0, _ = fixture(device)
-    scenes = [("scene0", scene0)] + [(name, s) for name, s, _ in variant_scenes(device)]
-    worst = {"inverse_grid": 0.0, "inverse_rec": 0.0}
+    variants = variant_scenes(device)
+    scenes = ([("scene0", scene0)] + [(name, s) for name, s, _ in variants]
+              + [(f"{name}_dense", s) for name, s, _ in variants if name == "vertex_normals"]
+              + [("large", large_scene(device))])
+    worst = {"inverse_grid": 0.0, "inverse_rec": 0.0, "inverse_global": 0.0}
     for name, scene in scenes:
         for external in (True, False):
-            a = tile_inputs(scene, cfg, 21, cfg.n_samples, device, external)
-            pix = torch.rand((3, cfg.n_samples), generator=torch.Generator().manual_seed(22))
-            pix = pix.to(device)
-            rec, st_r = inverse_tile_rec(scene, cfg, **a)
-            rec_p, st_p = inverse_tile_rec_plain(scene, cfg, **a)
-            torch.cuda.synchronize()
+            with sweep_layout(name.endswith("_dense")):
+                a = tile_inputs(scene, cfg, 21, cfg.n_samples, device, external)
+                pix = torch.rand((3, cfg.n_samples), generator=torch.Generator().manual_seed(22))
+                pix = pix.to(device)
+                tabs = pack_tables(scene, scene.diffuse, cfg)
+                rec, st_r = inverse_tile_rec(scene, cfg, tables=tabs, **a)
+                rec_p, st_p = inverse_tile_rec_plain(scene, cfg, **a)
+                acc, st_g = inverse_tile_global(scene, cfg, pix=pix, tables=tabs, **a)
+                acc_p, _ = inverse_tile_plain(scene, cfg, pix=pix, kernel_order=True, **a)
+                reduced = grids_from_edge_records(rec, pix.T, scene, cfg, tabs.perm)
+                if inverse_grid_fits(scene):
+                    grid, st = inverse_tile(scene, cfg, pix=pix, **a)
+                    grid_p, _ = inverse_tile_plain(scene, cfg, pix=pix, **a)
+                torch.cuda.synchronize()
+            if name.endswith("_dense") and tabs.cluster_k:
+                raise AssertionError(f"{name}: the tables are clustered")
             ok, err_r, same = records_match(rec, rec_p)
             ok = ok and torch.equal(st_r, st_p)
+            ok_g, err_g = grid_match(acc, acc_p)
+            ok_gr, gap = grid64_match(unperm_grid(acc, tabs.perm), reduced)
+            ok = ok and ok_g and ok_gr and torch.equal(st_g, st_p)
             line = (f"check inverse {name} {'external' if external else 'fused'}: B6 records "
                     f"max |d| {err_r:.3e} (bit-equal under masks {same}), counts equal "
-                    f"{torch.equal(st_r, st_p)}")
+                    f"{torch.equal(st_r, st_p)}; B6 global grid max |d| {err_g:.3e} of max "
+                    f"{float(acc_p.abs().max()):.3e} (clusters {tabs.cluster_k}), = plain "
+                    f"{ok_g}, = B6 records reduced {ok_gr} (rtol needed {gap:.1e}, bound "
+                    f"{GRID64_RTOL:.0e}), counts equal {torch.equal(st_g, st_p)}")
             worst["inverse_rec"] = max(worst["inverse_rec"], err_r)
+            worst["inverse_global"] = max(worst["inverse_global"], err_g)
             if inverse_grid_fits(scene):
-                grid, st = inverse_tile(scene, cfg, pix=pix, **a)
-                grid_p, _ = inverse_tile_plain(scene, cfg, pix=pix, **a)
-                reduced = grids_from_edge_records(rec, pix.T, scene, cfg).float()
-                torch.cuda.synchronize()
-                floor = 1e-6 * float(grid_p.abs().max())
-                err_g = float((grid - grid_p).abs().max())
-                b5_b6 = bool(torch.allclose(grid, reduced, rtol=1e-4, atol=floor))
-                ok = (ok and bool(torch.allclose(grid, grid_p, rtol=1e-4, atol=floor))
-                      and torch.equal(grid[..., 8], grid_p[..., 8]) and torch.equal(st, st_p)
-                      and b5_b6 and bool(torch.isfinite(grid).all()))
-                worst["inverse_grid"] = max(worst["inverse_grid"], err_g)
-                line += (f"; B5 grid max |d| {err_g:.3e} of max {float(grid_p.abs().max()):.3e}, "
+                ok5, err5 = grid_match(grid, grid_p)
+                b5_b6, _ = grid_match(grid, reduced.float())
+                ok = ok and ok5 and b5_b6 and torch.equal(st, st_p)
+                worst["inverse_grid"] = max(worst["inverse_grid"], err5)
+                line += (f"; B5 grid max |d| {err5:.3e} of max {float(grid_p.abs().max()):.3e}, "
                          f"visit counts equal {torch.equal(grid[..., 8], grid_p[..., 8])}, "
-                         f"B5 = B6 reduced (rtol 1e-4) {b5_b6}")
+                         f"B5 = B6 reduced (rtol 1e-4) {b5_b6}, counts equal "
+                         f"{torch.equal(st, st_p)}; B5's float32 grid against the records "
+                         f"reduced needs rtol {grid64_gap(grid, reduced):.1e}")
             log(line + f" -> {'OK' if ok else 'FAIL'}")
             if not ok:
-                raise AssertionError(f"an inverse kernel disagrees with its plain version on {name}")
+                raise AssertionError(f"an inverse kernel disagrees with its plain version on "
+                                     f"{name}")
     return worst
 
 
@@ -775,44 +884,77 @@ def extraction_main_path(device):
     return launches, (w, pixel, light), target
 
 
-def large_scene_extraction(device):
-    """Phase 13: the 242-triangle vertex-normal scene at 500x500/100 spp/16
-    bounces through B6 and the records reduction: timed once, no NaN,
-    visited rows summing to 1.  Returns (launches, (scene, target))."""
+def global_extraction(device, label, scene, target):
+    """The extraction of `scene` at 500x500/100 spp/16 bounces through B6's
+    global-grid sink (phases 13 and 20): launch counts (no inverse_tile_rec
+    on the path), no NaN, visited rows summing to 1, one warm-up and 3 timed
+    runs, and a profile that finds no aten::nonzero and gives B6's share of
+    the device time.  Returns ({kernel: launches}: inverse_global's, and
+    inverse_rec's, which the path does not run; rays; ms of the timed
+    runs)."""
     import torch
 
-    from inverse_path_tracer_torch import (
-        RenderConfig,
-        compress_grids,
-        extract_graph,
-        render_image,
-        trace_transport_range,
+    from inverse_path_tracer_torch import RenderConfig, compress_grids, trace_transport_range
+    from inverse_path_tracer_torch.ops.kernels.inverse_kernel import (
+        inverse_tile,
+        inverse_tile_global,
+        inverse_tile_rec,
     )
-    from inverse_path_tracer_torch.ops.kernels.inverse_kernel import inverse_tile, inverse_tile_rec
+    from inverse_path_tracer_torch.ops.kernels.render_kernel import intersect_tile
+
+    cfg = RenderConfig(**GOLDEN)
+
+    def run():
+        return trace_transport_range(scene, target, 0, cfg, 0, cfg.n_samples, device=device)
+
+    counters = (inverse_tile, inverse_tile_rec, inverse_tile_global, intersect_tile)
+    for c in counters:
+        c.launches = 0
+    grids, stats = run()
+    w, pixel, light = compress_grids(grids, scene.n_tri)
+    torch.cuda.synchronize()
+    b5, rec, glob, sweep = (c.launches for c in counters)
+    finite = all(bool(torch.isfinite(x).all()) for x in (w, pixel, light))
+    sums = w.sum(dim=1)
+    rows_ok = bool(((sums[sums > 0] - 1.0).abs() <= 1e-5).all())
+    visited = int((sums > 0).sum())
+    rays = int(stats.segments) + int(stats.shadow_rays)
+    ok = glob > 0 and b5 == 0 and rec == 0 and finite and rows_ok and visited > scene.n_tri // 2
+    log(f"{label} extraction {shape(cfg)}: {glob} launches of inverse_global ({rec} of "
+        f"inverse_rec, {b5} of inverse_grid, {sweep} of the clustered sweep); rays {rays}; finite "
+        f"{finite}, visited rows {visited} sum to 1 {rows_ok} -> {'OK' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{label}: the extraction failed")
+    run()  # warm-up
+    times = []
+    for k in range(3):
+        t = cuda_ms(run, 1)
+        times.append(t)
+        log(f"{label} extraction run {k}: {t:.3f} ms, rays {rays}, {rays / (t / 1e3):.6e} rays/s")
+    kernels, calls = profile_once(f"one {label} extraction", run, ops=("aten::nonzero",))
+    if calls["aten::nonzero"]:
+        raise AssertionError(f"the {label} extraction ran aten::nonzero")
+    if kernels:
+        busy = sum(ms for ms, _ in kernels.values())
+        b6 = sum(ms for name, (ms, _) in kernels.items() if "inverse_global_kernel" in name)
+        log(f"{label} extraction profile: B6 (global sink) {b6:.3f} ms ({100 * b6 / busy:.1f}% of "
+            f"device time), the rest {busy - b6:.3f} ms")
+    return {"inverse_global": glob, "inverse_rec": rec}, rays, times
+
+
+def large_scene_extraction(device):
+    """Phase 13: the 242-triangle vertex-normal scene at 500x500/100 spp/16
+    bounces through B6's global-grid sink (global_extraction).  No main path
+    runs B6's records sink: its launch count is this path's, 0, and phase 15
+    holds it against its plain version.  Returns ({kernel: launches},
+    (scene, target))."""
+    from inverse_path_tracer_torch import RenderConfig, render_image
 
     cfg = RenderConfig(**GOLDEN)
     (_, scene, mats), = [v for v in variant_scenes(device) if v[0] == "vertex_normals"]
     target = render_image(mats, scene, 1, cfg, device=device)
-    inverse_tile.launches = inverse_tile_rec.launches = 0
-    out = []
-    t = cuda_ms(lambda: out.append(trace_transport_range(scene, target, 0, cfg, 0, cfg.n_samples,
-                                                         device=device)), 1)
-    grids, stats = out[0]
-    w, pixel, light = compress_grids(grids, scene.n_tri)
-    launches = inverse_tile_rec.launches
-    finite = all(bool(torch.isfinite(x).all()) for x in (w, pixel, light))
-    sums = w.sum(dim=1)
-    rows_ok = bool(((sums[sums > 0] - 1.0).abs() <= 1e-5).all())
-    rays = int(stats.segments) + int(stats.shadow_rays)
-    ok = launches > 0 and inverse_tile.launches == 0 and finite and rows_ok
-    log(f"large-scene extraction ({scene.n_tri} triangles, vertex normals) {shape(cfg)}: "
-        f"{launches} launches of inverse_rec, {t:.3f} ms, rays {rays}, "
-        f"{rays / (t / 1e3):.6e} rays/s; finite {finite}, visited rows sum to 1 {rows_ok} "
-        f"-> {'OK' if ok else 'FAIL'}")
-    if not ok:
-        raise AssertionError("the large-scene extraction failed")
-    profile_once("one large-scene extraction",
-                 lambda: extract_graph(scene, target, 0, cfg, device=device))
+    launches, _, _ = global_extraction(
+        device, f"vertex-normal scene ({scene.n_tri} triangles)", scene, target)
     return launches, (scene, target)
 
 
@@ -1046,41 +1188,47 @@ def first_extraction_launch(scene, cfg, target, key=0):
 def inverse_kernel_timing(device, launches, check_err, target0, large):
     """Phase 15: B5 and B6, each at the first 2^20-ray launch of the path
     that runs it at 500x500/100 spp/16 bounces, fused RNG, the target's
-    pixel colours: B5 on scene 0's extraction (phase 12), B6 on the
-    vertex-normal scene's (phase 13, `large` = (scene, target)).  Each is
-    held against its plain version on the same inputs and timed beside it
-    and its bound."""
+    pixel colours: B5 on scene 0's extraction (phase 12), B6 with both sinks
+    on the vertex-normal scene's (phase 13, `large` = (scene, target)).  B5
+    and the records sink are held against their plain versions, the global
+    grid against the records reduced, on the same inputs; each is timed
+    beside its plain version and its bound."""
     import torch
 
     from inverse_path_tracer_torch import RenderConfig
+    from inverse_path_tracer_torch.ops.intersect import counting_sweeps
     from inverse_path_tracer_torch.ops.kernels.inverse_kernel import (
-        N_QUANT,
+        grids_from_edge_records,
         inverse_tile,
+        inverse_tile_global,
         inverse_tile_plain,
         inverse_tile_rec,
         inverse_tile_rec_plain,
+        unperm_grid,
     )
+    from inverse_path_tracer_torch.ops.kernels.render_kernel import pack_tables
 
     cfg = RenderConfig(**GOLDEN)
     scene0, _ = fixture(device)
     scene_vn, target_vn = large
     a0, pix0, tab0 = first_extraction_launch(scene0, cfg, target0)
-    a6, _, tab6 = first_extraction_launch(scene_vn, cfg, target_vn)
+    a6, pix6, _ = first_extraction_launch(scene_vn, cfg, target_vn)
+    tab6 = pack_tables(scene_vn, scene_vn.diffuse, cfg)
     n = a0["p"].shape[1]
 
     grid, st = inverse_tile(scene0, cfg, pix=pix0, tables=tab0, **a0)
     grid_p, st_p = inverse_tile_plain(scene0, cfg, pix=pix0, **a0)
     torch.cuda.synchronize()
-    floor = 1e-6 * float(grid_p.abs().max())
-    err = {"inverse_grid": float((grid - grid_p).abs().max())}
-    ok5 = (bool(torch.allclose(grid, grid_p, rtol=1e-4, atol=floor))
-           and torch.equal(grid[..., 8], grid_p[..., 8]) and torch.equal(st, st_p))
-    log(f"inverse_grid at scene 0's first extraction launch (3, {n}): max |d| "
-        f"{err['inverse_grid']:.3e} of max {float(grid_p.abs().max()):.3e}, visit counts and "
-        f"ray counts equal -> {'OK' if ok5 else 'FAIL'}")
+    ok5, e5 = grid_match(grid, grid_p)
+    ok5 = ok5 and torch.equal(st, st_p)
+    err = {"inverse_grid": e5}
+    log(f"inverse_grid at scene 0's first extraction launch (3, {n}): max |d| {e5:.3e} of max "
+        f"{float(grid_p.abs().max()):.3e}, visit counts and ray counts equal -> "
+        f"{'OK' if ok5 else 'FAIL'}")
     del grid_p
     rec, st6 = inverse_tile_rec(scene_vn, cfg, tables=tab6, **a6)
-    rec_p, st6_p = inverse_tile_rec_plain(scene_vn, cfg, **a6)
+    with counting_sweeps() as c6:
+        rec_p, st6_p = inverse_tile_rec_plain(scene_vn, cfg, **a6)
     torch.cuda.synchronize()
     rec_ok, err["inverse_rec"], rec_same = records_match(rec, rec_p)
     ok6 = rec_ok and torch.equal(st6, st6_p)
@@ -1088,15 +1236,34 @@ def inverse_kernel_timing(device, launches, check_err, target0, large):
         f"{cfg.max_bounces} bounces: records max |d| {err['inverse_rec']:.3e} (bit-equal under "
         f"masks {rec_same}), ray counts equal {torch.equal(st6, st6_p)} -> "
         f"{'OK' if ok6 else 'FAIL'}")
-    if not (ok5 and ok6):
-        raise AssertionError("an inverse kernel disagrees with its plain version at full shape")
     del rec_p
+    reduced = grids_from_edge_records(rec, pix6.T, scene_vn, cfg, tab6.perm)
+    acc, st_g = inverse_tile_global(scene_vn, cfg, pix=pix6, tables=tab6, **a6)
+    torch.cuda.synchronize()
+    glob = unperm_grid(acc, tab6.perm)
+    okg, gap = grid64_match(glob, reduced)
+    okg = okg and torch.equal(st_g, st6_p)
+    err["inverse_global"] = float((glob - reduced).abs().max())
+    edges = float(reduced[..., 8].sum())
+    log(f"inverse_global at the same launch: grid max |d| {err['inverse_global']:.3e} of max "
+        f"{float(reduced.abs().max()):.3e} against the records reduced (rtol needed {gap:.1e}, "
+        f"bound {GRID64_RTOL:.0e}), visit counts and ray counts equal, {edges:.0f} edges -> "
+        f"{'OK' if okg else 'FAIL'}")
+    if not (ok5 and ok6 and okg):
+        raise AssertionError("an inverse kernel disagrees with its plain version at full shape")
+    del reduced
     timed = {
         "inverse_grid": (lambda: inverse_tile(scene0, cfg, pix=pix0, tables=tab0, **a0),
                          lambda: inverse_tile_plain(scene0, cfg, pix=pix0, **a0)),
         "inverse_rec": (lambda: inverse_tile_rec(scene_vn, cfg, tables=tab6, **a6),
                         lambda: inverse_tile_rec_plain(scene_vn, cfg, **a6)),
+        "inverse_global": (lambda: inverse_tile_global(scene_vn, cfg, pix=pix6, tables=tab6,
+                                                       acc=acc, **a6),
+                           lambda: inverse_tile_plain(scene_vn, cfg, pix=pix6, kernel_order=True,
+                                                      **a6)),
     }
+    for fn, _ in timed.values():
+        fn()  # warm-up
     ms = {k: cuda_ms(fn, 10) for k, (fn, _) in timed.items()}
     plain_ms = {k: cuda_ms(fn, 2) for k, (_, fn) in timed.items()}
 
@@ -1104,25 +1271,32 @@ def inverse_kernel_timing(device, launches, check_err, target0, large):
     # sweeps the loop uses, one per segment (the primary ray, or the next ray
     # of a path that passed roulette) and one per shadow ray, at
     # FACE_PLANE_OPS per (ray, triangle), over the f32 peak (a floor, as in
-    # kernel_timing).  Bytes: p, d, alive, orig (and pix for B5) in, the
-    # tables in, the counts (2, n) out, and B5's grid or B6's whole record
-    # array out.
+    # kernel_timing); on clustered tables what the plain version's clustered
+    # sweeps did, its pairs and its box tests at BOX_OPS (as in
+    # large_kernel_timing).  Bytes: p, d, alive, orig (and pix for B5 and
+    # the global sink) in, the tables in, the counts (2, n) out, and B5's
+    # grid, the records sink's whole record array, or the global sink's
+    # float64 adds (9 per edge, before the warp sums them) out.
     f_bytes = lambda nbytes: nbytes / PEAK_BYTES * 1e3
     kernels = []
     for k, scene, stats, tab, out_bytes, pix_rows in (
             ("inverse_grid", scene0, st, tab0, grid.numel() * 4, 3),
-            ("inverse_rec", scene_vn, st6, tab6, rec.numel() * 4, 0)):
+            ("inverse_rec", scene_vn, st6, tab6, rec.numel() * 4, 0),
+            ("inverse_global", scene_vn, st_g, tab6, edges * N_QUANT_BYTES, 3)):
         nt = scene.n_tri
         segments, shadows = float(stats[0].sum()), float(stats[1].sum())
-        pairs = (segments + shadows) * nt
-        t_sweep = pairs * FACE_PLANE_OPS / PEAK_F32_OPS * 1e3
+        pairs, boxes = (segments + shadows) * nt, 0
+        if tab.cluster_k:
+            pairs, boxes = c6["pairs"], c6["group_tests"] + c6["tests"]
+        t_sweep = (pairs * FACE_PLANE_OPS + boxes * BOX_OPS) / PEAK_F32_OPS * 1e3
         tab_bytes = sum(t.numel() * 4 for t in (tab.planes, tab.table, tab.vtab, tab.etab, tab.cdf)
                         if t is not None)
         b_ms, b_by = bound(t_sweep, f_bytes(n * (3 + 3 + 1 + 1 + pix_rows + 2) * 4 + tab_bytes
                                             + out_bytes))
-        log(f"{k} launch (3, {n}) on {nt} triangles: {segments:.0f} segments, {shadows:.0f} "
-            f"shadow rays, {pairs:.0f} (ray, triangle) pairs, sweep floor {t_sweep:.4f} ms, "
-            f"output {out_bytes} bytes ({f_bytes(out_bytes):.4f} ms to move once)")
+        log(f"{k} launch (3, {n}) on {nt} triangles (clusters {tab.cluster_k}): {segments:.0f} "
+            f"segments, {shadows:.0f} shadow rays, {pairs:.0f} (ray, triangle) pairs, {boxes} box "
+            f"tests, sweep floor {t_sweep:.4f} ms, output {out_bytes:.0f} bytes "
+            f"({f_bytes(out_bytes):.4f} ms to move once)")
         src, replaces = KERNELS[k]
         log(f"{k} at (3, {n}): {ms[k]:.4f} ms (plain {plain_ms[k]:.3f} ms), bound {b_ms:.4f} ms "
             f"({b_by}), {100 * b_ms / ms[k]:.1f}% of bound, {launches[k]} launches on its path")
@@ -1135,6 +1309,7 @@ def inverse_kernel_timing(device, launches, check_err, target0, large):
             "library_ms": None,
         })
     return kernels
+
 
 STAGED = ("init_tile", "stage_tile", "stage_reverse_tile", "cluster_sweep")
 
@@ -1356,9 +1531,10 @@ def check_l1_branch(device):
 
 
 def check_clustered_vs_dense(device):
-    """Phase 17: B1-B4 and B6 with clustered tables on the flat large scene
-    against the plain versions of the dense sweep in global order; B5 with
-    clusters of 8 on scene 0.  Returns the largest |kernel - plain|."""
+    """Phase 17: B1-B4 and B6 (both sinks) with clustered tables on the
+    flat large scene against the plain versions of the dense sweep in global
+    order; B5 with clusters of 8 on scene 0.  Returns the largest |kernel -
+    plain|."""
     import torch
 
     from inverse_path_tracer_torch import RenderConfig, large_scene
@@ -1366,9 +1542,11 @@ def check_clustered_vs_dense(device):
     from inverse_path_tracer_torch.ops.kernels.inverse_kernel import (
         grids_from_edge_records,
         inverse_tile,
+        inverse_tile_global,
         inverse_tile_plain,
         inverse_tile_rec,
         inverse_tile_rec_plain,
+        unperm_grid,
     )
     from inverse_path_tracer_torch.ops.kernels.render_kernel import (
         grad_tile,
@@ -1395,6 +1573,8 @@ def check_clustered_vs_dense(device):
     d4 = reverse_tile(scene.n_tri, cfg, rec, g, perm)
     rec6, st6 = inverse_tile_rec(scene, cfg, tables=tabs, **a)
     grid6 = grids_from_edge_records(rec6, pix.T, scene, cfg, perm).float()
+    acc6, st6g = inverse_tile_global(scene, cfg, pix=pix, tables=tabs, **a)
+    glob6 = unperm_grid(acc6, perm)
     min_tp = clusters.CLUSTER_MIN_TP
     try:
         clusters.CLUSTER_MIN_TP = 1 << 30  # the plain versions sweep densely
@@ -1402,7 +1582,8 @@ def check_clustered_vs_dense(device):
         _, _, rec_p = render_tile_rec_plain(mats, scene, cfg, **a)
         dp = grad_tile_plain(mats, scene, cfg, g=g, **a)
         rec6_p, st6_p = inverse_tile_rec_plain(scene, cfg, **a)
-        grid6_p, _ = inverse_tile_plain(scene, cfg, pix=pix, **a)
+        # The dense sweep's order is the global one: float64 in global order.
+        grid6_p64, _ = inverse_tile_plain(scene, cfg, pix=pix, kernel_order=True, **a)
         scene0, _ = fixture(device)
         cfg8 = cfg.with_(cluster_k=8)
         a0 = tile_inputs(scene0, cfg8, 42, cfg.n_samples, device, external=False)
@@ -1425,6 +1606,7 @@ def check_clustered_vs_dense(device):
     for row, mask in ((0, hit6 | (r6[:, 3] != 0)), (1, hit6), (6, hit6)):
         r6[:, row][mask] = to_g[r6[:, row][mask].long()].float()
     floor5 = 1e-6 * float(grid5_p.abs().max())
+    grid6_p = grid6_p64.float()
     floor6 = 1e-6 * float(grid6_p.abs().max())
     checks = {
         "B1 radiance and counts equal": torch.equal(rk, rp) and torch.equal(sk, sp),
@@ -1433,6 +1615,8 @@ def check_clustered_vs_dense(device):
         "B4 within tolerance": grad_close(d4, dp),
         "B6 records equal": torch.equal(r6, q6) and torch.equal(st6, st6_p),
         "B6 reduced grid": bool(torch.allclose(grid6, grid6_p, rtol=1e-4, atol=floor6)),
+        "B6 global grid (float64 tolerance)": grid64_match(glob6, grid6_p64)[0]
+        and torch.equal(st6g, st6_p),
         "B5 clusters of 8 on scene 0": bool(torch.allclose(grid5, grid5_p, rtol=1e-4,
                                                            atol=floor5))
         and torch.equal(grid5[..., 8], grid5_p[..., 8]) and torch.equal(st5, st5_p),
@@ -1442,6 +1626,7 @@ def check_clustered_vs_dense(device):
            "render_bwd_grad": float((d2 - dp).abs().max()),
            "render_bwd_reverse": float((d4 - dp).abs().max()),
            "inverse_rec": float((r6 - q6).abs().max()),
+           "inverse_global": float((glob6 - grid6_p64).abs().max()),
            "inverse_grid": float((grid5 - grid5_p).abs().max())}
     ok = all(checks.values())
     log(f"check clustered kernels (clusters of {tabs.cluster_k}, {scene.n_tri} triangles) against "
@@ -1578,42 +1763,14 @@ def large_main_path(device):
 
 def large_vn_extraction(device, scene):
     """Phase 20: the large vertex-normal scene at 500x500/100 spp/16
-    bounces through clustered B6 and the records reduction.  Returns the
-    target image it extracts against."""
-    import torch
-
-    from inverse_path_tracer_torch import (
-        RenderConfig,
-        compress_grids,
-        render_image,
-        trace_transport_range,
-    )
-    from inverse_path_tracer_torch.ops.kernels.inverse_kernel import inverse_tile_rec
-    from inverse_path_tracer_torch.ops.kernels.render_kernel import intersect_tile
+    bounces through clustered B6 with the global-grid sink
+    (global_extraction).  Returns the target image it extracts against."""
+    from inverse_path_tracer_torch import RenderConfig, render_image
 
     cfg = RenderConfig(**GOLDEN)
     target = render_image(scene.diffuse, scene, 1, cfg, device=device)
-    inverse_tile_rec.launches = intersect_tile.launches = 0
-    out = []
-    t = cuda_ms(lambda: out.append(trace_transport_range(scene, target, 0, cfg, 0, cfg.n_samples,
-                                                         device=device)), 1)
-    grids, stats = out[0]
-    w, pixel, light = compress_grids(grids, scene.n_tri)
-    launches = (inverse_tile_rec.launches, intersect_tile.launches)
-    finite = all(bool(torch.isfinite(x).all()) for x in (w, pixel, light))
-    sums = w.sum(dim=1)
-    rows_ok = bool(((sums[sums > 0] - 1.0).abs() <= 1e-5).all())
-    rays = int(stats.segments) + int(stats.shadow_rays)
-    ok = min(launches) > 0 and finite and rows_ok and int((sums > 0).sum()) > scene.n_tri // 2
-    log(f"large extraction ({scene.n_tri} triangles, vertex normals, clustered) {shape(cfg)}: "
-        f"{launches[0]} launches of inverse_rec ({launches[1]} of the clustered sweep), "
-        f"{t:.3f} ms, rays {rays}, {rays / (t / 1e3):.6e} rays/s; finite {finite}, visited rows "
-        f"{int((sums > 0).sum())} sum to 1 {rows_ok} -> {'OK' if ok else 'FAIL'}")
-    if not ok:
-        raise AssertionError("the large-scene extraction failed")
-    t2 = cuda_ms(lambda: trace_transport_range(scene, target, 0, cfg, 0, cfg.n_samples,
-                                               device=device), 1)
-    log(f"large extraction run 1: {t2:.3f} ms, {rays / (t2 / 1e3):.6e} rays/s")
+    global_extraction(device, f"large scene ({scene.n_tri} triangles)", scene,
+                      target)
     return target
 
 
@@ -1636,14 +1793,17 @@ def large_kernel_timing(device, launches, check_err, large_target):
     orchestration passes it; B10 as B1 on that launch with clustered tables
     at the auto width and at JAX's 768 and with dense tables, with the box
     tests and the shares that entered; clustered B2 and B3 on that launch
-    and clustered B6 on the first launch of the large extraction (phase 20,
-    `large_target` its target), timed; ptxas's registers and spills of the
-    clustered kernels."""
+    and clustered B6 (both sinks) on the first launch of the large
+    extraction (phase 20, `large_target` its target), timed; ptxas's
+    registers and spills of the clustered kernels."""
     import torch
 
     from inverse_path_tracer_torch import RenderConfig, large_scene
     from inverse_path_tracer_torch.ops.intersect import counting_sweeps
-    from inverse_path_tracer_torch.ops.kernels.inverse_kernel import inverse_tile_rec
+    from inverse_path_tracer_torch.ops.kernels.inverse_kernel import (
+        inverse_tile_global,
+        inverse_tile_rec,
+    )
     from inverse_path_tracer_torch.ops.kernels.render_kernel import (
         CAR_ALIVE,
         grad_tile,
@@ -1807,15 +1967,18 @@ def large_kernel_timing(device, launches, check_err, large_target):
     # the large extraction: times beside B10's.
     g3 = torch.rand((3, n), generator=torch.Generator().manual_seed(9)).to(device)
     golden_cfg = RenderConfig(**GOLDEN)
-    a6, _, _ = first_extraction_launch(scene, golden_cfg, large_target)
+    a6, pix6, _ = first_extraction_launch(scene, golden_cfg, large_target)
     tab6 = pack_tables(scene, mats, golden_cfg)
+    acc6 = torch.zeros((nt + 1, nt, 9), dtype=torch.float64, device=device)
     more = {
         "render_bwd_grad (B2) clustered": lambda: grad_tile(mats, scene, cfg, g=g3, tables=tabs,
                                                             **a),
         "render_fwd_rec (B3) clustered": lambda: render_tile_rec(mats, scene, cfg, tables=tabs,
                                                                  **a),
-        "inverse_rec (B6) clustered, extraction launch": lambda: inverse_tile_rec(
+        "inverse_rec (B6 records) clustered, extraction launch": lambda: inverse_tile_rec(
             scene, golden_cfg, tables=tab6, **a6),
+        "inverse_global (B6 global grid) clustered, extraction launch": lambda: (
+            inverse_tile_global(scene, golden_cfg, pix=pix6, tables=tab6, acc=acc6, **a6)),
     }
     for what, fn in more.items():
         fn()  # warm-up
@@ -1888,7 +2051,8 @@ def main() -> int:
     kernels = kernel_timing(device, launches, check_err)
     check_err.update(check_inverse_vs_plain(device))
     launches["inverse_grid"], graph, target = extraction_main_path(device)
-    launches["inverse_rec"], large = large_scene_extraction(device)
+    b6_launches, large = large_scene_extraction(device)
+    launches.update(b6_launches)
     gcn_pipeline(device, graph, target)
     kernels += inverse_kernel_timing(device, launches, check_err, target, large)
     check_err.update(check_staged_vs_plain(device))

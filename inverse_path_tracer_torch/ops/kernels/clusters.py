@@ -27,10 +27,10 @@ import torch
 from inverse_path_tracer_torch.scene.build import SceneData
 
 # The clustered sweep is used at padded triangle counts of at least
-# CLUSTER_MIN_TP; CLUSTER_K, when not 0, overrides the auto width for every
-# config that does not set cfg.cluster_k.  Tests that need clusters on a
-# small scene set these module constants.
-CLUSTER_MIN_TP = 512
+# CLUSTER_MIN_TP (cluster_k_for); CLUSTER_K, when not 0, overrides the auto
+# width for every config that does not set cfg.cluster_k.  Tests that need
+# clusters on a small scene set these module constants.
+CLUSTER_MIN_TP = 128
 CLUSTER_K = 0
 # The auto width on the H100 (cluster_k_for) and the clusters per group box
 # (clusters.group_boxes, the first level of the kernels' two-level box test).
@@ -50,6 +50,20 @@ def cluster_k_for(n_tri: int, cfg) -> int:
     """The cluster width of the sweep (0 = dense): CLUSTER_AUTO_K on scenes
     of at least CLUSTER_MIN_TP padded triangles; cfg.cluster_k, then
     CLUSTER_K, override it, rounded up to a multiple of 8.
+
+    The threshold is the H100's too: on the 242-triangle vertex-normal scene
+    (248 padded; the box and an 8-ring, 16-segment sphere), at the first
+    2^20-ray launch of its 500x500/100 spp/16 bounce extraction, B6 with
+    the global-grid sink took 3.57-3.58 ms with clusters of 16 against
+    7.41-7.47 ms dense, and B1 on its first 512x512/64 spp launch 6.41-6.42
+    ms against 17.82-17.91 ms (tools/time_extract.py, one call, H100 80GB
+    HBM3 at 700 W); the JAX package's threshold is 512.  The threshold also
+    makes wavefront="auto" stage that scene: its render_image at 512x512/64
+    spp/16 bounces took 123.9-126.2 ms staged with clusters of 16 (131.3-
+    142.3 mega, clustered) against 317.5-320.4 ms dense mega, its
+    loss_and_grad_range 138.1-155.9 ms against 333.4-337.0 ms
+    (tools/time_extract.py, the tree at 512 and at 128 as A B B A in one
+    call, same card).
 
     The auto width is the H100's: each thread skips clusters for its own
     ray, so narrow clusters pay.  On an H100 80GB HBM3 (700 W) the

@@ -3,16 +3,24 @@ PyTorch versions.
 
     inverse_tile / inverse_tile_plain          B5, the inverse bounce loop
                                                accumulating the dense edge grid
-    inverse_tile_rec / inverse_tile_rec_plain  B6, the same loop streaming
-                                               per-bounce edge records
+                                               in shared memory
+    inverse_tile_global / inverse_tile_plain(kernel_order=True)
+                                               B6 with the global-grid sink:
+                                               the same loop adding each edge
+                                               to a float64 grid in global
+                                               memory
+    inverse_tile_rec / inverse_tile_rec_plain  B6 with the records sink: the
+                                               same loop streaming per-bounce
+                                               edge records
 
 They take the arguments of the JAX package's inverse_tile_pallas and
 inverse_tile_pallas_rec (ops/pallas/inverse_kernel.py:271, :338):
 
     p, d      (3, n) float32 ray origins / directions
     alive     (1, n) float32 0/1 initial alive mask
-    pix       (3, n) float32 observed pixel colour of each ray's pixel (B5;
-              B6's records carry none, the reduction applies them)
+    pix       (3, n) float32 observed pixel colour of each ray's pixel (B5
+              and the global sink; records carry none, the reduction
+              applies them)
     orig      (1, n) int32 global sample indices (the fused RNG's counter)
     uniforms  (max_bounces*8, n) float32: rows b*8 + [spec, pick, r1, r2,
               rr, phi, theta, -] of bounce b (external RNG), or None
@@ -21,21 +29,27 @@ inverse_tile_pallas_rec (ops/pallas/inverse_kernel.py:271, :338):
 and return, beside per-lane segment and shadow-ray counts (2, n) counted
 as B1 counts them:
 
-    B5  the dense grid (nT+1, nT, 9) float32 in global triangle indices,
-        grid[dst, src] = [w, w*f0, w*f0*pix(3), w*f0*light(3), n]
-        (inverse_kernel.py:50-51; dst == nT is the eye);
-    B6  records (max_bounces*8, n), rows b*8 + [dst, src, hit, w, nee_ok,
-        nee_w, e_idx, 0] of bounce b (:240-245), zero past a ray's last
-        bounce.  On clustered scenes (ops/kernels/clusters.py) the indices
-        are internal (:358-359); grids_from_edge_records maps them back
-        with the tables' perm.
+    B5      the dense grid (nT+1, nT, 9) float32 in global triangle
+            indices, grid[dst, src] = [w, w*f0, w*f0*pix(3),
+            w*f0*light(3), n] (inverse_kernel.py:50-51; dst == nT is the
+            eye);
+    global  that grid in float64, added into the caller's accumulator
+            `acc`, in the kernels' triangle order: internal on clustered
+            scenes (ops/kernels/clusters.py), mapped back by unperm_grid
+            once per range;
+    records (max_bounces*8, n), rows b*8 + [dst, src, hit, w, nee_ok,
+            nee_w, e_idx, 0] of bounce b (:240-245), zero past a ray's last
+            bounce, internal indices on clustered scenes (:358-359);
+            grids_from_edge_records reduces them to the grid, mapping the
+            indices back with the tables' perm.
 
 The kernels need cfg.p_spec == 0, as the Pallas ones do (:289); so do
-their plain versions, which run the same loop.  B5 keeps the grid and the
-scene tables in one block's shared memory, so it takes scenes up to
-inverse_grid_fits(); inverse_tile raises past it, and B6 serves larger
-scenes.  grids_from_edge_records reduces B6's records to B5's grid;
-grids_from_acc turns that grid into render/inverse.py's TransportGrids.
+their plain versions, which run the same loop.  The extraction
+(render/inverse.py trace_transport_range) takes B5 where its grid and the
+scene tables fit one block's shared memory (inverse_grid_fits(), about nT
+<= 78) and B6's global-grid sink on larger scenes; the records sink runs
+only when a caller asks for records (inverse_tile_rec).  grids_from_acc
+turns a grid into render/inverse.py's TransportGrids.
 
 Each wrapper launches its CUDA kernel (inverse.cu) for CUDA tensors and
 runs its plain version for CPU tensors; it never falls back from one to the
@@ -127,7 +141,7 @@ def inverse_tile(
         return inverse_tile_plain(scene, cfg, p, d, alive, pix, uniforms, orig, keys)
     if not inverse_grid_fits(scene):
         raise ValueError(f"inverse_tile keeps the (nT+1, nT, 9) grid in shared memory, which "
-                         f"does not fit at nT = {scene.n_tri}; use inverse_tile_rec")
+                         f"does not fit at nT = {scene.n_tri}; use inverse_tile_global")
     lib = _library("inverse")
     params, tabs = _trace_params(scene.diffuse, scene, cfg, tables, p, d, alive, uniforms, orig,
                                  keys)
@@ -139,13 +153,14 @@ def inverse_tile(
                   "inverse grid occupancy")
         partials = torch.empty((blocks.value, nt + 1, nt, N_QUANT), dtype=torch.float32,
                                device=dev)
+        next_ray = torch.zeros(1, dtype=torch.int32, device=dev)
         err = lib.ipt_inverse_grid(ctypes.byref(params), pix.data_ptr(), partials.data_ptr(),
-                                   stats.data_ptr(), blocks.value,
+                                   stats.data_ptr(), next_ray.data_ptr(), blocks.value,
                                    torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(lib, err, "inverse grid")
     inverse_tile.launches += 1
     _count_sweep(tabs)
-    return _unperm_grid(partials.sum(dim=0, dtype=torch.float64).float(), tabs.perm), stats
+    return unperm_grid(partials.sum(dim=0, dtype=torch.float64).float(), tabs.perm), stats
 
 
 def inverse_tile_rec(
@@ -182,11 +197,61 @@ def inverse_tile_rec(
     return rec, stats
 
 
+def inverse_tile_global(
+    scene: SceneData,
+    cfg,
+    p: torch.Tensor,
+    d: torch.Tensor,
+    alive: torch.Tensor,
+    pix: torch.Tensor,
+    uniforms: Optional[torch.Tensor] = None,
+    orig: Optional[torch.Tensor] = None,
+    keys: Optional[Keys] = None,
+    *,
+    tables: Optional[KernelTables] = None,
+    acc: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """B6 with the global-grid sink: adds the edges of one range of rays to
+    `acc`, the (nT+1, nT, 9) float64 grid in the kernels' triangle order
+    (internal on clustered scenes; unperm_grid maps it back), zeros made
+    here when not given, and returns (acc, the counts (2, n)).  The same
+    grid as inverse_tile_plain(..., kernel_order=True) up to the order of
+    the float64 sums."""
+    orig = _default_orig(p, orig)
+    _check_inverse(cfg, p, d, alive, uniforms, orig, keys)
+    n, nt = p.shape[1], scene.n_tri
+    _check(p, {"pix": (pix, (3, n), torch.float32)})
+    if (nt + 1) * nt * N_QUANT >= 2**31:
+        raise ValueError(f"the (nT+1, nT, 9) grid of nT = {nt} does not fit the kernel's int32 "
+                         "bin indices")
+    if acc is None:
+        acc = torch.zeros((nt + 1, nt, N_QUANT), dtype=torch.float64, device=p.device)
+    _check(p, {"acc": (acc, (nt + 1, nt, N_QUANT), torch.float64)})
+    if not _on_card(p, scene):
+        grid, stats = inverse_tile_plain(scene, cfg, p, d, alive, pix, uniforms, orig, keys,
+                                         kernel_order=True)
+        return acc.add_(grid), stats
+    lib = _library("inverse")
+    params, tabs = _trace_params(scene.diffuse, scene, cfg, tables, p, d, alive, uniforms, orig,
+                                 keys)
+    stats = torch.empty((2, n), dtype=torch.float32, device=p.device)
+    next_ray = torch.zeros(1, dtype=torch.int32, device=p.device)
+    with torch.cuda.device(p.device):
+        err = lib.ipt_inverse_global(ctypes.byref(params), pix.data_ptr(), acc.data_ptr(),
+                                     stats.data_ptr(), next_ray.data_ptr(),
+                                     torch.cuda.current_stream(p.device).cuda_stream)
+    _raise_on(lib, err, "inverse global grid")
+    inverse_tile_global.launches += 1
+    _count_sweep(tabs)
+    return acc, stats
+
+
 inverse_tile.launches = 0
 inverse_tile_rec.launches = 0
+inverse_tile_global.launches = 0
 
 
-def _unperm_grid(grid: torch.Tensor, perm: Optional[torch.Tensor]) -> torch.Tensor:
+def unperm_grid(grid: torch.Tensor, perm: Optional[torch.Tensor]) -> torch.Tensor:
     """A grid (nT+1, nT, 9) in internal indices -> global ones on both axes
     (the eye row nT stays; JAX inverse_kernel.py:422-433)."""
     if perm is None:
@@ -278,12 +343,18 @@ def inverse_tile_rec_plain(scene, cfg, p, d, alive, uniforms=None, orig=None, ke
     return rec, torch.stack([segs, shadows], dim=0)
 
 
-def inverse_tile_plain(scene, cfg, p, d, alive, pix, uniforms=None, orig=None, keys=None):
-    """B5's plain version: B6's plain records reduced to the dense grid."""
+def inverse_tile_plain(scene, cfg, p, d, alive, pix, uniforms=None, orig=None, keys=None, *,
+                       kernel_order=False):
+    """B5's plain version, and that of B6's global-grid sink: B6's plain
+    records reduced to the dense grid.  B5's is float32 in global triangle
+    order; with kernel_order, the global sink's, float64 in the kernels'
+    order (internal on clustered scenes)."""
     _check(p, {"pix": (pix, (3, p.shape[1]), torch.float32)})
     rec, stats = inverse_tile_rec_plain(scene, cfg, p, d, alive, uniforms, orig, keys)
-    perm = kernel_view(scene, cfg).perm
-    return grids_from_edge_records(rec, pix.T, scene, cfg, perm).float(), stats
+    view = kernel_view(scene, cfg)
+    if kernel_order:
+        return grids_from_edge_records(rec, pix.T, view.scene, cfg), stats
+    return grids_from_edge_records(rec, pix.T, scene, cfg, view.perm).float(), stats
 
 
 def grids_from_edge_records(

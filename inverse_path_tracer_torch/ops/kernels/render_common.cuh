@@ -34,7 +34,8 @@
 //
 // B10, the clustered sweep (replaces the cluster-chunked sweep of the JAX
 // package's _make_geom, render_kernel.py:358-527).  On scenes of at least
-// 512 padded triangles the tables are in an internal order whose
+// CLUSTER_MIN_TP padded triangles (ops/kernels/clusters.py: 128 on the H100,
+// 512 in the JAX package) the tables are in an internal order whose
 // contiguous runs of cluster_k triangles are spatially compact clusters
 // (ops/kernels/clusters.py; 16 by default on this card), and runs of
 // cluster_group clusters 1.. have a group box, the union of theirs.

@@ -388,10 +388,14 @@ def _library(name: str):
     elif name == "inverse":
         lib.ipt_inverse_grid_blocks.argtypes = [params, ctypes.POINTER(ci)]
         lib.ipt_inverse_grid_blocks.restype = ci
-        lib.ipt_inverse_grid.argtypes = [params, vp, vp, vp, ci, vp]  # pix partials stats blocks stream
+        # pix partials stats next_ray blocks stream
+        lib.ipt_inverse_grid.argtypes = [params, vp, vp, vp, vp, ci, vp]
         lib.ipt_inverse_grid.restype = ci
         lib.ipt_inverse_rec.argtypes = [params, vp, vp, vp]  # rec stats stream
         lib.ipt_inverse_rec.restype = ci
+        # pix grid stats next_ray stream
+        lib.ipt_inverse_global.argtypes = [params, vp, vp, vp, vp, vp]
+        lib.ipt_inverse_global.restype = ci
     else:
         lib.ipt_grad_tile.argtypes = [params, vp, vp, vp]  # g partials stream
         lib.ipt_grad_tile.restype = ci

@@ -147,7 +147,7 @@ def _kernels(cfg: RenderConfig, scene: SceneData, materials: torch.Tensor) -> _K
 def _use_staged(cfg: RenderConfig, scene: SceneData) -> bool:
     """The bounce-loop organisation (JAX render/forward.py:580-611): "auto"
     is staged exactly where the scene is clustered (cluster_k_for > 0: at
-    least 512 padded triangles), "mega" and "staged" force either (an
+    least CLUSTER_MIN_TP padded triangles), "mega" and "staged" force either (an
     unknown value is refused by RenderConfig)."""
     if cfg.wavefront == "auto":
         return cluster_k_for(scene.n_tri, cfg) > 0

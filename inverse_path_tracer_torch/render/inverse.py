@@ -24,10 +24,12 @@ Two routes (trace_transport_range):
     port's oracle, held against the JAX XLA path in the tests.
   * cfg.backend="auto" (needs p_spec == 0): per launch the B5 kernel
     (ops/kernels/inverse_kernel.py inverse_tile), whose grid lives in shared
-    memory, on scenes where inverse_grid_fits(); B6 (inverse_tile_rec) and
-    grids_from_edge_records otherwise, which maps the internal triangle
-    indices of a clustered scene (ops/kernels/clusters.py) back to global
-    ones.  On CPU tensors the wrappers run their plain versions.
+    memory, on scenes where inverse_grid_fits(); B6 with the global-grid
+    sink (inverse_tile_global) otherwise, which adds every launch's edges
+    into one float64 grid of the range in the kernels' triangle order,
+    mapped back to global order once per range (unperm_grid) on a clustered
+    scene (ops/kernels/clusters.py).  No records are written on either
+    route.  On CPU tensors the wrappers run their plain versions.
 
 Rays follow render/forward.py: launches of cfg.tile_size global sample
 indices.  With cfg.rng="fused" the bounce uniforms are the counter hash of
@@ -52,10 +54,10 @@ from inverse_path_tracer_torch.ops.intersect import intersect_fast, smooth_norma
 from inverse_path_tracer_torch.ops.kernels.inverse_kernel import (
     N_QUANT,
     grids_from_acc,
-    grids_from_edge_records,
     inverse_grid_fits,
     inverse_tile,
-    inverse_tile_rec,
+    inverse_tile_global,
+    unperm_grid,
 )
 from inverse_path_tracer_torch.ops.kernels.clusters import kernel_perm
 from inverse_path_tracer_torch.ops.kernels.render_kernel import pack_tables
@@ -230,7 +232,7 @@ def trace_transport_range(
     are described in the module docstring; cfg.backend="auto" needs p_spec
     == 0 and raises otherwise.  B5 takes scenes where inverse_grid_fits()
     (grid and tables within 227 KB of shared memory, about nT <= 78 on a
-    flat scene); B6 and the records reduction take larger ones.
+    flat scene); B6's global-grid sink takes larger ones.
 
     Returns TransportGrids (float32) and the RenderStats (segments, shadow
     rays) of the trace, counted per lane as the forward kernel counts them."""
@@ -245,7 +247,7 @@ def trace_transport_range(
     else:
         tables = pack_tables(scene, scene.diffuse, cfg) if dev.type == "cuda" else None
         perm = kernel_perm(scene, cfg)
-        route = "grid" if inverse_grid_fits(scene) else "records"
+        route = "grid" if inverse_grid_fits(scene) else "global"
         grid = torch.zeros((nt + 1, nt, N_QUANT), dtype=torch.float64, device=dev)
     totals = torch.zeros(2, dtype=torch.float64, device=dev)
     camera_key = rng.fold_in(key, rng.CAMERA_STREAM)
@@ -259,9 +261,11 @@ def trace_transport_range(
             out, stats = inverse_tile(scene, cfg, pix=pixel.T.contiguous(), tables=tables, **a)
             grid += out
         else:
-            rec, stats = inverse_tile_rec(scene, cfg, tables=tables, **a)
-            grid += grids_from_edge_records(rec, pixel, scene, cfg, perm)
+            _, stats = inverse_tile_global(scene, cfg, pix=pixel.T.contiguous(), tables=tables,
+                                           acc=grid, **a)
         totals += stats.sum(dim=1, dtype=torch.float64)
+    if route == "global":  # the kernels' order -> global, once per range
+        grid = unperm_grid(grid, perm)
     grids = _grids_from_cols(grid) if route == "wavefront" else grids_from_acc(grid)
     counts = totals.to(torch.int64)
     return grids, RenderStats(segments=counts[0], shadow_rays=counts[1])

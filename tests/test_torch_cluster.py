@@ -120,9 +120,9 @@ def test_tables_match_jax_on_a_small_clustered_scene(small_clusters):
 
 def test_cluster_policy():
     cfg = RenderConfig()
-    assert clusters.cluster_k_for(30, cfg) == 0 and clusters.cluster_k_for(504, cfg) == 0
-    # The auto width of this card on every clustered scene (pads to 512 and up).
-    for n_tri in (505, 1298, 4000):
+    assert clusters.cluster_k_for(30, cfg) == 0 and clusters.cluster_k_for(120, cfg) == 0
+    # The auto width of this card on every clustered scene (pads to 128 and up).
+    for n_tri in (121, 242, 505, 1298, 4000):
         assert clusters.cluster_k_for(n_tri, cfg) == clusters.CLUSTER_AUTO_K == 16
     assert clusters.cluster_k_for(1298, cfg.with_(cluster_k=768)) == 768
     assert clusters.kernel_perm(large_scene(), cfg.with_(tri_order="file")) is None

@@ -13,7 +13,10 @@ kernels and the plain one-hot contraction sum in different orders).  The
 inverse kernels: B5's grid rtol 1e-4 with the same floor (shared-memory
 atomics add in no fixed order) and visit counts equal; B6's hit and nee_ok
 rows equal and its other rows within rtol 1e-4 / atol 1e-5 where their mask
-is set.
+is set.  B6's global-grid sink: its float64 grid against B6's records
+reduced by grids_from_edge_records on the same rays, the same float32
+quantities summed in float64 in another order: rtol 1e-9 with an absolute
+floor of 1e-12 of the largest entry, visit counts equal.
 """
 
 import os
@@ -173,6 +176,14 @@ def grid_close(got, want):
     assert torch.equal(got[..., 8], want[..., 8])
 
 
+def grid64_close(got, want):
+    """Float64 grids of the same float32 quantities summed in different
+    orders: rtol 1e-9 with an absolute floor of 1e-12 of the largest entry
+    (a float32 sum misses it), visit counts equal."""
+    torch.testing.assert_close(got, want, rtol=1e-9, atol=1e-12 * float(want.abs().max()))
+    assert torch.equal(got[..., 8], want[..., 8])
+
+
 def sphere_scene(card, tmp_path):
     from inverse_path_tracer_torch import build_scene
     from inverse_path_tracer_torch.assets.make_fixture import sphere_obj_text
@@ -223,25 +234,79 @@ def test_inverse_kernels_match_plain(card, scene0, mode):
     assert float(grid[..., 8].sum()) > cfg.n_samples
 
 
-def test_inverse_records_kernel_on_a_vertex_normal_scene(card, tmp_path):
+def test_inverse_records_kernel_on_a_vertex_normal_scene(card, tmp_path, monkeypatch):
+    """B6's records sink on the 242-triangle sphere scene, clustered (the
+    auto layout) and with the dense sweep."""
+    from inverse_path_tracer_torch.ops.kernels import clusters
     from inverse_path_tracer_torch.ops.kernels.inverse_kernel import (
         inverse_grid_fits,
         inverse_tile,
         inverse_tile_rec,
         inverse_tile_rec_plain,
     )
+    from inverse_path_tracer_torch.ops.kernels.render_kernel import pack_tables
 
     scene = sphere_scene(card, tmp_path)
     assert scene.has_vertex_normals and not inverse_grid_fits(scene)
     cfg = RenderConfig(width=32, height=32, spp=4, max_bounces=8)
     args = tile_args(scene, cfg, card, "fused")
     pix = torch.rand((3, cfg.n_samples), generator=torch.Generator().manual_seed(5)).to(card)
-    rec, st = inverse_tile_rec(scene, cfg, **args)
-    rec_p, st_p = inverse_tile_rec_plain(scene, cfg, **args)
-    assert_records_match(rec, rec_p)
-    assert torch.equal(st, st_p)
+    for dense in (False, True):
+        if dense:
+            monkeypatch.setattr(clusters, "CLUSTER_MIN_TP", 1 << 30)
+        assert (pack_tables(scene, scene.diffuse, cfg).cluster_k == 0) is dense
+        rec, st = inverse_tile_rec(scene, cfg, **args)
+        rec_p, st_p = inverse_tile_rec_plain(scene, cfg, **args)
+        assert_records_match(rec, rec_p)
+        assert torch.equal(st, st_p)
     with pytest.raises(ValueError, match="shared memory"):
         inverse_tile(scene, cfg, pix=pix, **args)
+
+
+@pytest.mark.parametrize("mode", ["external", "fused"])
+@pytest.mark.parametrize("kind", ["scene0", "sphere", "sphere_dense", "large"])
+def test_global_grid_matches_reduced_records(card, tmp_path, monkeypatch, kind, mode):
+    """B6's global-grid sink against B6's records reduced on the same rays
+    (clustered on the sphere and large scenes, whose grids are mapped back;
+    sphere_dense: the sphere with the dense sweep), and the per-ray counts
+    of both sinks (and of B5 where its grid fits) equal to their plain
+    versions."""
+    from inverse_path_tracer_torch import large_scene
+    from inverse_path_tracer_torch.ops.kernels import clusters
+    from inverse_path_tracer_torch.ops.kernels.inverse_kernel import (
+        grids_from_edge_records,
+        inverse_grid_fits,
+        inverse_tile,
+        inverse_tile_global,
+        inverse_tile_rec,
+        inverse_tile_rec_plain,
+        unperm_grid,
+    )
+    from inverse_path_tracer_torch.ops.kernels.render_kernel import pack_tables
+
+    scene = {"scene0": lambda: load_scene(SCENE0, asset_root=ASSET_ROOT).to(card),
+             "sphere": lambda: sphere_scene(card, tmp_path),
+             "sphere_dense": lambda: sphere_scene(card, tmp_path),
+             "large": lambda: large_scene(card)}[kind]()
+    if kind == "sphere_dense":
+        monkeypatch.setattr(clusters, "CLUSTER_MIN_TP", 1 << 30)
+    cfg = RenderConfig(width=32, height=32, spp=4, max_bounces=8)
+    args = tile_args(scene, cfg, card, mode)
+    pix = torch.rand((3, cfg.n_samples), generator=torch.Generator().manual_seed(7)).to(card)
+    tabs = pack_tables(scene, scene.diffuse, cfg)
+    assert (tabs.cluster_k > 0) is (kind in ("sphere", "large"))  # 242 and 1298 triangles
+    before = inverse_tile_global.launches
+    acc, st_g = inverse_tile_global(scene, cfg, pix=pix, tables=tabs, **args)
+    assert inverse_tile_global.launches == before + 1
+    rec, st_r = inverse_tile_rec(scene, cfg, tables=tabs, **args)
+    _, st_p = inverse_tile_rec_plain(scene, cfg, **args)
+    grid64_close(unperm_grid(acc, tabs.perm),
+                 grids_from_edge_records(rec, pix.T, scene, cfg, tabs.perm))
+    assert torch.equal(st_g, st_p) and torch.equal(st_r, st_p)
+    if inverse_grid_fits(scene):
+        _, st5 = inverse_tile(scene, cfg, pix=pix, tables=tabs, **args)
+        assert torch.equal(st5, st_p)
+    assert float(acc[..., 8].sum()) > cfg.n_samples
 
 
 def test_extraction_routes_and_p_spec(card, scene0):

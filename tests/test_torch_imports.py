@@ -1,5 +1,6 @@
-"""The port stands alone: no module of inverse_path_tracer_torch, and not
-chip_smoke.py, imports jax or anything of inverse_path_tracer_tpu."""
+"""The port stands alone: no module of inverse_path_tracer_torch, not
+chip_smoke.py and no script of tools/ imports jax or anything of
+inverse_path_tracer_tpu."""
 
 import ast
 import os
@@ -15,9 +16,14 @@ FORBIDDEN = ("jax", "jaxlib", "inverse_path_tracer_tpu")
 
 def port_files():
     files = [os.path.join(REPO, "chip_smoke.py")]
-    for root, _, names in os.walk(PORT):
-        files += [os.path.join(root, n) for n in names if n.endswith(".py")]
+    for top in (PORT, os.path.join(REPO, "tools")):
+        for root, _, names in os.walk(top):
+            files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     return sorted(files)
+
+
+def test_tools_are_checked():
+    assert os.path.join(REPO, "tools", "time_extract.py") in port_files()
 
 
 def imported_modules(path):

@@ -7,7 +7,11 @@
     visit counts equal.
   * The kernel route (backend="auto", the B5/B6 plain versions on the CPU)
     against the wavefront path on the same rays: DIFFUSE channel rtol 1e-4 /
-    atol 1e-5, counts equal.
+    atol 1e-5, counts equal.  The route takes B5 (inverse_tile) where
+    inverse_grid_fits and B6's global-grid sink (inverse_tile_global)
+    elsewhere, never the records sink; the global route against the JAX XLA
+    path on a vertex-normal scene past inverse_grid_fits, on JAX's rays and
+    _inv_uniforms, the same tolerance.
   * compress_grids against JAX on random grids (negative w_sum, zero
     factors) and on the hand-built case of tests/test_inverse.py:103.
   * The fused RNG: the camera and the bounce loop read disjoint counter-hash
@@ -42,14 +46,14 @@ RTOL, ATOL = 1e-4, 1e-5
 CPU = dict(device="cpu")
 
 
-def jax_scene(kind, tmp_path):
+def jax_scene(kind, tmp_path, rings=4, segments=6):
     if kind == "cornell":
         return jipt.load_scene(SCENE0, asset_root=ASSET_ROOT)
     from inverse_path_tracer_tpu.scene.build import build_scene
     from inverse_path_tracer_tpu.scene.dsl import ObjectParams
 
     obj = tmp_path / "sphere.obj"
-    obj.write_text(sphere_obj_text(rings=4, segments=6))
+    obj.write_text(sphere_obj_text(rings=rings, segments=segments))
     box = ObjectParams(pos=(0, 0, 4), scl=(2, 2, 2),
                        obj_file="CornellBox/CornellBox-Empty-CO.obj",
                        mtl_file="CornellBox/CornellBox-Empty-CO.mtl")
@@ -123,6 +127,78 @@ def test_kernel_route_matches_wavefront(kind, tmp_path):
     assert [int(x) for x in stats] == [int(x) for x in plain_stats]
     assert int(stats.segments) >= int(auto.count[-ts.n_tri:].sum())  # eye edges <= segments
     assert int(stats.shadow_rays) > 0
+
+
+@pytest.mark.parametrize("kind,route", [("cornell", "grid"), ("big_sphere", "global")])
+def test_extraction_route_choice(kind, route, tmp_path, monkeypatch):
+    """B5 where its grid fits shared memory, B6's global-grid sink past it;
+    the records sink is on neither route, and the route module reaches
+    neither it nor the records reduction (on the CPU the plain versions
+    reduce records themselves)."""
+    from inverse_path_tracer_torch.ops.kernels import inverse_kernel as ik
+    from inverse_path_tracer_torch.render import inverse as rinv
+
+    js = jax_scene("cornell" if kind == "cornell" else "sphere", tmp_path, rings=6, segments=8)
+    ts = port_scene(js)
+    assert ik.inverse_grid_fits(ts) is (route == "grid")
+    calls = {"grid": 0, "global": 0, "records": 0}
+
+    def spy(name, fn):
+        def wrapped(*a, **k):
+            calls[name] += 1
+            return fn(*a, **k)
+        return wrapped
+
+    monkeypatch.setattr(rinv, "inverse_tile", spy("grid", rinv.inverse_tile))
+    monkeypatch.setattr(rinv, "inverse_tile_global", spy("global", rinv.inverse_tile_global))
+    monkeypatch.setattr(ik, "inverse_tile_rec", spy("records", ik.inverse_tile_rec))
+    cfg = RenderConfig(width=8, height=8, spp=2, max_bounces=4, tile_size=64)
+    trace_transport_range(ts, torch.from_numpy(target(cfg)), 2, cfg, 0, cfg.n_samples, **CPU)
+    assert calls == {"grid": 2 if route == "grid" else 0, "global": 2 if route == "global" else 0,
+                     "records": 0}
+    assert not hasattr(rinv, "inverse_tile_rec") and not hasattr(rinv, "grids_from_edge_records")
+
+
+def test_global_route_matches_jax_xla(tmp_path):
+    """The global-grid route (B6's plain twin on the CPU) on a vertex-normal
+    scene past inverse_grid_fits against the JAX XLA path on JAX's rays and
+    _inv_uniforms: the DIFFUSE channel and counts, as
+    test_kernel_route_matches_wavefront holds the kernel route."""
+    from inverse_path_tracer_torch.ops.kernels.inverse_kernel import inverse_grid_fits
+
+    js = jax_scene("sphere", tmp_path, rings=6, segments=8)
+    ts = port_scene(js)
+    assert ts.has_vertex_normals and not inverse_grid_fits(ts)
+    shape = dict(width=8, height=8, spp=4, max_bounces=6, tile_size=100)
+    jcfg = jipt.RenderConfig(backend="xla", **{**shape, "tile_size": 256})
+    key = jax.random.PRNGKey(11)
+    img = target(jcfg, seed=3)
+    want = jinv.trace_transport_range(js, jnp.asarray(img), key, jcfg, jnp.int32(0),
+                                      jcfg.n_samples)
+    p, d, u = jax_inputs(js, jcfg, key)
+    tcfg = RenderConfig(rng="external", **shape)
+    got, stats = trace_transport_range(ts, torch.from_numpy(img), 0, tcfg, 0, tcfg.n_samples,
+                                       rays=(p, d), uniforms=u, **CPU)
+    assert_grids_close(got, want, channels=(0,))
+    assert float(got.count.sum()) > tcfg.n_samples and int(stats.shadow_rays) > 0
+
+
+def test_clustered_extraction_matches_dense(tmp_path, monkeypatch):
+    """The 242-triangle vertex-normal scene (248 padded) is clustered at this
+    card's threshold; its extraction, in the kernels' internal order mapped
+    back once per range, equals the dense one in global order."""
+    from inverse_path_tracer_torch.ops.kernels import clusters
+
+    ts = port_scene(jax_scene("sphere", tmp_path, rings=8, segments=16))
+    cfg = RenderConfig(width=8, height=8, spp=2, max_bounces=4, tile_size=64)
+    assert ts.n_tri == 242 and clusters.cluster_k_for(ts.n_tri, cfg) == 16
+    img = torch.from_numpy(target(cfg, seed=4))
+    clustered, stats = trace_transport_range(ts, img, 6, cfg, 0, cfg.n_samples, **CPU)
+    monkeypatch.setattr(clusters, "CLUSTER_MIN_TP", 512)
+    dense, dense_stats = trace_transport_range(ts, img, 6, cfg, 0, cfg.n_samples, **CPU)
+    assert_grids_close(clustered, dense, channels=(0,))
+    assert [int(x) for x in stats] == [int(x) for x in dense_stats]
+    assert float(clustered.count.sum()) > cfg.n_samples
 
 
 def test_ranges_sum_and_fused_is_deterministic():

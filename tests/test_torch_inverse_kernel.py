@@ -11,6 +11,10 @@ on the CPU.
     the hit and nee_ok rows equal; dst, src and w where hit, nee_w and e_idx
     where nee_ok, rtol 1e-4 / atol 1e-5.  Pallas leaves stale values in the
     slots after a path ends; the port writes zeros there.
+  * B6's global-grid sink (inverse_tile_global, its plain twin on the CPU)
+    against the interpreted inverse_tile_pallas, as B5's plain grid is held;
+    it adds into the caller's float64 grid in the kernels' order, which
+    unperm_grid maps back to B5's global order on a clustered scene.
   * grids_from_edge_records against _grids_from_edge_records on the same
     records (rtol 2e-4 / atol 1e-3, as tests/test_pallas_inverse.py:172)
     and against B5's plain grid; the 2M-record, ~1e13-prefix case of
@@ -40,8 +44,10 @@ from inverse_path_tracer_torch.ops.kernels.inverse_kernel import (
     inverse_grid_fits,
     inverse_tile,
     inverse_tile_plain,
+    inverse_tile_global,
     inverse_tile_rec,
     inverse_tile_rec_plain,
+    unperm_grid,
 )
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -100,6 +106,56 @@ def test_grid_plain_matches_pallas_interpret(scenes, mode):
         np.testing.assert_allclose(getattr(got, name).numpy(), np.asarray(getattr(want, name)),
                                    rtol=RTOL, atol=ATOL, err_msg=name)
     assert float(got.count.sum()) > N and float(stats[0].sum()) > N
+
+
+@pytest.mark.parametrize("mode", ["external", "fused"])
+def test_global_sink_plain_matches_pallas_interpret(scenes, mode):
+    """inverse_tile_global on the CPU against the interpreted B5 Pallas
+    kernel (_kernel_inv's grid) on the same rays."""
+    js, ts = scenes
+    want_acc, _, stats_b5, pix = run_both(scenes, mode, seed=5, records=False)
+    p, d, alive, _, orig, u = inputs(5)
+    fused = mode == "fused"
+    acc, stats = inverse_tile_global(ts, RenderConfig(max_bounces=BOUNCES),
+                                     *map(torch.from_numpy, (p, d, alive, pix)),
+                                     uniforms=None if fused else torch.from_numpy(u),
+                                     orig=torch.from_numpy(orig),
+                                     keys=rng.key_words(13) if fused else None)
+    assert acc.dtype == torch.float64 and acc.shape == (ts.n_tri + 1, ts.n_tri, 9)
+    want = jik.grids_from_acc(jnp.asarray(want_acc), ts.n_tri)
+    got = grids_from_acc(acc)
+    np.testing.assert_array_equal(got.count.numpy(), np.asarray(want.count))
+    for name in ("w_sum", "pixel_sum", "light_sum", "factors_sum"):
+        np.testing.assert_allclose(getattr(got, name).numpy(), np.asarray(getattr(want, name)),
+                                   rtol=RTOL, atol=ATOL, err_msg=name)
+    assert torch.equal(stats, stats_b5)
+
+
+def test_global_sink_adds_in_kernel_order(scenes, monkeypatch):
+    """The global sink adds into the caller's grid in the kernels' internal
+    order (clusters of 8 on scene 0); unperm_grid gives B5's global grid."""
+    from inverse_path_tracer_torch.ops.kernels import clusters
+
+    _, ts = scenes
+    monkeypatch.setattr(clusters, "CLUSTER_MIN_TP", 8)
+    cfg = RenderConfig(max_bounces=BOUNCES, cluster_k=8)
+    perm = clusters.kernel_perm(ts, cfg)
+    assert perm is not None and not torch.equal(perm, torch.arange(ts.n_tri))
+    p, d, alive, pix, orig, u = map(torch.from_numpy, inputs(6))
+    args = dict(p=p, d=d, alive=alive, pix=pix, uniforms=u, orig=orig)
+    before = inverse_tile_global.launches
+    once, stats = inverse_tile_global(ts, cfg, **args)
+    acc = torch.zeros_like(once)
+    for _ in range(2):
+        out, _ = inverse_tile_global(ts, cfg, acc=acc, **args)
+        assert out is acc
+    assert inverse_tile_global.launches == before  # the CPU runs the plain twin
+    torch.testing.assert_close(acc, 2 * once, rtol=1e-12, atol=0)
+    grid, stats_b5 = inverse_tile_plain(ts, cfg, **args)
+    torch.testing.assert_close(unperm_grid(once, perm).float(), grid, rtol=1e-6, atol=1e-6)
+    assert torch.equal(stats, stats_b5)
+    with pytest.raises(ValueError, match="acc"):
+        inverse_tile_global(ts, cfg, acc=acc.float(), **args)
 
 
 @pytest.mark.parametrize("mode", ["external", "fused"])
