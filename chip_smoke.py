@@ -39,9 +39,13 @@ Phases, each failing loudly (any failure exits nonzero):
   9. recovery: recover_materials on scene 0 at 64x64/8 spp/8 bounces, 30
      Adam steps at lr 0.1 against a render at the true Kd with another key:
      last loss < 0.75 x first and Kd error < 0.7 x the start's
-     (tests/test_utils.py:66-71); ms per step;
+     (tests/test_utils.py:66-71); ms per step; then 3 steps, a checkpoint
+     and a resume to 6, bit-equal to 6 uninterrupted steps;
  10. per-kernel timing at the main path's launch shape beside its bound and
-     its plain version;
+     its plain version; there B3's whole record array against its plain
+     version (the slots past each ray's last bounce exactly 0 in both), B3's
+     radiance and counts equal to B1's, B2 bit-equal across two calls, and
+     the persistent grids of B2 and B3;
  11. B5 (dense edge grid) and B6 (edge records, and the global-grid sink)
      against their plain versions at 64x64/4 spp/8 bounces: scene 0 and
      the specular variant (B5 and B6), the vertex-normal scene (B6;
@@ -607,7 +611,9 @@ def loss_and_grad_path(device, grad_ref):
         st = out[0][2]
         rays = int(st.segments) + int(st.shadow_rays)
         log(f"loss_and_grad_range run {k}: {t:.3f} ms, {rays / (t / 1e3):.6e} rays/s")
-    profile_once("one loss_and_grad_range", lambda: run(7))
+    profile_once("one loss_and_grad_range", lambda: run(7),
+                 ops=("cudaLaunchKernel", "cudaMemsetAsync", "cudaMalloc", "cudaFree",
+                      "cudaStreamSynchronize", "aten::_local_scalar_dense"))
     return launches
 
 
@@ -653,7 +659,9 @@ def fd_gate(device, scene=None, mats=None, label="scene 0"):
 
 def recovery(device):
     """Phase 9: recover_materials on scene 0 against a render at the true Kd
-    (tests/test_utils.py:52-71 at 64x64/8 spp/8 bounces)."""
+    (tests/test_utils.py:52-71 at 64x64/8 spp/8 bounces); then 6 steps
+    with a checkpoint after 3 and a resume from it, which must equal 6
+    uninterrupted steps bit for bit (the gradient goes through B2)."""
     import torch
 
     from inverse_path_tracer_torch import RenderConfig, recover_materials, render_image
@@ -674,6 +682,22 @@ def recovery(device):
         f"({err / err0:.3f}x), {ms_step:.2f} ms per step -> {'OK' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError("recovery missed its criteria")
+
+    os.makedirs(OUT_DIR, exist_ok=True)
+    ckpt = os.path.join(OUT_DIR, "recover_resume.npz")
+    if os.path.exists(ckpt):
+        os.remove(ckpt)
+    run = lambda steps, **kw: recover_materials(scene, target, cfg, steps=steps, lr=0.1, key=1,
+                                                device=device, **kw)
+    whole, whole_losses = run(6)
+    run(3, checkpoint_path=ckpt, checkpoint_every=3)
+    resumed, tail_losses = run(6, checkpoint_path=ckpt, checkpoint_every=3, resume=True)
+    same = torch.equal(resumed, whole) and tail_losses == whole_losses[3:]
+    log(f"recovery resume: 3 steps, checkpoint, resume to 6 -> Kd bit-equal to 6 uninterrupted "
+        f"steps {torch.equal(resumed, whole)}, losses of steps 3-5 equal "
+        f"{tail_losses == whole_losses[3:]} -> {'OK' if same else 'FAIL'}")
+    if not same:
+        raise AssertionError("a resumed recovery differs from the uninterrupted one")
     return ms_step
 
 
@@ -1080,20 +1104,33 @@ def kernel_timing(device, launches, check_err):
     dp = grad_tile_plain(mats, scene, cfg, g=g, **a)
     d4 = reverse_tile(nt, cfg, rec, g)
     d4p = reverse_tile_plain(nt, cfg, rec, g)
+    dk2 = grad_tile(mats, scene, cfg, g=g, **a)  # B2 again: the same sums in the same order
     torch.cuda.synchronize()
     err = {"render_fwd": float((rk - rp).abs().max()),
            "render_fwd_rec": float((rec - rec_p).abs().max()),
            "render_bwd_grad": float((dk - dp).abs().max()),
            "render_bwd_reverse": float((d4 - d4p).abs().max())}
+    # B3's whole record array, the zeros past each ray's last bounce
+    # included: slots at or past a lane's segment count are exactly 0 in the
+    # kernel's and the plain version's arrays.
+    past = torch.arange(cfg.max_bounces, device=device)[:, None] >= sk[0].long()[None, :]
+    slot_max = lambda r: r.view(cfg.max_bounces, 16, n).abs().amax(dim=1)
+    zeros_ok = not bool(slot_max(rec)[past].any()) and not bool(slot_max(rec_p)[past].any())
+    b2_repeat = torch.equal(dk2, dk)
     ok = (torch.allclose(rk, rp, rtol=1e-4, atol=1e-5) and torch.equal(sk, sp)
           and torch.equal(rr, rk) and torch.equal(sr, sk)
-          and torch.allclose(rec, rec_p, rtol=1e-4, atol=1e-5)
-          and grad_close(dk, dp) and grad_close(d4, d4p))
+          and torch.allclose(rec, rec_p, rtol=1e-4, atol=1e-5) and zeros_ok
+          and grad_close(dk, dp) and grad_close(d4, d4p) and b2_repeat)
     log(f"full shape (3, {n}): max |kernel - plain| " +
-        ", ".join(f"{k} {e:.3e}" for k, e in err.items()) + f" -> {'OK' if ok else 'FAIL'}")
+        ", ".join(f"{k} {e:.3e}" for k, e in err.items()) +
+        f"; B3 radiance and counts = B1 {torch.equal(rr, rk) and torch.equal(sr, sk)}, B3 "
+        f"records within rtol 1e-4 / atol 1e-5 of plain over the whole array, "
+        f"{int(past.sum())} unreached slots exactly 0 {zeros_ok}; B2 twice bit-equal "
+        f"{b2_repeat}; persistent grids: B2 {grad_tile.blocks} blocks, B3 "
+        f"{render_tile_rec.blocks} blocks of 256 -> {'OK' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError("a kernel disagrees with its plain version at full shape")
-    del rec_p
+    del rec_p, past
     timed = {
         "render_fwd": (lambda: render_tile(mats, scene, cfg, **a),
                        lambda: render_tile_plain(mats, scene, cfg, **a)),
@@ -1108,10 +1145,12 @@ def kernel_timing(device, launches, check_err):
     plain_ms = {k: cuda_ms(fn, 2) for k, (_, fn) in timed.items()}
 
     # Bounds, from this launch's rays.  Operations: the closest-hit sweeps the
-    # rays needed, over the f32 peak.  A live primary ray is swept once before
-    # the loop; every segment that hits sweeps twice (shadow ray and next ray,
-    # both before roulette), and on a scene with emitters the hit segments
-    # are the shadow-ray count; escaping segments sweep nothing.  Each (ray,
+    # rays needed, over the f32 peak.  A path of k segments needs its primary
+    # sweep and the k - 1 sweeps of the rays that continued it (one per
+    # segment), and a shadow sweep per segment that hit, which on a scene
+    # with emitters is the shadow-ray count: segments + shadow rays sweeps
+    # (B1 also sweeps the next ray of a segment that roulette ends, which
+    # B2 and B3 skip).  Each (ray,
     # triangle) pair needs the face-plane test; the edge-plane tests run only
     # for candidates, which the run does not count, so they are left out and
     # the bound is a floor (the full four-plane test on every pair is printed
@@ -1123,10 +1162,9 @@ def kernel_timing(device, launches, check_err):
     # max_bounces, and g.  d materials out is nT*3 floats.
     if scene.n_emissive == 0:
         raise AssertionError("the bound counts hit segments by shadow rays")
-    primaries, segments, shadows = (float(a["alive"].sum()), float(sk[0].sum()),
-                                    float(sk[1].sum()))
+    segments, shadows = float(sk[0].sum()), float(sk[1].sum())
     stopped_early = float((sk[0] < cfg.max_bounces).sum())
-    pairs = (primaries + 2 * shadows) * nt
+    pairs = (segments + shadows) * nt
     f_ops = lambda ops: ops / PEAK_F32_OPS * 1e3
     f_bytes = lambda nbytes: nbytes / PEAK_BYTES * 1e3
     t_sweep = f_ops(pairs * FACE_PLANE_OPS)
@@ -1988,7 +2026,7 @@ def large_kernel_timing(device, launches, check_err, large_target):
     for lib, kernel, regs, st, ld in report:
         log(f"  ptxas {lib} {kernel}: {regs} registers, spill stores {st} B, spill loads {ld} B")
     b8_b1 = [(st, ld) for _, kernel, _, st, ld in report
-             if kernel.startswith(("stage_kernel", "render_fwd_kernel<false"))]
+             if kernel.startswith(("stage_kernel", "render_fwd_kernel<"))]
     if b8_b1:
         log(f"clustered B8 and B1 spill-free: {all(st == 0 and ld == 0 for st, ld in b8_b1)}")
     else:

@@ -70,37 +70,6 @@ constexpr int kInvRows = 8;
 
 __host__ __device__ inline int grid_floats(int n_tri) { return (n_tri + 1) * n_tri * kQuant; }
 
-// Sums v[0..N) over the lanes of the calling warp's converged lanes that
-// pass `valid` with the same `key`.  Returns true on one lane per key, the
-// lowest, which then holds the sums in v and the lane count in *count.  The
-// loop is E. Westphal's warp-aggregated atomics ("Voting and shuffling to
-// optimize atomic operations", 2015): each round a lane adds the values of
-// the next remaining lane of its key, and every other remaining lane of a
-// key drops out, so a key held by k lanes takes ceil(log2 k) rounds.  The
-// lanes are the converged ones (__activemask), so a warp that diverged
-// aggregates within each part; the sums are the same.
-template <int N, class F>
-__device__ __forceinline__ bool warp_sum_by_key(bool valid, int key, F (&v)[N], int* count) {
-  const unsigned want = __ballot_sync(__activemask(), valid);
-  if (!valid) return false;
-  const unsigned peers = __match_any_sync(want, key);
-  const int lane = threadIdx.x & 31;
-  *count = __popc(peers);
-  int rel = __popc(peers & ((1u << lane) - 1u));
-  unsigned rest = peers & ~((2u << lane) - 1u);  // the key's lanes above this one
-  while (__any_sync(want, rest != 0u)) {
-    const int next = __ffs(rest) - 1;
-#pragma unroll
-    for (int k = 0; k < N; ++k) {
-      const F t = __shfl_sync(want, v[k], next < 0 ? lane : next);
-      if (next >= 0) v[k] += t;
-    }
-    rest &= __ballot_sync(want, (rel & 1) == 0);
-    rel >>= 1;
-  }
-  return lane == __ffs(peers) - 1;
-}
-
 // Adds one edge's quantities to g, the 9 entries of bin `bin`, for every
 // lane that passes `valid`: the lanes of the warp that hit one bin are
 // summed first in F (warp_sum_by_key) and one of them adds the sums.
@@ -110,7 +79,7 @@ __device__ __forceinline__ void add_edge(bool valid, int bin, F* g, float w, flo
   int count = 0;
   if (!nee) {  // the indirect edge: w*f0 = w, no light
     F v[4] = {w, wf * pix.x, wf * pix.y, wf * pix.z};
-    if (!warp_sum_by_key(valid, bin, v, &count)) return;
+    if (!warp_sum_by_key(__activemask(), valid, bin, v, &count)) return;
     atomicAdd(g + 0, v[0]);
     atomicAdd(g + 1, v[0]);
     atomicAdd(g + 2, v[1]);
@@ -119,7 +88,7 @@ __device__ __forceinline__ void add_edge(bool valid, int bin, F* g, float w, flo
   } else {
     F v[8] = {w, wf, wf * pix.x, wf * pix.y,
               wf * pix.z, wf * light.x, wf * light.y, wf * light.z};
-    if (!warp_sum_by_key(valid, bin, v, &count)) return;
+    if (!warp_sum_by_key(__activemask(), valid, bin, v, &count)) return;
 #pragma unroll
     for (int k = 0; k < 8; ++k) atomicAdd(g + k, v[k]);
   }
@@ -426,43 +395,9 @@ size_t grid_smem_bytes(const TraceParams& P) {
          smem_table_bytes(P);
 }
 
-// Per kernel instance and device, the dynamic shared memory the kernel was
-// last opted into and the blocks that then fit on the card at once; the
-// attribute and the occupancy query are redone only when a scene changes
-// the size.
-struct Capacity {
-  size_t smem;
-  int blocks;
-};
-constexpr int kMaxDevices = 64;
+// Per kernel instance and device: render_common.cuh capacity().
 Capacity g_grid_capacity[2][kMaxDevices] = {};
 Capacity g_global_capacity[2][kMaxDevices] = {};
-
-// Opts `kernel` into `smem` bytes on the current device and returns in
-// *blocks how many of its blocks fit on the card at once; `cache` holds one
-// entry per device.
-template <class K>
-cudaError_t capacity(K kernel, Capacity* cache, size_t smem, int* blocks) {
-  if (smem > static_cast<size_t>(kMaxSmem)) return cudaErrorInvalidValue;
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
-  Capacity& c = cache[dev];
-  if (c.smem != smem || c.blocks == 0) {
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
-    int per_sm = 0, sms = 0;
-    if (err == cudaSuccess)
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem);
-    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (err != cudaSuccess) return err;
-    if (per_sm < 1) return cudaErrorInvalidConfiguration;
-    c = Capacity{smem, per_sm * sms};
-  }
-  *blocks = c.blocks;
-  return cudaSuccess;
-}
 
 cudaError_t grid_capacity(const TraceParams& P, int* blocks) {
   const size_t smem = grid_smem_bytes(P);

@@ -4,13 +4,14 @@
 // (B10), the shading helpers and the bounce loop of one ray as a lane state
 // (Lane), an init step (init_lane) and a bounce step (bounce_step).
 //
-// trace_path (the mega kernels' loop) and the stage kernel run the same
-// steps; both are templated on a record sink, so that B1 (no records), B3
-// and B8 (records to global memory) and B2 (records in a per-thread array)
-// run one copy of the arithmetic.  Every file that includes this header is
-// built with -fmad=false (build.py), so B2's replay takes exactly the
-// branches of B1's forward, a staged render equals a mega one lane for
-// lane, and all of them round exactly as the plain PyTorch versions do.
+// trace_path (B1's loop), the regenerating loops of B2 and B3 (warp_rays
+// below) and the stage kernel run the same steps, templated on a record
+// sink, so that B1 (no records), B3 and B8 (records to global memory) and
+// B2 (records in a per-thread ring) run one copy of the arithmetic.  Every
+// file that includes this header is built with -fmad=false (build.py), so
+// B2's replay takes exactly the branches of B1's forward, a staged render
+// equals a mega one lane for lane, and all of them round exactly as the
+// plain PyTorch versions do.
 //
 // Records: kRecRows rows per bounce, row-major (slots * kRecRows, n),
 // lane-contiguous so that stores and loads coalesce.  The rows of bounce b
@@ -507,10 +508,8 @@ __device__ __forceinline__ void store_lane(float* carry, int n, int i, const Lan
   carry[static_cast<size_t>(23) * n + i] = 0.f;
 }
 
-// The initial lane of ray i: the bounce-0 intersection of a live ray (a
-// dead lane keeps a miss at point 0).
-template <bool kClustered>
-__device__ __forceinline__ Lane init_lane(const TraceParams& P, const Tables& T, int i) {
+// Ray i's lane before its primary sweep: a miss at point 0.
+__device__ __forceinline__ Lane fresh_lane(const TraceParams& P, int i) {
   const int n = P.n;
   Lane L;
   L.dir = v3(P.d[i], P.d[n + i], P.d[2 * n + i]);
@@ -520,13 +519,28 @@ __device__ __forceinline__ Lane init_lane(const TraceParams& P, const Tables& T,
   L.alive = P.alive[i] > 0.f;
   L.hit = false;
   L.idx = 0;
-  if (L.alive) {
-    const V3 o = v3(P.p[i], P.p[n + i], P.p[2 * n + i]);
-    const Hit h = intersect<kClustered>(P, T, o, L.dir);
-    L.hit = is_hit(h);
-    L.idx = h.idx;
-    L.point = hit_point(o, L.dir, h);
-  }
+  return L;
+}
+
+__device__ __forceinline__ V3 ray_origin(const TraceParams& P, int i) {
+  return v3(P.p[i], P.p[P.n + i], P.p[2 * P.n + i]);
+}
+
+// The pending ray's closest hit, from origin o along L.dir.
+template <bool kClustered>
+__device__ __forceinline__ void sweep_from(const TraceParams& P, const Tables& T, Lane& L, V3 o) {
+  const Hit h = intersect<kClustered>(P, T, o, L.dir);
+  L.hit = is_hit(h);
+  L.idx = h.idx;
+  L.point = hit_point(o, L.dir, h);
+}
+
+// The initial lane of ray i: the bounce-0 intersection of a live ray (a
+// dead lane keeps a miss at point 0).
+template <bool kClustered>
+__device__ __forceinline__ Lane init_lane(const TraceParams& P, const Tables& T, int i) {
+  Lane L = fresh_lane(P, i);
+  if (L.alive) sweep_from<kClustered>(P, T, L, ray_origin(P, i));
   return L;
 }
 
@@ -555,7 +569,11 @@ __device__ __forceinline__ void draw6(const TraceParams& P, int i, uint32_t h_or
 // `slot`.  The lane dies on escape (f = 0, nee = 0, c = the stale l_e +
 // l_d with quirks, else 0) and where roulette ends the path (f = 0, coeff
 // = 0); a dead lane keeps the rest of its state.  Returns L.alive.
-template <bool kClustered, class Sink>
+// kDefer leaves the next ray's sweep to the caller: a lane that goes on
+// keeps its hit point in L.point as the next ray's origin, and the caller
+// runs sweep_from(L, L.point), the same arithmetic, only where it needs the
+// hit (the regenerating kernels sweep every lane of a warp together).
+template <bool kClustered, bool kDefer = false, class Sink>
 __device__ __forceinline__ bool bounce_step(const TraceParams& P, const Tables& T, Lane& L, int b,
                                             const float u[6], Sink& sink, int slot) {
   L.segs += 1.f;
@@ -609,7 +627,7 @@ __device__ __forceinline__ bool bounce_step(const TraceParams& P, const Tables& 
   // reference's direct BSDF is kd + spec * phong).
   V3 nee = zero3();
   V3 l_d_fresh = zero3();
-  Hit nxt;
+  [[maybe_unused]] Hit nxt;  // unused under kDefer
   if (P.n_emissive > 0) {
     L.shadows += 1.f;
     int e = P.n_emissive - 1;  // u past cdf[-1] clamps to the last emitter
@@ -629,7 +647,7 @@ __device__ __forceinline__ bool bounce_step(const TraceParams& P, const Tables& 
     const V3 to_light = normalize3(emm - point);
     const float cos_theta = dot3(shade_n, to_light);
     const Hit sh = intersect<kClustered>(P, T, point, to_light);
-    nxt = intersect<kClustered>(P, T, point, next_dir);
+    if constexpr (!kDefer) nxt = intersect<kClustered>(P, T, point, next_dir);
     bool ok = cos_theta >= 0.f && is_hit(sh);
     const V3 light_n = P.has_vn
         ? smooth_at(hit_point(point, to_light, sh), er, er + 17, er[26])
@@ -643,7 +661,7 @@ __device__ __forceinline__ bool bounce_step(const TraceParams& P, const Tables& 
       nee = ld3(er + 9) * geo;
       l_d_fresh = bsdf_direct * nee;
     }
-  } else {
+  } else if constexpr (!kDefer) {
     nxt = intersect<kClustered>(P, T, point, next_dir);
   }
   L.l_d = l_d_fresh;
@@ -669,9 +687,11 @@ __device__ __forceinline__ bool bounce_step(const TraceParams& P, const Tables& 
   sink.put(slot, f, c, nee, pm, coeff, idx, true, false);
   L.pm = pm * f;
   L.dir = next_dir;
-  L.hit = is_hit(nxt);
-  L.idx = nxt.idx;
-  L.point = hit_point(point, next_dir, nxt);
+  if constexpr (!kDefer) {
+    L.hit = is_hit(nxt);
+    L.idx = nxt.idx;
+    L.point = hit_point(point, next_dir, nxt);
+  }
   return true;
 }
 
@@ -702,6 +722,111 @@ __device__ __forceinline__ PathOut trace_path(const TraceParams& P, const Tables
     }
   }
   return PathOut{L.rad, L.segs, L.shadows, n_reached, escaped};
+}
+
+// --- The regenerating schedule (B2, B3) ----------------------------------
+//
+// Persistent blocks, as many as fit on the card (capacity below).  Warp w of
+// the grid owns the contiguous rays [w * per, (w + 1) * per) of the launch,
+// per = ceil(n / warps), cut at n, and hands them out in order to the lanes
+// that ask, lowest lane first (take_ray).  The loop is warp-uniform, one
+// round per bounce: a lane whose path ends takes the next ray of its warp's
+// range at once, so a warp does not idle its lanes until its longest path
+// under roulette ends.  Which rays a lane traces, and when, depends only on
+// (n, the grid, the rays' path lengths); no counter is shared between
+// warps, so B2's sums are the same in every run on one card.
+// tests/test_torch_regen.py mirrors it for the CPU tests.
+
+constexpr unsigned kAllLanes = 0xffffffffu;
+
+struct WarpRays {
+  int next, end;  // the warp's unstarted rays [next, end)
+};
+
+__device__ __forceinline__ WarpRays warp_rays(int n) {
+  const long long warps = static_cast<long long>(gridDim.x) * kWarps;
+  const long long per = (n + warps - 1) / warps;
+  const long long lo = (static_cast<long long>(blockIdx.x) * kWarps + (threadIdx.x >> 5)) * per;
+  return WarpRays{static_cast<int>(lo < n ? lo : n), static_cast<int>(lo + per < n ? lo + per : n)};
+}
+
+// Every lane of the warp calls it.  A lane that asks gets the next ray of
+// the warp's range (lanes in order), or -1 once the range is used up.
+__device__ __forceinline__ int take_ray(WarpRays& w, bool ask) {
+  const unsigned asks = __ballot_sync(kAllLanes, ask);
+  const int lane = threadIdx.x & 31;
+  const int i = w.next + __popc(asks & ((1u << lane) - 1u));
+  w.next = min(w.next + __popc(asks), w.end);
+  return ask && i < w.end ? i : -1;
+}
+
+// Sums v[0..N) over the lanes of `lanes` that pass `valid` with the same
+// `key`; every lane of `lanes` calls it.  Returns true on one lane per key,
+// the lowest, which then holds the sums in v and the lane count in *count.
+// The loop is E. Westphal's warp-aggregated atomics ("Voting and shuffling
+// to optimize atomic operations", 2015): each round a lane adds the values
+// of the next remaining lane of its key, and every other remaining lane of
+// a key drops out, so a key held by k lanes takes ceil(log2 k) rounds.  The
+// sums are a fixed tree over the key's lanes in lane order, so they depend
+// only on (lanes, keys, values).  B5 and B6 pass the converged lanes
+// (__activemask()), B2, B4 and B9 all 32 (render_bwd.cu warp_add).
+template <int N, class F>
+__device__ __forceinline__ bool warp_sum_by_key(unsigned lanes, bool valid, int key, F (&v)[N],
+                                                int* count) {
+  const unsigned want = __ballot_sync(lanes, valid);
+  if (!valid) return false;
+  const unsigned peers = __match_any_sync(want, key);
+  const int lane = threadIdx.x & 31;
+  *count = __popc(peers);
+  int rel = __popc(peers & ((1u << lane) - 1u));
+  unsigned rest = peers & ~((2u << lane) - 1u);  // the key's lanes above this one
+  while (__any_sync(want, rest != 0u)) {
+    const int next = __ffs(rest) - 1;
+#pragma unroll
+    for (int k = 0; k < N; ++k) {
+      const F t = __shfl_sync(want, v[k], next < 0 ? lane : next);
+      if (next >= 0) v[k] += t;
+    }
+    rest &= __ballot_sync(want, (rel & 1) == 0);
+    rel >>= 1;
+  }
+  return lane == __ffs(peers) - 1;
+}
+
+// Per kernel instance and device, the dynamic shared memory the kernel was
+// last opted into and the blocks that then fit on the card at once; the
+// attribute and the occupancy query are redone only when a scene changes
+// the size.
+struct Capacity {
+  size_t smem;
+  int blocks;
+};
+constexpr int kMaxDevices = 64;
+
+// Opts `kernel` into `smem` bytes on the current device and returns in
+// *blocks how many of its blocks fit on the card at once; `cache` holds one
+// entry per device.
+template <class K>
+cudaError_t capacity(K kernel, Capacity* cache, size_t smem, int* blocks) {
+  if (smem > static_cast<size_t>(kMaxSmem)) return cudaErrorInvalidValue;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  Capacity& c = cache[dev];
+  if (c.smem != smem || c.blocks == 0) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    int per_sm = 0, sms = 0;
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem);
+    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return err;
+    if (per_sm < 1) return cudaErrorInvalidConfiguration;
+    c = Capacity{smem, per_sm * sms};
+  }
+  *blocks = c.blocks;
+  return cudaSuccess;
 }
 
 }  // namespace ipt

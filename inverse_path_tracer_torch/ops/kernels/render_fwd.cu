@@ -1,6 +1,7 @@
-// Forward path-tracing kernels for Hopper (sm_90a): the megakernel with and
-// without records (B1, B3), the staged wavefront's init and stage kernels
-// (B7, B8) and the clustered sweep launched on its own (B10).
+// Forward path-tracing kernels for Hopper (sm_90a): the megakernel (B1),
+// the megakernel with records on a regenerating schedule (B3), the staged
+// wavefront's init and stage kernels (B7, B8) and the clustered sweep
+// launched on its own (B10).
 //
 // B1 replaces the JAX package's Pallas TPU kernel render_tile_pallas /
 // _kernel_fwd (inverse_path_tracer_tpu/ops/pallas/render_kernel.py:1440,
@@ -11,20 +12,25 @@
 // Phong direction sampling, the reference quirks Q1/Q2 (or the quirk-free
 // estimator), and barycentric smooth shading on vertex-normal scenes.
 //
-// B3 (kRecords = true) replaces render_tile_pallas_rec (render_kernel.py
-// :1571): the same loop, which also writes every bounce's record to a
-// (max_bounces * 16, n) array in global memory (layout in
-// render_common.cuh) and zeroes the slots past the ray's last bounce, so
+// B3, render_rec_kernel, replaces render_tile_pallas_rec (render_kernel.py
+// :1571): the same bounce steps, which also write every bounce's record to
+// a (max_bounces * 16, n) array in global memory (layout in
+// render_common.cuh) and zero the slots past the ray's last bounce, so
 // that reverse_tile (render_bwd.cu) needs no replay.  Its radiance and
 // counts are B1's, bit for bit: the record stores touch no arithmetic.
 //
-// Design.  One thread per ray, the bounce loop in registers (trace_path in
-// render_common.cuh), exit as soon as the ray dies (the TPU kernel pays
-// every bounce slot of a masked block).  The closest hit is a brute-force
-// sweep over all triangles with a strict `<`, so ties keep the lowest
-// triangle index; the per-triangle plane rows (16 floats: face plane, 3
-// edge planes), the per-triangle material table and the emitter table are
-// staged in shared memory when they fit in 48 KB and otherwise read
+// Design.  B1: one thread per ray, the bounce loop in registers (trace_path
+// in render_common.cuh), exit as soon as the ray dies (the TPU kernel pays
+// every bounce slot of a masked block).  B3: persistent blocks whose lanes
+// take a new ray as soon as their path ends (render_common.cuh warp_rays),
+// one round per bounce, so a warp's lanes stay busy under roulette; the
+// rays a warp holds come from one contiguous range, in order, so the record
+// stores of a round fall on neighbouring columns and L2 merges their
+// partial sectors.  The closest hit is a brute-force sweep over all
+// triangles with a strict `<`, so ties keep the lowest triangle index; the
+// per-triangle plane rows (16 floats: face plane, 3 edge planes), the
+// per-triangle material table and the emitter table are staged in shared
+// memory when they fit in 48 KB and otherwise read
 // through the L1 cache from global memory, so any triangle count is
 // correct (on clustered tables, the plane rows and boxes go to shared
 // memory by TMA up to a block's 227 KB: render_common.cuh stage_tables).
@@ -57,11 +63,13 @@
 // operations each plus a divide: B1's work is f32 ALU, far above the 52
 // bytes per ray that it reads and writes.  B3 adds max_bounces * 64 bytes
 // of record stores per ray (1 GiB per 2^20-ray launch at 16 bounces),
-// which at 3.35 TB/s is about a tenth of B1's time.  Warp divergence from
-// rays dying at different bounces is the main loss; B7 and B8 are the ray
-// compaction the JAX package uses on large scenes.  B8 moves its carry (96
-// bytes in and 96 out per lane) and k * 64 bytes of records per lane; its
-// sweeps dominate as B1's do.
+// which at 3.35 TB/s is about a tenth of B1's time; its memset writes the
+// whole array and the kernel the reached slots again (about half of it).
+// Warp divergence from rays dying at different bounces is B1's main loss,
+// which B3's regenerating lanes remove; B7 and B8 are the ray compaction
+// the JAX package uses on large scenes.  B8 moves its carry (96 bytes in
+// and 96 out per lane) and k * 64 bytes of records per lane; its sweeps
+// dominate as B1's do.
 
 #include "render_common.cuh"
 
@@ -69,29 +77,84 @@ namespace {
 
 using namespace ipt;
 
-template <bool kRecords, bool kClustered>
+__device__ __forceinline__ void store_out(float* rad, float* stats, int n, int i, V3 r, float segs,
+                                          float shadows) {
+  rad[i] = r.x;
+  rad[n + i] = r.y;
+  rad[2 * n + i] = r.z;
+  stats[i] = segs;
+  stats[n + i] = shadows;
+}
+
+// B1: one thread per ray.
+template <bool kClustered>
 __global__ void __launch_bounds__(kThreads, min_blocks(kClustered))
-    render_fwd_kernel(const TraceParams P, float* rad, float* stats, float* rec) {
+    render_fwd_kernel(const TraceParams P, float* rad, float* stats) {
   extern __shared__ float4 smem4[];
   const Tables T = stage_tables<kClustered>(P, reinterpret_cast<float*>(smem4));
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= P.n) return;
-  const int n = P.n;
+  NoRecords sink;
+  const PathOut o = trace_path<kClustered>(P, T, i, sink);
+  store_out(rad, stats, P.n, i, o.rad, o.segs, o.shadows);
+}
 
-  PathOut o;
-  if constexpr (kRecords) {
-    GlobalRecords sink{rec, n, i};
-    o = trace_path<kClustered>(P, T, i, sink);
-    sink.zero_from(o.n_reached, P.max_bounces);
-  } else {
-    NoRecords sink;
-    o = trace_path<kClustered>(P, T, i, sink);
+// B3: persistent blocks whose lanes regenerate (render_common.cuh
+// warp_rays).  Each round a lane that traces a ray runs one bounce
+// (bounce_step with the next sweep deferred) and writes its record; a lane
+// whose path ends writes its radiance and counts and takes the next ray of
+// its warp's range; then every lane with a pending ray sweeps it together,
+// the next ray of a path or a new primary ray.  The lane carries its ray
+// index i, which keys the fused hash, the external uniforms' column and the
+// output columns, so each ray's arithmetic is one thread's and its
+// radiance, counts and records are B1's and trace_path's, bit for bit.
+// The slots a path does not reach must read zero: the launch clears the
+// record array with a memset first, and the kernel stores the reached slots
+// only.  Zeroing them in the kernel, by each lane at its path's end (a
+// divergent loop of scattered stores) or by the warps before they hand out
+// rays (coalesced), measured slower on the H100 (PERF.md §6).
+template <bool kClustered>
+__global__ void __launch_bounds__(kThreads, min_blocks(kClustered))
+    render_rec_kernel(const TraceParams P, float* rad, float* stats, float* rec) {
+  extern __shared__ float4 smem4[];
+  const Tables T = stage_tables<kClustered>(P, reinterpret_cast<float*>(smem4));
+  const int n = P.n;
+  WarpRays w = warp_rays(n);
+  GlobalRecords sink{rec, n, 0};  // sink.i: the lane's ray
+  Lane L;
+  uint32_t h_orig = 0;
+  int b = 0;         // the bounce the lane enters next
+  bool has = false;  // the lane traces a ray
+  for (;;) {
+    bool sweep = false;
+    if (has) {
+      float u[6];
+      draw6(P, sink.i, h_orig, b, b, u);
+      const bool cont = bounce_step<kClustered, true>(P, T, L, b, u, sink, b);
+      ++b;
+      if (cont && b < P.max_bounces) {
+        sweep = true;
+      } else {
+        store_out(rad, stats, n, sink.i, L.rad, L.segs, L.shadows);
+        has = false;
+      }
+    }
+    const int i = take_ray(w, !has);
+    if (i >= 0) {
+      L = fresh_lane(P, i);
+      sink.i = i;
+      b = 0;
+      if (L.alive) {
+        L.point = ray_origin(P, i);
+        h_orig = hash_orig(P, i);
+        has = sweep = true;
+      } else {
+        store_out(rad, stats, n, i, L.rad, 0.f, 0.f);
+      }
+    }
+    if (w.next >= w.end && !__any_sync(kAllLanes, has)) break;
+    if (sweep) sweep_from<kClustered>(P, T, L, L.point);
   }
-  rad[i] = o.rad.x;
-  rad[n + i] = o.rad.y;
-  rad[2 * n + i] = o.rad.z;
-  stats[i] = o.segs;
-  stats[n + i] = o.shadows;
 }
 
 template <bool kClustered>
@@ -203,6 +266,15 @@ __global__ void __launch_bounds__(kThreads, min_blocks(kClustered))
   idx_out[i] = h.idx;
 }
 
+// B3's blocks that fit on the card at once, per instance and device.
+Capacity g_rec_capacity[2][kMaxDevices] = {};
+
+cudaError_t rec_capacity(TraceParams& P, int* blocks) {
+  const size_t dyn = smem_tables(P, 0);
+  return P.cluster_k ? capacity(render_rec_kernel<true>, g_rec_capacity[1], dyn, blocks)
+                     : capacity(render_rec_kernel<false>, g_rec_capacity[0], dyn, blocks);
+}
+
 // Launches `kernel` on blocks of kThreads threads with `dyn` bytes of
 // dynamic shared memory (opted into above 48 KB); returns the cudaError_t.
 template <class K, class... Args>
@@ -239,21 +311,46 @@ int launch_persistent(K kernel, size_t dyn, void* stream, const TraceParams& P,
 
 extern "C" {
 
-// Launches B1 (rec == null) or B3 (records into rec) on `stream` for the
-// rays and scene of *Pin; returns the cudaError_t of the launch.
-int ipt_render_fwd(const TraceParams* Pin, float* rad, float* stats, float* rec, void* stream) {
+// B1 on `stream` for the rays and scene of *Pin; returns the cudaError_t
+// of the launch.
+int ipt_render_fwd(const TraceParams* Pin, float* rad, float* stats, void* stream) {
   TraceParams P = *Pin;
   if (P.n <= 0) return 0;
   const size_t dyn = smem_tables(P, 0);
   const int b = blocks_for(P.n);
+  return P.cluster_k ? launch(render_fwd_kernel<true>, b, dyn, stream, P, rad, stats)
+                     : launch(render_fwd_kernel<false>, b, dyn, stream, P, rad, stats);
+}
+
+// B3's blocks that fit on the card at once for the scene of *Pin (the
+// wrapper launches at most that many: render_kernel.py persistent_blocks).
+int ipt_render_rec_capacity(const TraceParams* Pin, int* blocks) {
+  TraceParams P = *Pin;
+  return static_cast<int>(rec_capacity(P, blocks));
+}
+
+// B3 on `blocks` persistent blocks: radiance, counts and records
+// (max_bounces * 16, n) into rec, which a memset clears first.
+// Returns the cudaError_t.
+int ipt_render_rec(const TraceParams* Pin, float* rad, float* stats, float* rec, int blocks,
+                   void* stream) {
+  TraceParams P = *Pin;
+  if (P.n <= 0) return 0;
+  int cap = 0;
+  const cudaError_t err = rec_capacity(P, &cap);  // opts the kernel into its shared memory
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (blocks < 1 || blocks > cap) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t dyn = smem_tables(P, 0);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const size_t bytes = static_cast<size_t>(P.max_bounces) * kRecRows * P.n * sizeof(float);
+  const cudaError_t e = cudaMemsetAsync(rec, 0, bytes, s);
+  if (e != cudaSuccess) return static_cast<int>(e);
   if (P.cluster_k) {
-    return rec == nullptr
-        ? launch(render_fwd_kernel<false, true>, b, dyn, stream, P, rad, stats, rec)
-        : launch(render_fwd_kernel<true, true>, b, dyn, stream, P, rad, stats, rec);
+    render_rec_kernel<true><<<blocks, kThreads, dyn, s>>>(P, rad, stats, rec);
+  } else {
+    render_rec_kernel<false><<<blocks, kThreads, dyn, s>>>(P, rad, stats, rec);
   }
-  return rec == nullptr
-      ? launch(render_fwd_kernel<false, false>, b, dyn, stream, P, rad, stats, rec)
-      : launch(render_fwd_kernel<true, false>, b, dyn, stream, P, rad, stats, rec);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // B7: the initial carry (kCarryRows, n) of the rays of *Pin.

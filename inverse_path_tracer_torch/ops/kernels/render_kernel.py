@@ -34,7 +34,9 @@ that ran the clustered sweep, its own included.
 Each wrapper launches its CUDA kernel (render_fwd.cu, render_bwd.cu) for
 CUDA tensors and runs its plain version for CPU tensors; it never falls
 back from one to the other on a CUDA tensor.  `<wrapper>.launches` counts
-kernel launches.
+kernel launches.  B2 and B3 run persistent blocks whose lanes regenerate
+(render_common.cuh warp_rays); `grad_tile.blocks` and
+`render_tile_rec.blocks` hold the grid of their last launch.
 """
 
 from __future__ import annotations
@@ -219,9 +221,15 @@ def render_tile(
     _check_inputs(cfg, p, d, alive, uniforms, orig, keys)
     if not _on_card(p, scene, materials):
         return render_tile_plain(materials, scene, cfg, p, d, alive, uniforms, orig, keys)
-    rad, stats, _ = _launch_fwd(materials, scene, cfg, tables, p, d, alive, uniforms, orig,
-                                keys, records=False)
+    lib = _library("render_fwd")
+    params, tabs = _trace_params(materials, scene, cfg, tables, p, d, alive, uniforms, orig, keys)
+    rad, stats = _fwd_outputs(p.shape[1], p.device)
+    with torch.cuda.device(p.device):
+        err = lib.ipt_render_fwd(ctypes.byref(params), rad.data_ptr(), stats.data_ptr(),
+                                 torch.cuda.current_stream(p.device).cuda_stream)
+    _raise_on(lib, err, "render_fwd")
     render_tile.launches += 1
+    _count_sweep(tabs)
     return rad, stats
 
 
@@ -243,10 +251,21 @@ def render_tile_rec(
     _check_inputs(cfg, p, d, alive, uniforms, orig, keys)
     if not _on_card(p, scene, materials):
         return render_tile_rec_plain(materials, scene, cfg, p, d, alive, uniforms, orig, keys)
-    out = _launch_fwd(materials, scene, cfg, tables, p, d, alive, uniforms, orig, keys,
-                      records=True)
+    lib = _library("render_fwd")
+    params, tabs = _trace_params(materials, scene, cfg, tables, p, d, alive, uniforms, orig, keys)
+    n = p.shape[1]
+    rad, stats = _fwd_outputs(n, p.device)
+    rec = torch.empty((cfg.max_bounces * REC_ROWS, n), dtype=torch.float32, device=p.device)
+    with torch.cuda.device(p.device):
+        blocks = _blocks(lib, lib.ipt_render_rec_capacity, params, "render_fwd render_tile_rec")
+        err = lib.ipt_render_rec(ctypes.byref(params), rad.data_ptr(), stats.data_ptr(),
+                                 rec.data_ptr(), blocks,
+                                 torch.cuda.current_stream(p.device).cuda_stream)
+    _raise_on(lib, err, "render_fwd render_tile_rec")
     render_tile_rec.launches += 1
-    return out
+    render_tile_rec.blocks = blocks
+    _count_sweep(tabs)
+    return rad, stats, rec
 
 
 def grad_tile(
@@ -277,12 +296,14 @@ def grad_tile(
     lib = _library("render_bwd")
     params, tabs = _trace_params(materials, scene, cfg, tables, p, d, alive, uniforms, orig, keys)
     _check_grad_triangles(tabs.padded_tri)
-    partials = _partials(p.shape[1], scene.n_tri, p.device)
     with torch.cuda.device(p.device):
-        err = lib.ipt_grad_tile(ctypes.byref(params), g.data_ptr(), partials.data_ptr(),
+        blocks = _blocks(lib, lib.ipt_grad_tile_capacity, params, "render_bwd grad_tile")
+        partials = torch.empty((blocks, scene.n_tri, 3), dtype=torch.float32, device=p.device)
+        err = lib.ipt_grad_tile(ctypes.byref(params), g.data_ptr(), partials.data_ptr(), blocks,
                                 torch.cuda.current_stream(p.device).cuda_stream)
     _raise_on(lib, err, "render_bwd grad_tile")
     grad_tile.launches += 1
+    grad_tile.blocks = blocks
     _count_sweep(tabs)
     return unperm_rows(partials.sum(dim=0), tabs.perm)
 
@@ -340,7 +361,9 @@ def intersect_tile(
 
 render_tile.launches = 0
 render_tile_rec.launches = 0
+render_tile_rec.blocks = 0
 grad_tile.launches = 0
+grad_tile.blocks = 0
 reverse_tile.launches = 0
 intersect_tile.launches = 0
 
@@ -376,8 +399,13 @@ def _library(name: str):
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     params = ctypes.POINTER(_TraceParams)
     if name == "render_fwd":
-        lib.ipt_render_fwd.argtypes = [params, vp, vp, vp, vp]  # rad stats rec stream
+        lib.ipt_render_fwd.argtypes = [params, vp, vp, vp]  # rad stats stream
         lib.ipt_render_fwd.restype = ci
+        lib.ipt_render_rec_capacity.argtypes = [params, ctypes.POINTER(ci)]
+        lib.ipt_render_rec_capacity.restype = ci
+        # rad stats rec blocks stream
+        lib.ipt_render_rec.argtypes = [params, vp, vp, vp, ci, vp]
+        lib.ipt_render_rec.restype = ci
         lib.ipt_init_tile.argtypes = [params, vp, vp]  # carry stream
         lib.ipt_init_tile.restype = ci
         # carry_in carry_out rec start k live next stream
@@ -397,7 +425,9 @@ def _library(name: str):
         lib.ipt_inverse_global.argtypes = [params, vp, vp, vp, vp, vp]
         lib.ipt_inverse_global.restype = ci
     else:
-        lib.ipt_grad_tile.argtypes = [params, vp, vp, vp]  # g partials stream
+        lib.ipt_grad_tile_capacity.argtypes = [params, ctypes.POINTER(ci)]
+        lib.ipt_grad_tile_capacity.restype = ci
+        lib.ipt_grad_tile.argtypes = [params, vp, vp, ci, vp]  # g partials blocks stream
         lib.ipt_grad_tile.restype = ci
         # rec g n n_tri max_bounces quirks inv_pi partials stream
         lib.ipt_reverse_tile.argtypes = [vp, vp, ci, ci, ci, ci, cf, vp, vp]
@@ -416,9 +446,30 @@ def _raise_on(lib, err: int, what: str) -> None:
 
 
 def _partials(n: int, n_tri: int, device) -> torch.Tensor:
-    """One (nT, 3) partial sum per block of the gradient kernels (none for
-    n = 0, where nothing is launched and the sum is zero)."""
+    """One (nT, 3) partial sum per block of B4 or B9 (none for n = 0, where
+    nothing is launched and the sum is zero)."""
     return torch.empty((-(-n // _BLOCK), n_tri, 3), dtype=torch.float32, device=device)
+
+
+def persistent_blocks(n: int, capacity: int) -> int:
+    """Blocks of a persistent launch for n rays: as many as fit on the card
+    at once (`capacity`), at most one per block of rays (none for n = 0)."""
+    return min(capacity, -(-n // _BLOCK))
+
+
+def _blocks(lib, capacity_fn, params, what: str) -> int:
+    """The persistent grid of B2 or B3 for the rays of `params`: the blocks
+    that fit on the card at once (the kernel's occupancy; cached per device
+    in the library), cut by persistent_blocks."""
+    cap = ctypes.c_int(0)
+    _raise_on(lib, capacity_fn(ctypes.byref(params), ctypes.byref(cap)), what)
+    return persistent_blocks(params.n, cap.value)
+
+
+def _fwd_outputs(n: int, device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Radiance (3, n) and per-lane counts (2, n) of B1 and B3."""
+    return (torch.empty((3, n), dtype=torch.float32, device=device),
+            torch.empty((2, n), dtype=torch.float32, device=device))
 
 
 def _trace_params(materials, scene, cfg, tabs, p, d=None, alive=None, uniforms=None, orig=None,
@@ -453,24 +504,6 @@ def _trace_params(materials, scene, cfg, tabs, p, d=None, alive=None, uniforms=N
         cos_scale=math.pi / cfg.p_rr, inv_p_rr=1.0 / cfg.p_rr,
     )
     return params, tabs
-
-
-def _launch_fwd(materials, scene, cfg, tables, p, d, alive, uniforms, orig, keys, records):
-    lib = _library("render_fwd")
-    params, tabs = _trace_params(materials, scene, cfg, tables, p, d, alive, uniforms, orig, keys)
-    n = p.shape[1]
-    dev = p.device
-    rad = torch.empty((3, n), dtype=torch.float32, device=dev)
-    stats = torch.empty((2, n), dtype=torch.float32, device=dev)
-    rec = (torch.empty((cfg.max_bounces * REC_ROWS, n), dtype=torch.float32, device=dev)
-           if records else None)
-    with torch.cuda.device(dev):
-        err = lib.ipt_render_fwd(ctypes.byref(params), rad.data_ptr(), stats.data_ptr(),
-                                 None if rec is None else rec.data_ptr(),
-                                 torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on(lib, err, "render_fwd")
-    _count_sweep(tabs)
-    return rad, stats, rec
 
 
 # --- The plain versions ---------------------------------------------------
