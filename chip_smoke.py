@@ -5,11 +5,12 @@
 
 Phases, each failing loudly (any failure exits nonzero):
   1. the card's name and power limit (nvidia-smi);
-  2. build every CUDA kernel from the sources here (render_fwd.cu: B1, B3,
-     B7, B8 and B10's own launch; render_bwd.cu: B2, B4 and B9; inverse.cu:
-     B5 and B6's two sinks; every kernel sweeps through B10 in
-     render_common.cuh), one
-     nvcc per source, in parallel;
+  2. build every CUDA kernel from the sources here (render_fwd.cu: B1 and
+     B3, the template render_kernel<kRecords, kClustered>, B7, B8 and B10's
+     own launch; render_bwd.cu: B2, B4 and B9; inverse.cu: B5 and B6's two
+     sinks; every kernel sweeps through B10 in render_common.cuh), one
+     nvcc per source, in parallel; ptxas's report, with no spills allowed
+     in B1 and B3;
   3. each kernel against its plain PyTorch version on the card, on the
      scene-0 fixture at 64x64/4 spp/8 bounces: external uniforms with quirks
      on and off, the fused RNG, a specular (Ks > 0) variant and a small
@@ -18,11 +19,17 @@ Phases, each failing loudly (any failure exits nonzero):
      equal ray counts; B3's radiance and counts equal B1's; gradients rtol
      1e-4 with an absolute floor of 1e-6 of the largest entry (the kernels
      and the plain one-hot contraction sum in different orders); the
-     vertex-normal scene under the knife-edge bounds of the JAX tests;
+     vertex-normal scene under the knife-edge bounds of the JAX tests; on
+     the fused cases the kernels in camera mode (the primary rays made in
+     the kernel, as the fused paths run them): B1 bit-equal to B1 fed the
+     plain camera_rays' rays, B3 = B1, B2 twice bit-equal and equal to B2
+     on those rays;
   4. the forward main path, render_samples on scene 0 at 512x512, 64 spp,
      16 bounces (the bench configuration), fused RNG: launch counts, then
      one warm-up and 3 runs timed with CUDA events, rays/s with rays =
-     segments + shadow rays;
+     segments + shadow rays; a profile with its kernel launches a call,
+     which fails if a camera_rays op (CAMERA_OPS) ran: the kernels make the
+     primary rays on every fused main path (phases 4, 6, 7, 12, 13, 20);
   5. the golden gate: scene 0 at 500x500/100 spp/16 bounces with the
      reference cube Kd against artifacts/bench_golden_0.png (mean |d| <
      5/255, p99 < 25/255);
@@ -32,7 +39,8 @@ Phases, each failing loudly (any failure exits nonzero):
      and 3 timed runs, rays/s, a profile;
   7. loss_and_grad_range (B3 + B4) on the same configuration with a
      per-launch loss that sums to the loss above: its gradient equals
-     autograd's (rtol 1e-5); timed;
+     autograd's (rtol 1e-5); timed; a profile that prints its kernel
+     launches a call;
   8. the finite-difference gate of bench.py:196-236: 64x64/16 spp/8
      bounces, fused RNG, eps 2e-2 along the gradient: ratio in (0.98,
      1.02); a random direction's ratio is printed;
@@ -41,11 +49,12 @@ Phases, each failing loudly (any failure exits nonzero):
      last loss < 0.75 x first and Kd error < 0.7 x the start's
      (tests/test_utils.py:66-71); ms per step; then 3 steps, a checkpoint
      and a resume to 6, bit-equal to 6 uninterrupted steps;
- 10. per-kernel timing at the main path's launch shape beside its bound and
-     its plain version; there B3's whole record array against its plain
-     version (the slots past each ray's last bounce exactly 0 in both), B3's
-     radiance and counts equal to B1's, B2 bit-equal across two calls, and
-     the persistent grids of B2 and B3;
+ 10. per-kernel timing at the main path's launch shape, in camera mode,
+     beside its bound and its plain version; there B3's whole record array
+     against its plain version (the slots past each ray's last bounce
+     exactly 0 in both), B3's radiance and counts equal to B1's, B1 bit-equal
+     to B1 fed the plain camera_rays' rays, B2 bit-equal across two calls,
+     and the persistent grids of B1, B2 and B3;
  11. B5 (dense edge grid) and B6 (edge records, and the global-grid sink)
      against their plain versions at 64x64/4 spp/8 bounces: scene 0 and
      the specular variant (B5 and B6), the vertex-normal scene (B6;
@@ -58,7 +67,10 @@ Phases, each failing loudly (any failure exits nonzero):
      grids_from_edge_records, the same tolerance; B6's float64 global grid
      against them within rtol 1e-9 and a floor of 1e-12 of the largest
      entry (GRID64_RTOL: the same float32 quantities, float64 sums in
-     another order), with B5's float32 grid's reading at that measure;
+     another order), with B5's float32 grid's reading at that measure; on
+     the fused cases the kernels in camera mode with the target image in
+     place of the pixel colours: records bit-equal and grids within those
+     tolerances of the same kernels on the plain camera_rays' rays;
  12. the extraction main path at the reference dataset configuration: scene
      0 at 500x500/100 spp/16 bounces, fused RNG, extract_graph through B5
      (24 launches of 2^20 samples): 1 warm-up and 3 timed runs, rays/s, a
@@ -86,8 +98,10 @@ Phases, each failing loudly (any failure exits nonzero):
      records; per-lane and with the live-lane count of the staged
      orchestration) and B10 against their plain versions, exact on the flat
      variant and within the vertex-normal bounds of phase 3 on the other
-     (the plain stages start from the kernel's carries); B9 on B8's records
-     within the gradient tolerance; staged against mega on the card, bit
+     (the plain stages start from the kernel's carries); B7 in camera mode
+     bit-equal to B7 on the plain camera_rays' rays; B9 on B8's records
+     within the gradient tolerance and bit-equal across two calls on its
+     persistent grid; staged against mega on the card, bit
      for bit with equal counts on the flat scene and scene 0; then a flat
      scene whose sweep tables exceed a block's shared memory (the box plus a
      3840-triangle sphere), so that the clustered kernels read their planes
@@ -111,11 +125,13 @@ Phases, each failing loudly (any failure exits nonzero):
      through the staged gradient;
  20. the large vertex-normal scene extracted at 500x500/100 spp/16 bounces
      through clustered B6's global-grid sink, as phase 13;
- 21. B7, B8 (stages 0 to 3, with the live-lane count) and B9 at the first
-     2^20-ray launch of the large render, each against its plain version
+ 21. B7 (camera mode), B8 (stages 0 to 3, with the live-lane count) and B9
+     (persistent, bit-equal across two calls) at the first 2^20-ray launch
+     of the large render, each against its plain version
      there and timed beside its bound (bounds count the pairs and box tests
-     the plain version's sweeps did); B10 as B1 on that launch with
-     clustered tables at the auto
+     the plain version's sweeps did); B7 and B1 in camera mode against the
+     same kernels fed the plain camera_rays' rays; B10 as B1 on that launch
+     with clustered tables at the auto
      width and at JAX's 768 against dense tables, with the (ray, group) and
      (ray, cluster) box tests and the shares that entered; clustered B2, B3
      on that launch and clustered B6 (both sinks) on the first launch of the
@@ -322,6 +338,15 @@ def sweep_layout(dense: bool):
         clusters.CLUSTER_MIN_TP = own
 
 
+def camera_launch(n, key, base=0):
+    """The fused paths' inputs of a launch of n samples from `base`: the
+    kernels make the primary rays themselves (camera mode) under `key`."""
+    from inverse_path_tracer_torch.ops import rng
+    from inverse_path_tracer_torch.ops.camera import Camera
+
+    return dict(camera=Camera(base, n, key), keys=rng.key_words(key))
+
+
 def tile_inputs(scene, cfg, key, n, device, external):
     """Rays of the first n samples and either external uniforms (seeded
     torch.rand) or fused-RNG key words."""
@@ -407,6 +432,11 @@ def check_kernel_vs_plain(device):
             perm = kernel_perm(scene, cfg)  # clustered scenes: the records' rows are internal
             d4 = reverse_tile(scene.n_tri, cfg, rec, g, perm)
             d4p = reverse_tile_plain(scene.n_tri, cfg, rec, g, perm)
+            if not external:  # the same rays made in the kernels (camera mode)
+                cam = camera_launch(cfg.n_samples, 11)
+                rc, sc = render_tile(mats, scene, cfg, **cam)
+                r3c, s3c, _ = render_tile_rec(mats, scene, cfg, **cam)
+                dc = [grad_tile(mats, scene, cfg, g=g, **cam) for _ in range(2)]
             torch.cuda.synchronize()
         if name.startswith("vertex_normals") and (perm is None) != name.endswith("_dense"):
             raise AssertionError(f"{name}: the sweep layout is not the one the case names")
@@ -438,12 +468,21 @@ def check_kernel_vs_plain(device):
             for k, e in errs.items():
                 worst[k] = max(worst[k], e)
         ok = ok and same and b4_ok
+        camera = ""
+        if not external:
+            # Camera mode: B1 bit-equal to B1 fed the plain camera_rays' rays,
+            # B3 = B1, B2 twice bit-equal and equal to B2 on those rays.
+            cam_ok = (torch.equal(rc, rk) and torch.equal(sc, sk) and torch.equal(r3c, rc)
+                      and torch.equal(s3c, sc) and torch.equal(dc[0], dc[1])
+                      and torch.equal(dc[0], dk))
+            ok = ok and cam_ok
+            camera = f"; camera mode: B1 = B1 on camera_rays' rays, B3 = B1, B2 = B2 {cam_ok}"
         log(f"check {name} ({'dense' if perm is None else 'clustered'}): max |kernel - plain| "
             f"B1 {errs['render_fwd']:.3e}, B3 records "
             f"{errs['render_fwd_rec']:.3e}, B2 {errs['render_bwd_grad']:.3e}, B4 "
             f"{errs['render_bwd_reverse']:.3e}; segments {seg_k:.0f} vs {seg_p:.0f}, {detail}, "
             f"B3 = B1 {same}, B4 = B2 within 1e-5 {b4_is_b2} (bit-equal {torch.equal(d4, dk)})"
-            f" -> {'OK' if ok else 'FAIL'}")
+            f"{camera} -> {'OK' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"a kernel disagrees with its plain version on {name}")
     return worst
@@ -455,7 +494,6 @@ def main_path(device):
 
     from inverse_path_tracer_torch import RenderConfig, render_samples
     from inverse_path_tracer_torch.ops.kernels.render_kernel import render_tile
-    from inverse_path_tracer_torch.render.forward import camera_rays
 
     cfg = RenderConfig(**MAIN)
     scene, mats = fixture(device)
@@ -481,21 +519,23 @@ def main_path(device):
         rays = int(st.segments) + int(st.shadow_rays)
         log(f"main path run {k}: {t:.3f} ms, rays {rays}, {rays / (t / 1e3):.6e} rays/s")
 
-    def rays_only():
-        for lo in range(0, cfg.n_samples, cfg.tile_size):
-            idx = torch.arange(lo, min(lo + cfg.tile_size, cfg.n_samples), device=device)
-            camera_rays(scene, cfg, 7, idx)
-
-    log(f"camera rays alone: {cuda_ms(rays_only, 3):.3f} ms per render")
-    profile_once("one render", lambda: render_samples(mats, scene, 7, cfg, device=device))
+    profile_once("one render", lambda: render_samples(mats, scene, 7, cfg, device=device),
+                 ops=CAMERA_OPS)
     return launches
+
+
+# CPU ops of the plain camera_rays (the counter hash and the normalisation):
+# a fused main path, whose kernels make the primary rays, calls none.
+CAMERA_OPS = ("aten::bitwise_xor", "aten::__xor__", "aten::sqrt", "cudaLaunchKernel")
 
 
 def profile_once(what, fn, ops=()):
     """Device time by kernel from torch.profiler over one call of fn:
     logged, and returned as {kernel: (ms, launches)} ({} when the profiler
     recorded no device time).  With `ops`, the calls of each named CPU op
-    are logged too and returned beside: (kernels, {op: calls})."""
+    are logged too and returned beside: (kernels, {op: calls}).  With
+    CAMERA_OPS among them, the call fails if any camera_rays op ran; the
+    kernel launches of the call are logged."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -523,6 +563,12 @@ def profile_once(what, fn, ops=()):
     if not ops:
         return kernels
     log(f"profile ({what}): CPU op calls " + ", ".join(f"{k} {v}" for k, v in calls.items()))
+    if "cudaLaunchKernel" in calls:
+        log(f"profile ({what}): {calls['cudaLaunchKernel']} kernel launches a call")
+    camera = sum(calls.get(op, 0) for op in CAMERA_OPS if op != "cudaLaunchKernel")
+    if set(CAMERA_OPS) <= set(calls) and camera:
+        raise AssertionError(f"{what} ran {camera} camera_rays ops: the rays are not made in the "
+                             "kernels")
     return kernels, calls
 
 
@@ -564,7 +610,7 @@ def fwd_bwd_path(device):
         st = out[0][1]
         rays = int(st.segments) + int(st.shadow_rays)
         log(f"fwd+bwd run {k}: {t:.3f} ms, forward rays {rays}, {rays / (t / 1e3):.6e} rays/s")
-    profile_once("one fwd+bwd", lambda: fwd_bwd(7))
+    profile_once("one fwd+bwd", lambda: fwd_bwd(7), ops=CAMERA_OPS)
     return launches, grad
 
 
@@ -611,9 +657,12 @@ def loss_and_grad_path(device, grad_ref):
         st = out[0][2]
         rays = int(st.segments) + int(st.shadow_rays)
         log(f"loss_and_grad_range run {k}: {t:.3f} ms, {rays / (t / 1e3):.6e} rays/s")
-    profile_once("one loss_and_grad_range", lambda: run(7),
-                 ops=("cudaLaunchKernel", "cudaMemsetAsync", "cudaMalloc", "cudaFree",
-                      "cudaStreamSynchronize", "aten::_local_scalar_dense"))
+    _, calls = profile_once("one loss_and_grad_range", lambda: run(7),
+                            ops=CAMERA_OPS + ("cudaMemsetAsync", "cudaMalloc", "cudaFree",
+                                              "cudaStreamSynchronize",
+                                              "aten::_local_scalar_dense"))
+    log(f"loss_and_grad_range: {calls['cudaLaunchKernel']} kernel launches a call, "
+        f"{calls['cudaLaunchKernel'] / (cfg.n_samples / (1 << 20)):.1f} per 2^20 rays")
     return launches
 
 
@@ -803,6 +852,20 @@ def check_inverse_vs_plain(device):
                 if inverse_grid_fits(scene):
                     grid, st = inverse_tile(scene, cfg, pix=pix, **a)
                     grid_p, _ = inverse_tile_plain(scene, cfg, pix=pix, **a)
+                if not external:  # camera mode: the rays and pixels read in the kernels
+                    cam = camera_launch(cfg.n_samples, 21)
+                    image = torch.rand((cfg.width * cfg.height, 3),
+                                       generator=torch.Generator().manual_seed(23)).to(device)
+                    pix_c = image[a["orig"][0].long() // cfg.spp].T.contiguous()
+                    rec_c, st_rc = inverse_tile_rec(scene, cfg, tables=tabs, **cam)
+                    acc_c, _ = inverse_tile_global(scene, cfg, image=image, tables=tabs, **cam)
+                    acc_cr, _ = inverse_tile_global(scene, cfg, pix=pix_c, tables=tabs, **a)
+                    cam_ok = (torch.equal(rec_c, rec) and torch.equal(st_rc, st_r)
+                              and grid64_match(acc_c, acc_cr)[0])
+                    if inverse_grid_fits(scene):
+                        g5c, st5c = inverse_tile(scene, cfg, image=image, **cam)
+                        g5r, _ = inverse_tile(scene, cfg, pix=pix_c, **a)
+                        cam_ok = cam_ok and grid_match(g5c, g5r)[0] and torch.equal(st5c, st_r)
                 torch.cuda.synchronize()
             if name.endswith("_dense") and tabs.cluster_k:
                 raise AssertionError(f"{name}: the tables are clustered")
@@ -817,6 +880,11 @@ def check_inverse_vs_plain(device):
                     f"{float(acc_p.abs().max()):.3e} (clusters {tabs.cluster_k}), = plain "
                     f"{ok_g}, = B6 records reduced {ok_gr} (rtol needed {gap:.1e}, bound "
                     f"{GRID64_RTOL:.0e}), counts equal {torch.equal(st_g, st_p)}")
+            if not external:
+                ok = ok and cam_ok
+                line += (f"; camera mode (rays and pixels read in the kernels): records "
+                         f"bit-equal and grids within tolerance of the same kernels on the plain "
+                         f"camera_rays' rays {cam_ok}")
             worst["inverse_rec"] = max(worst["inverse_rec"], err_r)
             worst["inverse_global"] = max(worst["inverse_global"], err_g)
             if inverse_grid_fits(scene):
@@ -878,7 +946,7 @@ def extraction_main_path(device):
     for k in range(3):
         t = cuda_ms(lambda: run(0), 1)
         log(f"extraction run {k}: {t:.3f} ms, rays {rays}, {rays / (t / 1e3):.6e} rays/s")
-    profile_once("one extraction", lambda: run(0))
+    profile_once("one extraction", lambda: run(0), ops=CAMERA_OPS)
 
     with np.load(os.path.join(EXP100, "data.npz")) as d:
         ref_w, ref_pix, labels = d["w"][0], d["pixel"][0], d["labels"][0]
@@ -955,7 +1023,8 @@ def global_extraction(device, label, scene, target):
         t = cuda_ms(run, 1)
         times.append(t)
         log(f"{label} extraction run {k}: {t:.3f} ms, rays {rays}, {rays / (t / 1e3):.6e} rays/s")
-    kernels, calls = profile_once(f"one {label} extraction", run, ops=("aten::nonzero",))
+    kernels, calls = profile_once(f"one {label} extraction", run,
+                                  ops=CAMERA_OPS + ("aten::nonzero",))
     if calls["aten::nonzero"]:
         raise AssertionError(f"the {label} extraction ran aten::nonzero")
     if kernels:
@@ -1093,11 +1162,15 @@ def kernel_timing(device, launches, check_err):
     cfg = RenderConfig(**MAIN)
     scene, mats = fixture(device)
     n = min(cfg.tile_size, cfg.n_samples)
-    a = tile_inputs(scene, cfg, 0, n, device, external=False)
+    # The main path's inputs: the kernels make the primary rays (camera
+    # mode); the plain versions make them with camera_rays.
+    a = camera_launch(n, 0)
+    rays = tile_inputs(scene, cfg, 0, n, device, external=False)
     g = torch.rand((3, n), generator=torch.Generator().manual_seed(5)).to(device)
     nt = scene.n_tri
     rk, sk = render_tile(mats, scene, cfg, **a)
     rp, sp = render_tile_plain(mats, scene, cfg, **a)
+    rq, sq = render_tile(mats, scene, cfg, **rays)  # B1 fed the plain camera_rays' rays
     rr, sr, rec = render_tile_rec(mats, scene, cfg, **a)
     _, _, rec_p = render_tile_rec_plain(mats, scene, cfg, **a)
     dk = grad_tile(mats, scene, cfg, g=g, **a)
@@ -1106,6 +1179,8 @@ def kernel_timing(device, launches, check_err):
     d4p = reverse_tile_plain(nt, cfg, rec, g)
     dk2 = grad_tile(mats, scene, cfg, g=g, **a)  # B2 again: the same sums in the same order
     torch.cuda.synchronize()
+    camera_same = torch.equal(rk, rq) and torch.equal(sk, sq)
+    del rq, sq, rays
     err = {"render_fwd": float((rk - rp).abs().max()),
            "render_fwd_rec": float((rec - rec_p).abs().max()),
            "render_bwd_grad": float((dk - dp).abs().max()),
@@ -1118,15 +1193,16 @@ def kernel_timing(device, launches, check_err):
     zeros_ok = not bool(slot_max(rec)[past].any()) and not bool(slot_max(rec_p)[past].any())
     b2_repeat = torch.equal(dk2, dk)
     ok = (torch.allclose(rk, rp, rtol=1e-4, atol=1e-5) and torch.equal(sk, sp)
-          and torch.equal(rr, rk) and torch.equal(sr, sk)
+          and torch.equal(rr, rk) and torch.equal(sr, sk) and camera_same
           and torch.allclose(rec, rec_p, rtol=1e-4, atol=1e-5) and zeros_ok
           and grad_close(dk, dp) and grad_close(d4, d4p) and b2_repeat)
-    log(f"full shape (3, {n}): max |kernel - plain| " +
+    log(f"full shape (3, {n}), rays made in the kernels: max |kernel - plain| " +
         ", ".join(f"{k} {e:.3e}" for k, e in err.items()) +
-        f"; B3 radiance and counts = B1 {torch.equal(rr, rk) and torch.equal(sr, sk)}, B3 "
+        f"; B1 bit-equal to B1 fed the plain camera_rays' rays {camera_same}; B3 radiance and "
+        f"counts = B1 {torch.equal(rr, rk) and torch.equal(sr, sk)}, B3 "
         f"records within rtol 1e-4 / atol 1e-5 of plain over the whole array, "
         f"{int(past.sum())} unreached slots exactly 0 {zeros_ok}; B2 twice bit-equal "
-        f"{b2_repeat}; persistent grids: B2 {grad_tile.blocks} blocks, B3 "
+        f"{b2_repeat}; persistent grids: B1 {render_tile.blocks}, B2 {grad_tile.blocks}, B3 "
         f"{render_tile_rec.blocks} blocks of 256 -> {'OK' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError("a kernel disagrees with its plain version at full shape")
@@ -1148,16 +1224,15 @@ def kernel_timing(device, launches, check_err):
     # rays needed, over the f32 peak.  A path of k segments needs its primary
     # sweep and the k - 1 sweeps of the rays that continued it (one per
     # segment), and a shadow sweep per segment that hit, which on a scene
-    # with emitters is the shadow-ray count: segments + shadow rays sweeps
-    # (B1 also sweeps the next ray of a segment that roulette ends, which
-    # B2 and B3 skip).  Each (ray,
+    # with emitters is the shadow-ray count: segments + shadow rays sweeps.
+    # Each (ray,
     # triangle) pair needs the face-plane test; the edge-plane tests run only
     # for candidates, which the run does not count, so they are left out and
     # the bound is a floor (the full four-plane test on every pair is printed
     # beside it).  The recursion adds RECURSION_OPS per reached bounce
-    # (segment).  Bytes: each input read once, each output written once: p,
-    # d, alive, orig in and radiance, stats out (B1); plus the whole record
-    # array out (B3); p, d, alive, orig, g in (B2); for B4 the records of the
+    # (segment).  Bytes: each input read once, each output written once: the
+    # kernels make the rays (no ray input), radiance and stats out (B1); plus
+    # the whole record array out (B3); g in (B2); for B4 the records of the
     # reached bounces, one flag pair (hit, esc) where a ray stopped before
     # max_bounces, and g.  d materials out is nT*3 floats.
     if scene.n_emissive == 0:
@@ -1173,9 +1248,9 @@ def kernel_timing(device, launches, check_err):
     rec_bytes = rec.numel() * 4
     out_bytes = nt * 3 * 4
     bounds = {
-        "render_fwd": bound(t_sweep, f_bytes(n * (3 + 3 + 1 + 1 + 3 + 2) * 4)),
-        "render_fwd_rec": bound(t_sweep, f_bytes(n * (3 + 3 + 1 + 1 + 3 + 2) * 4 + rec_bytes)),
-        "render_bwd_grad": bound(t_sweep + t_rec, f_bytes(n * (3 + 3 + 1 + 1 + 3) * 4 + out_bytes)),
+        "render_fwd": bound(t_sweep, f_bytes(n * (3 + 2) * 4)),
+        "render_fwd_rec": bound(t_sweep, f_bytes(n * (3 + 2) * 4 + rec_bytes)),
+        "render_bwd_grad": bound(t_sweep + t_rec, f_bytes(n * 3 * 4 + out_bytes)),
         "render_bwd_reverse": bound(t_rec, f_bytes(segments * 16 * 4 + stopped_early * 2 * 4
                                                    + n * 3 * 4 + out_bytes)),
     }
@@ -1209,18 +1284,24 @@ def kernel_timing(device, launches, check_err):
 
 def first_extraction_launch(scene, cfg, target, key=0):
     """The kernel inputs of the first launch of trace_transport_range on
-    `scene` (fused RNG, the camera under rng.CAMERA_STREAM): the rays, the
-    pixel colours (3, n) and the packed tables, as the extraction passes
-    them."""
+    `scene` (fused RNG, the camera under rng.CAMERA_STREAM), as the
+    extraction passes them: the camera-mode inputs, the target image as the
+    pixel input ({"image": (W*H, 3)}), and beside them the pixel colour of
+    each lane (3, n), which the records' reduction takes, and the packed
+    tables."""
+    import torch
+
     from inverse_path_tracer_torch.ops import rng
     from inverse_path_tracer_torch.ops.kernels.render_kernel import pack_tables
     from inverse_path_tracer_torch.render.forward import _launches
 
     _, _, a = next(_launches(scene, cfg, key, 0, cfg.n_samples, None,
                              camera_key=rng.fold_in(key, rng.CAMERA_STREAM)))
-    pix_idx = (a["orig"][0].long() // cfg.spp).clamp(0, cfg.width * cfg.height - 1)
-    pix = target.reshape(-1, 3)[pix_idx].T.contiguous()
-    return a, pix, pack_tables(scene, scene.diffuse)
+    image = target.reshape(-1, 3).contiguous()
+    c = a["camera"]
+    idx = torch.arange(c.base, c.base + c.n, dtype=torch.int64, device=image.device)
+    pix = image[(idx // cfg.spp).clamp(0, cfg.width * cfg.height - 1)].T.contiguous()
+    return a, {"image": image}, pix, pack_tables(scene, scene.diffuse)
 
 
 def inverse_kernel_timing(device, launches, check_err, target0, large):
@@ -1249,13 +1330,13 @@ def inverse_kernel_timing(device, launches, check_err, target0, large):
     cfg = RenderConfig(**GOLDEN)
     scene0, _ = fixture(device)
     scene_vn, target_vn = large
-    a0, pix0, tab0 = first_extraction_launch(scene0, cfg, target0)
-    a6, pix6, _ = first_extraction_launch(scene_vn, cfg, target_vn)
+    a0, px0, _, tab0 = first_extraction_launch(scene0, cfg, target0)
+    a6, px6, pix6, _ = first_extraction_launch(scene_vn, cfg, target_vn)
     tab6 = pack_tables(scene_vn, scene_vn.diffuse, cfg)
-    n = a0["p"].shape[1]
+    n = a0["camera"].n
 
-    grid, st = inverse_tile(scene0, cfg, pix=pix0, tables=tab0, **a0)
-    grid_p, st_p = inverse_tile_plain(scene0, cfg, pix=pix0, **a0)
+    grid, st = inverse_tile(scene0, cfg, tables=tab0, **px0, **a0)
+    grid_p, st_p = inverse_tile_plain(scene0, cfg, **px0, **a0)
     torch.cuda.synchronize()
     ok5, e5 = grid_match(grid, grid_p)
     ok5 = ok5 and torch.equal(st, st_p)
@@ -1276,7 +1357,7 @@ def inverse_kernel_timing(device, launches, check_err, target0, large):
         f"{'OK' if ok6 else 'FAIL'}")
     del rec_p
     reduced = grids_from_edge_records(rec, pix6.T, scene_vn, cfg, tab6.perm)
-    acc, st_g = inverse_tile_global(scene_vn, cfg, pix=pix6, tables=tab6, **a6)
+    acc, st_g = inverse_tile_global(scene_vn, cfg, tables=tab6, **px6, **a6)
     torch.cuda.synchronize()
     glob = unperm_grid(acc, tab6.perm)
     okg, gap = grid64_match(glob, reduced)
@@ -1291,13 +1372,13 @@ def inverse_kernel_timing(device, launches, check_err, target0, large):
         raise AssertionError("an inverse kernel disagrees with its plain version at full shape")
     del reduced
     timed = {
-        "inverse_grid": (lambda: inverse_tile(scene0, cfg, pix=pix0, tables=tab0, **a0),
-                         lambda: inverse_tile_plain(scene0, cfg, pix=pix0, **a0)),
+        "inverse_grid": (lambda: inverse_tile(scene0, cfg, tables=tab0, **px0, **a0),
+                         lambda: inverse_tile_plain(scene0, cfg, **px0, **a0)),
         "inverse_rec": (lambda: inverse_tile_rec(scene_vn, cfg, tables=tab6, **a6),
                         lambda: inverse_tile_rec_plain(scene_vn, cfg, **a6)),
-        "inverse_global": (lambda: inverse_tile_global(scene_vn, cfg, pix=pix6, tables=tab6,
-                                                       acc=acc, **a6),
-                           lambda: inverse_tile_plain(scene_vn, cfg, pix=pix6, kernel_order=True,
+        "inverse_global": (lambda: inverse_tile_global(scene_vn, cfg, tables=tab6, acc=acc,
+                                                       **px6, **a6),
+                           lambda: inverse_tile_plain(scene_vn, cfg, kernel_order=True, **px6,
                                                       **a6)),
     }
     for fn, _ in timed.values():
@@ -1311,16 +1392,18 @@ def inverse_kernel_timing(device, launches, check_err, target0, large):
     # FACE_PLANE_OPS per (ray, triangle), over the f32 peak (a floor, as in
     # kernel_timing); on clustered tables what the plain version's clustered
     # sweeps did, its pairs and its box tests at BOX_OPS (as in
-    # large_kernel_timing).  Bytes: p, d, alive, orig (and pix for B5 and
-    # the global sink) in, the tables in, the counts (2, n) out, and B5's
-    # grid, the records sink's whole record array, or the global sink's
-    # float64 adds (9 per edge, before the warp sums them) out.
+    # large_kernel_timing).  Bytes: the kernels make the rays (no ray
+    # input); the target image (B5 and the global sink) and the tables in,
+    # the counts (2, n) out, and B5's grid, the records sink's whole record
+    # array, or the global sink's float64 adds (9 per edge, before the warp
+    # sums them) out.
     f_bytes = lambda nbytes: nbytes / PEAK_BYTES * 1e3
     kernels = []
-    for k, scene, stats, tab, out_bytes, pix_rows in (
-            ("inverse_grid", scene0, st, tab0, grid.numel() * 4, 3),
+    image_bytes = cfg.width * cfg.height * 3 * 4
+    for k, scene, stats, tab, out_bytes, in_bytes in (
+            ("inverse_grid", scene0, st, tab0, grid.numel() * 4, image_bytes),
             ("inverse_rec", scene_vn, st6, tab6, rec.numel() * 4, 0),
-            ("inverse_global", scene_vn, st_g, tab6, edges * N_QUANT_BYTES, 3)):
+            ("inverse_global", scene_vn, st_g, tab6, edges * N_QUANT_BYTES, image_bytes)):
         nt = scene.n_tri
         segments, shadows = float(stats[0].sum()), float(stats[1].sum())
         pairs, boxes = (segments + shadows) * nt, 0
@@ -1329,8 +1412,7 @@ def inverse_kernel_timing(device, launches, check_err, target0, large):
         t_sweep = (pairs * FACE_PLANE_OPS + boxes * BOX_OPS) / PEAK_F32_OPS * 1e3
         tab_bytes = sum(t.numel() * 4 for t in (tab.planes, tab.table, tab.vtab, tab.etab, tab.cdf)
                         if t is not None)
-        b_ms, b_by = bound(t_sweep, f_bytes(n * (3 + 3 + 1 + 1 + pix_rows + 2) * 4 + tab_bytes
-                                            + out_bytes))
+        b_ms, b_by = bound(t_sweep, f_bytes(n * 2 * 4 + in_bytes + tab_bytes + out_bytes))
         log(f"{k} launch (3, {n}) on {nt} triangles (clusters {tab.cluster_k}): {segments:.0f} "
             f"segments, {shadows:.0f} shadow rays, {pairs:.0f} (ray, triangle) pairs, {boxes} box "
             f"tests, sweep floor {t_sweep:.4f} ms, output {out_bytes:.0f} bytes "
@@ -1426,6 +1508,11 @@ def check_staged_vs_plain(device):
             g = torch.rand((3, n), generator=torch.Generator().manual_seed(8)).to(device)
             suf = torch.zeros((4, n), device=device)
             ok = frac >= need
+            if not external:  # B7 in camera mode: the same carry, bit for bit
+                cam = camera_launch(n, 31)["camera"]
+                same7 = torch.equal(init_tile(mats, scene, cfg, camera=cam, tables=tabs), carry)
+                res["init_tile camera mode = rays"] = (float(same7), 0.0)
+                ok = ok and same7
             for s in range(cfg.max_bounces // k):
                 u_s = (a["uniforms"][s * k * 8 : (s + 1) * k * 8].contiguous() if external
                        else None)
@@ -1436,9 +1523,11 @@ def check_staged_vs_plain(device):
                 f_c, e_c = lanes_equal(out, out_p, vn)
                 f_r, e_r = lanes_equal(rec, rec_p, vn)
                 dm, suf_o = stage_reverse_tile(scene.n_tri, cfg, k, rec, g, suf)
+                dm2, suf_o2 = stage_reverse_tile(scene.n_tri, cfg, k, rec, g, suf)
                 dm_p, suf_p = stage_reverse_tile_plain(scene.n_tri, cfg, k, rec, g, suf)
                 b9 = (vn_grad_close(dm, dm_p) if vn else grad_close(dm, dm_p)) and bool(
-                    torch.allclose(suf_o, suf_p, rtol=1e-5, atol=1e-6))
+                    torch.allclose(suf_o, suf_p, rtol=1e-5, atol=1e-6)) and torch.equal(
+                    dm, dm2) and torch.equal(suf_o, suf_o2)
                 ok = ok and f_c >= need and f_r >= need and no_rec_same and b9
                 res[f"stage_tile {s}"] = (min(f_c, f_r), max(e_c, e_r))
                 res[f"stage_reverse_tile {s}"] = (float(b9), float((dm - dm_p).abs().max()))
@@ -1457,6 +1546,9 @@ def check_staged_vs_plain(device):
                 for key, (_, e) in res.items():
                     kname = key.split(" ")[0]
                     worst[kname] = max(worst[kname], e)
+            log(f"check staged {name}: B9 on {stage_reverse_tile.blocks} persistent blocks "
+                f"(its entries: 1.0 where it is within tolerance of plain and bit-equal across "
+                f"two calls)")
             log(f"check staged {name} {shape(cfg)} ({scene.n_tri} triangles, clusters of "
                 f"{tabs.cluster_k}): " + ", ".join(f"{key} {f:.5f} lanes agree / max |d| {e:.3e}"
                                                     for key, (f, e) in res.items())
@@ -1734,7 +1826,7 @@ def large_main_path(device):
     render = lambda key, c=cfg: render_samples(mats, scene, key, c, device=device)
     render(1)  # warm-up
     timed_runs("large forward staged", render, 3, lambda o: o[1])
-    prof = profile_once("one large staged render", lambda: render(7))
+    prof, _ = profile_once("one large staged render", lambda: render(7), ops=CAMERA_OPS)
     b8 = [(ms, count) for name, (ms, count) in prof.items() if "stage_kernel" in name]
     if b8:
         log(f"B8 over the large staged render: {sum(ms for ms, _ in b8):.3f} ms in "
@@ -1774,7 +1866,11 @@ def large_main_path(device):
         f"triangles nonzero")
     fwd_bwd(1)  # warm-up
     timed_runs("large fwd+bwd", fwd_bwd, 2, lambda o: o[1])
-    profile_once("one large fwd+bwd", lambda: fwd_bwd(7))
+    prof, _ = profile_once("one large fwd+bwd", lambda: fwd_bwd(7), ops=CAMERA_OPS)
+    b9 = [(ms, count) for name, (ms, count) in prof.items() if "stage_reverse_kernel" in name]
+    if b9:
+        log(f"B9 over the large fwd+bwd: {sum(ms for ms, _ in b9):.3f} ms in "
+            f"{sum(c for _, c in b9)} launches (profiler on)")
 
     n_values = cfg.width * cfg.height * 3
 
@@ -1866,7 +1962,10 @@ def large_kernel_timing(device, launches, check_err, large_target):
     scene = large_scene(device)
     mats = scene.diffuse
     n = min(cfg.tile_size, cfg.n_samples)
-    a = tile_inputs(scene, cfg, 0, n, device, external=False)
+    # The main path's inputs (camera mode) and, to hold B7 and B1 against,
+    # the same launch fed the plain camera_rays' rays.
+    a = camera_launch(n, 0)
+    rays = tile_inputs(scene, cfg, 0, n, device, external=False)
     keys = a["keys"]
     tabs = pack_tables(scene, mats, cfg)
     jax_width = cfg.with_(cluster_k=768)
@@ -1875,11 +1974,14 @@ def large_kernel_timing(device, launches, check_err, large_target):
     bins = _scene_bins(scene, cfg)
     nt = scene.n_tri
 
-    carry0 = init_tile(mats, scene, cfg, a["p"], a["d"], a["alive"], tables=tabs)
+    carry0 = init_tile(mats, scene, cfg, camera=a["camera"], tables=tabs)
     with counting_sweeps() as c_init:
-        carry0_p = init_tile_plain(mats, scene, cfg, a["p"], a["d"], a["alive"])
-    inputs, counts, agree = {}, {}, {"init_tile": lanes_equal(carry0, carry0_p, True)}
-    carry, orig = carry0, a["orig"]
+        carry0_p = init_tile_plain(mats, scene, cfg, camera=a["camera"])
+    carry0_r = init_tile(mats, scene, cfg, rays["p"], rays["d"], rays["alive"], tables=tabs)
+    inputs, counts, agree = {}, {}, {"init_tile": lanes_equal(carry0, carry0_p, True),
+                                     "B7 camera mode = rays": lanes_equal(carry0, carry0_r, False)}
+    carry, orig = carry0, rays["orig"]
+    del carry0_r
     for s in range(n_stages):
         order = _binned_order(carry, *bins, cfg.bin_cells)
         carry, orig = carry[:, order].contiguous(), orig[:, order].contiguous()
@@ -1898,9 +2000,14 @@ def large_kernel_timing(device, launches, check_err, large_target):
     g = torch.rand((3, n), generator=torch.Generator().manual_seed(5)).to(device)
     suf = torch.zeros((4, n), device=device)
     dm, suf_o = stage_reverse_tile(nt, cfg, k, rec0, g, suf)
+    dm2, suf_o2 = stage_reverse_tile(nt, cfg, k, rec0, g, suf)
     dm_p, suf_p = stage_reverse_tile_plain(nt, cfg, k, rec0, g, suf)
-    b9_ok = grad_close(dm, dm_p) and bool(torch.allclose(suf_o, suf_p, rtol=1e-5, atol=1e-6))
+    b9_same = torch.equal(dm, dm2) and torch.equal(suf_o, suf_o2)
+    b9_ok = (grad_close(dm, dm_p) and bool(torch.allclose(suf_o, suf_p, rtol=1e-5, atol=1e-6))
+             and b9_same)
+    b9_blocks = stage_reverse_tile.blocks
     rb, sb = render_tile(mats, scene, cfg, tables=tabs, **a)
+    rbr, sbr = render_tile(mats, scene, cfg, tables=tabs, **rays)
     rj, sj = render_tile(mats, scene, jax_width, tables=tabs768, **a)
     rd, sd = render_tile(mats, scene, cfg, tables=dense, **a)
     with counting_sweeps() as c_b1:
@@ -1909,12 +2016,15 @@ def large_kernel_timing(device, launches, check_err, large_target):
         render_tile_plain(mats, scene, jax_width, **a)
     torch.cuda.synchronize()
     agree["cluster_sweep (B1)"] = lanes_equal(rb, rp, True)
+    agree["B1 camera mode = rays"] = lanes_equal(torch.cat([rb, sb]), torch.cat([rbr, sbr]),
+                                                 False)
     agree["B1 at 768"] = lanes_equal(rj, rb, True)
     agree["dense B1"] = lanes_equal(rd, rb, True)
     ok = all(f >= 0.97 for f, _ in agree.values()) and b9_ok
     log(f"large launch (3, {n}), clusters of {tabs.cluster_k}: " + ", ".join(
         f"{key} {f:.5f} lanes agree (max |d| {e:.3e})" for key, (f, e) in agree.items())
-        + f"; stage_reverse_tile within tolerance {b9_ok} (max |d| "
+        + f"; stage_reverse_tile on {b9_blocks} persistent blocks within tolerance and twice "
+        f"bit-equal {b9_ok} (bit-equal {b9_same}, max |d| "
         f"{float((dm - dm_p).abs().max()):.3e}) -> {'OK' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError("a staged kernel disagrees with its plain version at full shape")
@@ -1929,9 +2039,8 @@ def large_kernel_timing(device, launches, check_err, large_target):
         return lambda: stage_tile_plain(mats, scene, cfg, c, o, s * k, k, keys=keys)
 
     timed = {
-        "init_tile": (lambda: init_tile(mats, scene, cfg, a["p"], a["d"], a["alive"],
-                                        tables=tabs),
-                      lambda: init_tile_plain(mats, scene, cfg, a["p"], a["d"], a["alive"])),
+        "init_tile": (lambda: init_tile(mats, scene, cfg, camera=a["camera"], tables=tabs),
+                      lambda: init_tile_plain(mats, scene, cfg, camera=a["camera"])),
         "stage_tile": (stage(0), stage_plain(0)),
         **{f"stage_tile {s}": (stage(s), stage_plain(s) if s == 2 else None)
            for s in range(1, n_stages)},
@@ -1956,10 +2065,10 @@ def large_kernel_timing(device, launches, check_err, large_target):
     # box) tests at BOX_OPS each, over the f32 peak (a floor, as in phase
     # 10); the dense B1 sweeps every triangle.  B9: RECURSION_OPS per
     # reached slot.  Bytes: each input read once, each output written once:
-    # rays (7 floats) in and the carry (24) out for B7; the carry in and out
-    # and orig for B8; for B9 the reached records, a flag pair where a lane
-    # stopped before the stage's last slot, g, the carry in and out and d
-    # materials.
+    # the carry (24 floats) out for B7, which makes its rays; the carry in
+    # and out and orig for B8; for B9 the reached records, a flag pair where
+    # a lane stopped before the stage's last slot, g, the carry in and out
+    # and d materials; radiance and counts out for B1.
     def f_ops(c):
         work = c["pairs"] * FACE_PLANE_OPS + (c["group_tests"] + c["tests"]) * BOX_OPS
         return work / PEAK_F32_OPS * 1e3
@@ -1969,11 +2078,10 @@ def large_kernel_timing(device, launches, check_err, large_target):
     reached = ((rr[:, 14] + rr[:, 15]) > 0)
     n_reached = float(reached.sum())
     stopped = float((reached.sum(dim=0) < k).sum())
-    primaries, shadows = float(a["alive"].sum()), float(sd[1].sum())
-    dense_pairs = (primaries + 2 * shadows) * nt
-    ray_bytes = f_bytes(n * (3 + 3 + 1 + 1 + 3 + 2) * 4)
+    dense_pairs = float(sd.sum()) * nt  # a sweep per segment and per shadow ray
+    ray_bytes = f_bytes(n * (3 + 2) * 4)
     bounds = {
-        "init_tile": bound(f_ops(c_init), f_bytes(n * (7 + 24) * 4)),
+        "init_tile": bound(f_ops(c_init), f_bytes(n * 24 * 4)),
         "stage_tile": bound(f_ops(counts[0]), f_bytes(n * (48 + 1) * 4)),
         **{f"stage_tile {s}": bound(f_ops(counts[s]), f_bytes(n * (48 + 1) * 4))
            for s in range(1, n_stages)},
@@ -2005,7 +2113,7 @@ def large_kernel_timing(device, launches, check_err, large_target):
     # the large extraction: times beside B10's.
     g3 = torch.rand((3, n), generator=torch.Generator().manual_seed(9)).to(device)
     golden_cfg = RenderConfig(**GOLDEN)
-    a6, pix6, _ = first_extraction_launch(scene, golden_cfg, large_target)
+    a6, px6, _, _ = first_extraction_launch(scene, golden_cfg, large_target)
     tab6 = pack_tables(scene, mats, golden_cfg)
     acc6 = torch.zeros((nt + 1, nt, 9), dtype=torch.float64, device=device)
     more = {
@@ -2016,7 +2124,7 @@ def large_kernel_timing(device, launches, check_err, large_target):
         "inverse_rec (B6 records) clustered, extraction launch": lambda: inverse_tile_rec(
             scene, golden_cfg, tables=tab6, **a6),
         "inverse_global (B6 global grid) clustered, extraction launch": lambda: (
-            inverse_tile_global(scene, golden_cfg, pix=pix6, tables=tab6, acc=acc6, **a6)),
+            inverse_tile_global(scene, golden_cfg, tables=tab6, acc=acc6, **px6, **a6)),
     }
     for what, fn in more.items():
         fn()  # warm-up
@@ -2026,7 +2134,7 @@ def large_kernel_timing(device, launches, check_err, large_target):
     for lib, kernel, regs, st, ld in report:
         log(f"  ptxas {lib} {kernel}: {regs} registers, spill stores {st} B, spill loads {ld} B")
     b8_b1 = [(st, ld) for _, kernel, _, st, ld in report
-             if kernel.startswith(("stage_kernel", "render_fwd_kernel<"))]
+             if kernel.startswith(("stage_kernel", "render_kernel<"))]
     if b8_b1:
         log(f"clustered B8 and B1 spill-free: {all(st == 0 and ld == 0 for st, ld in b8_b1)}")
     else:
@@ -2077,6 +2185,9 @@ def main() -> int:
         for kernel, regs, st, ld, stack in ptxas_report(text):
             log(f"  ptxas {name} {kernel}: {regs} registers, spill stores {st} B, spill loads "
                 f"{ld} B, stack {stack} B")
+            # B1 and B3, the template render_kernel<kRecords, kClustered>, must not spill.
+            if kernel.startswith("render_kernel<") and (st or ld):
+                raise AssertionError(f"ptxas spills in {kernel}: {st} B stored, {ld} B loaded")
 
     check_err = check_kernel_vs_plain(device)
     launches = {"render_fwd": main_path(device)}

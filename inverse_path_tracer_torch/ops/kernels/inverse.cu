@@ -19,10 +19,12 @@
 // render_common.cuh) every triangle index of a record or of the grid is
 // internal; the wrappers and the records reduction map them back.  p_spec
 // must be 0 (the wrappers check), so the path is always diffuse and slot 0
-// is never read.  The loop is not trace_path (render_common.cuh): the slot
-// map, the scalar weight and the edge order differ; it shares its helpers,
-// and -fmad=false, so the plain PyTorch version (inverse_kernel.py) takes
-// the same branches.
+// is never read.  The loop is not the forward's bounce_step
+// (render_common.cuh): the slot map, the scalar weight and the edge order
+// differ; it shares its helpers (the primary ray too, which camera mode
+// makes in the kernel under the extraction's camera key), and -fmad=false,
+// so the plain PyTorch version (inverse_kernel.py) takes the same
+// branches.
 //
 // The sinks.  Each edge's quantities are [w, w*f0, w*f0*pix(3),
 // w*f0*light(3), 1], formed in float32.
@@ -151,14 +153,13 @@ struct InvLane {
 };
 
 // The lane of ray i before its primary sweep; *o and *dir are the primary
-// ray.
+// ray (render_common.cuh fresh_lane: read, or made in camera mode).
 __device__ __forceinline__ InvLane start_lane(const TraceParams& P, int i, V3* o, V3* dir) {
-  const int n = P.n;
-  *o = v3(P.p[i], P.p[n + i], P.p[2 * n + i]);
-  *dir = v3(P.d[i], P.d[n + i], P.d[2 * n + i]);
+  *o = ray_origin(P, i);
+  *dir = primary_dir(P, i);
   InvLane L;
   L.i = i;
-  L.h_orig = P.fused ? fmix32(static_cast<uint32_t>(P.orig[i]) ^ P.k0) : 0u;
+  L.h_orig = hash_orig(P, i);
   L.b = 0;
   L.dst = P.n_tri;
   L.w = 1.f;
@@ -264,7 +265,7 @@ __device__ __forceinline__ void sweep_segment(const TraceParams& P, const Tables
 template <bool kClustered, class Sink>
 __device__ __forceinline__ int trace_inverse(const TraceParams& P, const Tables& T, int i,
                                              const Sink& sink, float* stats) {
-  if (!(P.alive[i] > 0.f)) {
+  if (!lane_alive(P, i)) {
     stats[i] = stats[P.n + i] = 0.f;
     return 0;
   }
@@ -276,6 +277,16 @@ __device__ __forceinline__ int trace_inverse(const TraceParams& P, const Tables&
   stats[i] = L.segs;
   stats[P.n + i] = L.shadows;
   return L.b + 1;
+}
+
+// The observed colour of ray i's pixel: column i of pix (3, n), or in
+// camera mode row clip(g / spp, 0, W*H - 1) of the image pix (W*H, 3),
+// g = base + i (render/inverse.py's pixel of a sample).
+__device__ __forceinline__ V3 lane_pix(const TraceParams& P, const float* pix, int i) {
+  if (!P.camera) return v3(pix[i], pix[P.n + i], pix[2 * P.n + i]);
+  const long long last = static_cast<long long>(P.width) * P.height - 1;
+  const long long q = pixel_of(P, P.base + i);
+  return ld3(pix + 3 * (q > last ? last : q));
 }
 
 // The persistent schedule of the grid sinks (B5 and B6's global sink):
@@ -327,11 +338,11 @@ __device__ __forceinline__ void trace_persistent(const TraceParams& P, const Tab
         const int i = r < pool_left ? pool + r : fresh + (r - pool_left);
         if (i >= n) {
           more = false;
-        } else if (!(P.alive[i] > 0.f)) {
+        } else if (!lane_alive(P, i)) {
           stats[i] = stats[n + i] = 0.f;
         } else {
           L = start_lane(P, i, &o, &dir);
-          sink.pix = v3(pix[i], pix[n + i], pix[2 * n + i]);
+          sink.pix = lane_pix(P, pix, i);
           has = sweep = true;
         }
       }
@@ -436,7 +447,8 @@ int ipt_inverse_grid_blocks(const TraceParams* Pin, int* blocks) {
 }
 
 // B5: partials (blocks, nT+1, nT, 9) and stats (2, n) for the rays of *Pin
-// and their pixel colours pix (3, n).  Returns the cudaError_t.
+// and their pixel colours pix (3, n), or in camera mode the target image
+// pix (W*H, 3).  Returns the cudaError_t.
 int ipt_inverse_grid(const TraceParams* Pin, const float* pix, float* partials, float* stats,
                      int* next_ray, int blocks, void* stream) {
   TraceParams P = *Pin;
@@ -458,7 +470,8 @@ int ipt_inverse_grid(const TraceParams* Pin, const float* pix, float* partials, 
 }
 
 // B6 with the global-grid sink: adds the edges of the rays of *Pin, with
-// their pixel colours pix (3, n), to grid ((nT+1) * nT * 9 float64) and
+// their pixel colours pix (3, n; camera mode: the image (W*H, 3)), to grid
+// ((nT+1) * nT * 9 float64) and
 // writes stats (2, n); next_ray is a zeroed int.  Returns the cudaError_t.
 int ipt_inverse_global(const TraceParams* Pin, const float* pix, double* grid, float* stats,
                        int* next_ray, void* stream) {

@@ -25,6 +25,10 @@ inverse_tile_pallas_rec (ops/pallas/inverse_kernel.py:271, :338):
     uniforms  (max_bounces*8, n) float32: rows b*8 + [spec, pick, r1, r2,
               rr, phi, theta, -] of bounce b (external RNG), or None
     keys      (k0, k1) uint32 key words (fused RNG), or None
+    camera    in place of p, d, alive and orig (render_kernel.py): the
+              primary rays of ops/camera.py Camera(base, n, key), made in
+              the kernel; pix is then `image` (W*H, 3) float32, the target
+              image, whose row clip(g // spp, 0, W*H-1) is sample g's pixel
 
 and return, beside per-lane segment and shadow-ray counts (2, n) counted
 as B1 counts them:
@@ -66,18 +70,20 @@ import torch
 
 from inverse_path_tracer_torch.ops import rng
 from inverse_path_tracer_torch.ops.bsdf import INV_PI
+from inverse_path_tracer_torch.ops.camera import Camera, pixel_index, sample_index
 from inverse_path_tracer_torch.ops.intersect import smooth_normal
 from inverse_path_tracer_torch.ops.kernels.clusters import kernel_view
 from inverse_path_tracer_torch.ops.kernels.render_kernel import (
     KernelTables,
     Keys,
     _check,
-    _check_inputs,
+    _check_launch,
     _count_sweep,
     _default_orig,
     _library,
     _on_card,
     _raise_on,
+    _ray_inputs,
     _trace_params,
     sweep,
 )
@@ -111,41 +117,67 @@ def inverse_grid_fits(scene: SceneData) -> bool:
     return 4 * floats <= MAX_SMEM_BYTES
 
 
-def _check_inverse(cfg, p, d, alive, uniforms, orig, keys):
-    _check_inputs(cfg, p, d, alive, uniforms, orig, keys)
+def _check_inverse(cfg, scene, p, d, alive, uniforms, orig, keys, camera) -> int:
+    n = _check_launch(cfg, scene, p, d, alive, uniforms, orig, keys, camera)
     if cfg.p_spec != 0.0:
         raise ValueError(f"the inverse kernels need p_spec == 0 (got {cfg.p_spec}); "
                          "pass backend='plain' for the general path")
+    return n
+
+
+def _pixels(cfg, scene, n, pix, image, camera) -> torch.Tensor:
+    """The pixel input of B5 and the global sink: pix (3, n), or in camera
+    mode the image (W*H, 3)."""
+    if camera is None:
+        if pix is None or image is not None:
+            raise ValueError("pass pix (3, n) with the rays (image goes with camera)")
+        _check(pix, {"pix": (pix, (3, n), torch.float32)})
+        return pix
+    if image is None or pix is not None:
+        raise ValueError("camera mode takes the target image (W*H, 3), not pix")
+    _check(scene.vertices, {"image": (image, (cfg.width * cfg.height, 3), torch.float32)})
+    return image
+
+
+def _plain_pixels(cfg, camera, pix, image) -> torch.Tensor:
+    """pix (3, n) of the plain versions: given, or in camera mode the
+    image's row of each lane's pixel, from its 64-bit global sample index
+    (ops/camera.py pixel_index)."""
+    if image is None:
+        return pix
+    return image[pixel_index(cfg, sample_index(camera, image.device))].T.contiguous()
 
 
 def inverse_tile(
     scene: SceneData,
     cfg,
-    p: torch.Tensor,
-    d: torch.Tensor,
-    alive: torch.Tensor,
-    pix: torch.Tensor,
+    p: Optional[torch.Tensor] = None,
+    d: Optional[torch.Tensor] = None,
+    alive: Optional[torch.Tensor] = None,
+    pix: Optional[torch.Tensor] = None,
     uniforms: Optional[torch.Tensor] = None,
     orig: Optional[torch.Tensor] = None,
     keys: Optional[Keys] = None,
     *,
+    camera: Optional[Camera] = None,
+    image: Optional[torch.Tensor] = None,
     tables: Optional[KernelTables] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """B5: the dense edge grid (nT+1, nT, 9), in global triangle order, and
     the counts (2, n) of one range of rays.  `tables` is pack_tables(scene,
     scene.diffuse, cfg), packed here when not given."""
-    orig = _default_orig(p, orig)
-    _check_inverse(cfg, p, d, alive, uniforms, orig, keys)
-    _check(p, {"pix": (pix, (3, p.shape[1]), torch.float32)})
+    n = _check_inverse(cfg, scene, p, d, alive, uniforms, orig, keys, camera)
+    pixels = _pixels(cfg, scene, n, pix, image, camera)
     if not _on_card(p, scene):
-        return inverse_tile_plain(scene, cfg, p, d, alive, pix, uniforms, orig, keys)
+        return inverse_tile_plain(scene, cfg, p, d, alive, pix, uniforms, orig, keys,
+                                  camera=camera, image=image)
     if not inverse_grid_fits(scene):
         raise ValueError(f"inverse_tile keeps the (nT+1, nT, 9) grid in shared memory, which "
                          f"does not fit at nT = {scene.n_tri}; use inverse_tile_global")
     lib = _library("inverse")
-    params, tabs = _trace_params(scene.diffuse, scene, cfg, tables, p, d, alive, uniforms, orig,
-                                 keys)
-    n, nt, dev = p.shape[1], scene.n_tri, p.device
+    params, tabs = _trace_params(scene.diffuse, scene, cfg, tables, p, d, alive, uniforms,
+                                 _default_orig(p, orig), keys, camera)
+    nt, dev = scene.n_tri, scene.device
     stats = torch.empty((2, n), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         blocks = ctypes.c_int(0)
@@ -154,7 +186,7 @@ def inverse_tile(
         partials = torch.empty((blocks.value, nt + 1, nt, N_QUANT), dtype=torch.float32,
                                device=dev)
         next_ray = torch.zeros(1, dtype=torch.int32, device=dev)
-        err = lib.ipt_inverse_grid(ctypes.byref(params), pix.data_ptr(), partials.data_ptr(),
+        err = lib.ipt_inverse_grid(ctypes.byref(params), pixels.data_ptr(), partials.data_ptr(),
                                    stats.data_ptr(), next_ray.data_ptr(), blocks.value,
                                    torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(lib, err, "inverse grid")
@@ -166,26 +198,27 @@ def inverse_tile(
 def inverse_tile_rec(
     scene: SceneData,
     cfg,
-    p: torch.Tensor,
-    d: torch.Tensor,
-    alive: torch.Tensor,
+    p: Optional[torch.Tensor] = None,
+    d: Optional[torch.Tensor] = None,
+    alive: Optional[torch.Tensor] = None,
     uniforms: Optional[torch.Tensor] = None,
     orig: Optional[torch.Tensor] = None,
     keys: Optional[Keys] = None,
     *,
+    camera: Optional[Camera] = None,
     tables: Optional[KernelTables] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """B6: the edge records (max_bounces*8, n), internal indices on
     clustered scenes, and the counts (2, n).  The pixel colours enter in
     the reduction (grids_from_edge_records)."""
-    orig = _default_orig(p, orig)
-    _check_inverse(cfg, p, d, alive, uniforms, orig, keys)
+    n = _check_inverse(cfg, scene, p, d, alive, uniforms, orig, keys, camera)
     if not _on_card(p, scene):
-        return inverse_tile_rec_plain(scene, cfg, p, d, alive, uniforms, orig, keys)
+        return inverse_tile_rec_plain(scene, cfg, p, d, alive, uniforms, orig, keys,
+                                      camera=camera)
     lib = _library("inverse")
-    params, tabs = _trace_params(scene.diffuse, scene, cfg, tables, p, d, alive, uniforms, orig,
-                                 keys)
-    n, dev = p.shape[1], p.device
+    params, tabs = _trace_params(scene.diffuse, scene, cfg, tables, p, d, alive, uniforms,
+                                 _default_orig(p, orig), keys, camera)
+    dev = scene.device
     rec = torch.empty((cfg.max_bounces * REC_INV_ROWS, n), dtype=torch.float32, device=dev)
     stats = torch.empty((2, n), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
@@ -200,14 +233,16 @@ def inverse_tile_rec(
 def inverse_tile_global(
     scene: SceneData,
     cfg,
-    p: torch.Tensor,
-    d: torch.Tensor,
-    alive: torch.Tensor,
-    pix: torch.Tensor,
+    p: Optional[torch.Tensor] = None,
+    d: Optional[torch.Tensor] = None,
+    alive: Optional[torch.Tensor] = None,
+    pix: Optional[torch.Tensor] = None,
     uniforms: Optional[torch.Tensor] = None,
     orig: Optional[torch.Tensor] = None,
     keys: Optional[Keys] = None,
     *,
+    camera: Optional[Camera] = None,
+    image: Optional[torch.Tensor] = None,
     tables: Optional[KernelTables] = None,
     acc: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -217,29 +252,28 @@ def inverse_tile_global(
     here when not given, and returns (acc, the counts (2, n)).  The same
     grid as inverse_tile_plain(..., kernel_order=True) up to the order of
     the float64 sums."""
-    orig = _default_orig(p, orig)
-    _check_inverse(cfg, p, d, alive, uniforms, orig, keys)
-    n, nt = p.shape[1], scene.n_tri
-    _check(p, {"pix": (pix, (3, n), torch.float32)})
+    n = _check_inverse(cfg, scene, p, d, alive, uniforms, orig, keys, camera)
+    nt, dev = scene.n_tri, scene.device
+    pixels = _pixels(cfg, scene, n, pix, image, camera)
     if (nt + 1) * nt * N_QUANT >= 2**31:
         raise ValueError(f"the (nT+1, nT, 9) grid of nT = {nt} does not fit the kernel's int32 "
                          "bin indices")
     if acc is None:
-        acc = torch.zeros((nt + 1, nt, N_QUANT), dtype=torch.float64, device=p.device)
-    _check(p, {"acc": (acc, (nt + 1, nt, N_QUANT), torch.float64)})
+        acc = torch.zeros((nt + 1, nt, N_QUANT), dtype=torch.float64, device=dev)
+    _check(pixels, {"acc": (acc, (nt + 1, nt, N_QUANT), torch.float64)})
     if not _on_card(p, scene):
         grid, stats = inverse_tile_plain(scene, cfg, p, d, alive, pix, uniforms, orig, keys,
-                                         kernel_order=True)
+                                         kernel_order=True, camera=camera, image=image)
         return acc.add_(grid), stats
     lib = _library("inverse")
-    params, tabs = _trace_params(scene.diffuse, scene, cfg, tables, p, d, alive, uniforms, orig,
-                                 keys)
-    stats = torch.empty((2, n), dtype=torch.float32, device=p.device)
-    next_ray = torch.zeros(1, dtype=torch.int32, device=p.device)
-    with torch.cuda.device(p.device):
-        err = lib.ipt_inverse_global(ctypes.byref(params), pix.data_ptr(), acc.data_ptr(),
+    params, tabs = _trace_params(scene.diffuse, scene, cfg, tables, p, d, alive, uniforms,
+                                 _default_orig(p, orig), keys, camera)
+    stats = torch.empty((2, n), dtype=torch.float32, device=dev)
+    next_ray = torch.zeros(1, dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        err = lib.ipt_inverse_global(ctypes.byref(params), pixels.data_ptr(), acc.data_ptr(),
                                      stats.data_ptr(), next_ray.data_ptr(),
-                                     torch.cuda.current_stream(p.device).cuda_stream)
+                                     torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(lib, err, "inverse global grid")
     inverse_tile_global.launches += 1
     _count_sweep(tabs)
@@ -263,7 +297,8 @@ def unperm_grid(grid: torch.Tensor, perm: Optional[torch.Tensor]) -> torch.Tenso
     return out
 
 
-def inverse_tile_rec_plain(scene, cfg, p, d, alive, uniforms=None, orig=None, keys=None):
+def inverse_tile_rec_plain(scene, cfg, p=None, d=None, alive=None, uniforms=None, orig=None,
+                           keys=None, *, camera: Optional[Camera] = None):
     """B6's plain version: the inverse bounce loop of _kernel_inv
     (inverse_kernel.py:135-249) over all lanes at once.  The next ray is
     intersected on every lane; the kernel sweeps it only where the path
@@ -277,9 +312,10 @@ def inverse_tile_rec_plain(scene, cfg, p, d, alive, uniforms=None, orig=None, ke
       src -> emitter (f0 = 1/pi, light = the emitter's emission).
 
     A reached bounce that misses records dst and w with hit = 0.  Indices
-    are those of the kernels' view (internal on clustered scenes)."""
-    orig = _default_orig(p, orig)
-    _check_inverse(cfg, p, d, alive, uniforms, orig, keys)
+    are those of the kernels' view (internal on clustered scenes).  In
+    camera mode the rays are the plain camera_rays'."""
+    _check_inverse(cfg, scene, p, d, alive, uniforms, orig, keys, camera)
+    p, d, alive, orig = _ray_inputs(scene, cfg, p, d, alive, orig, camera)
     view = kernel_view(scene, cfg)
     scene = view.scene
     n, nt = p.shape[1], scene.n_tri
@@ -343,13 +379,17 @@ def inverse_tile_rec_plain(scene, cfg, p, d, alive, uniforms=None, orig=None, ke
     return rec, torch.stack([segs, shadows], dim=0)
 
 
-def inverse_tile_plain(scene, cfg, p, d, alive, pix, uniforms=None, orig=None, keys=None, *,
-                       kernel_order=False):
+def inverse_tile_plain(scene, cfg, p=None, d=None, alive=None, pix=None, uniforms=None,
+                       orig=None, keys=None, *, kernel_order=False,
+                       camera: Optional[Camera] = None, image: Optional[torch.Tensor] = None):
     """B5's plain version, and that of B6's global-grid sink: B6's plain
     records reduced to the dense grid.  B5's is float32 in global triangle
     order; with kernel_order, the global sink's, float64 in the kernels'
     order (internal on clustered scenes)."""
-    _check(p, {"pix": (pix, (3, p.shape[1]), torch.float32)})
+    n = _check_inverse(cfg, scene, p, d, alive, uniforms, orig, keys, camera)
+    _pixels(cfg, scene, n, pix, image, camera)
+    p, d, alive, orig = _ray_inputs(scene, cfg, p, d, alive, orig, camera)
+    pix = _plain_pixels(cfg, camera, pix, image)
     rec, stats = inverse_tile_rec_plain(scene, cfg, p, d, alive, uniforms, orig, keys)
     view = kernel_view(scene, cfg)
     if kernel_order:

@@ -16,7 +16,7 @@
 //
 // B4, reverse_tile_kernel, replaces reverse_tile_pallas / _kernel_reverse
 // (render_kernel.py:1640, :1065): the recursion alone, on the records that
-// B3 (render_fwd.cu render_rec_kernel) wrote to global memory.
+// B3 (render_fwd.cu render_kernel<true, ...>) wrote to global memory.
 //
 // B9, stage_reverse_kernel, replaces stage_reverse_tile_pallas /
 // _kernel_stage_reverse (render_kernel.py:1780, :1263): the recursion over
@@ -25,8 +25,13 @@
 // ones; the host re-orders the carry to the previous stage's lanes between
 // launches.  Like B4 it is bound by the bytes of the reached records.
 //
-// Schedules.  B4 and B9 run one thread per ray, the recursion warp by warp
-// to the warp's longest path (reverse_path).  B2 runs persistent blocks
+// Schedules.  B4 runs one thread per ray, the recursion warp by warp to
+// the warp's longest path (reverse_path).  B9 runs persistent blocks whose
+// warps walk fixed ranges of lanes 32 at a time, each lane loading all of
+// its slots (at most 4) before the recursion (stage_reverse_kernel), so
+// that a block clears its accumulators once and writes one partial for
+// its share of the launch instead of one per 256 lanes.  B2 runs persistent
+// blocks
 // whose lanes take a new ray when their path ends (render_common.cuh
 // warp_rays; grad_tile_kernel): under roulette a path averages about half
 // of its 16 bounces, and a warp of whole paths idled about half its lanes.
@@ -43,9 +48,9 @@
 // hand-out of rays to lanes depends only on (n, the grid, the path
 // lengths), so every result is bit-reproducible from run to run on one card
 // (it does depend on how rays fall into warps and blocks, as any float sum
-// depends on its order).  Shared memory holds kWarps * nT * 3 floats of
-// accumulators (up to the wrapper's limit) and, when they fit beside them
-// in 48 KB, the scene tables.
+// depends on its order).  Shared memory holds one (nT, 3) row of
+// accumulators per warp (up to the wrapper's limit) and, for B2, when they
+// fit beside them in 48 KB, the scene tables.
 //
 // Bound.  B2 does B1's work again (the closest-hit sweeps, f32 ALU) plus
 // the recursion, ~40 f32 operations and a warp sum per reached bounce, and
@@ -179,16 +184,18 @@ __device__ __forceinline__ int reached_slots(const GlobalSource& src, int slots,
   return n_reached;
 }
 
-__device__ __forceinline__ void zero_acc(float* acc, int n_tri) {
-  for (int e = threadIdx.x; e < kWarps * n_tri * 3; e += blockDim.x) acc[e] = 0.f;
+// The block's accumulators: `rows` (nT, 3) rows, one per warp.
+__device__ __forceinline__ void zero_acc(float* acc, int n_tri, int rows = kWarps) {
+  for (int e = threadIdx.x; e < rows * n_tri * 3; e += blockDim.x) acc[e] = 0.f;
 }
 
 // The block's (nT, 3) partial: its warps' rows summed in warp order.
-__device__ __forceinline__ void write_partial(const float* acc, int n_tri, float* partials) {
+__device__ __forceinline__ void write_partial(const float* acc, int n_tri, float* partials,
+                                              int rows = kWarps) {
   const int m = n_tri * 3;
   for (int e = threadIdx.x; e < m; e += blockDim.x) {
     float s = 0.f;
-    for (int w = 0; w < kWarps; ++w) s += acc[w * m + e];
+    for (int w = 0; w < rows; ++w) s += acc[w * m + e];
     partials[static_cast<size_t>(blockIdx.x) * m + e] = s;
   }
 }
@@ -309,40 +316,133 @@ __global__ void __launch_bounds__(kThreads)
   write_partial(acc, n_tri, partials);
 }
 
-// B9: the recursion over one stage's records (k slots) from the carry
-// suf_in (4, n) = (suf xyz, esc) of the later stages; writes the carry
-// toward the earlier stages to suf_out.
-__global__ void __launch_bounds__(kThreads)
+// B9's recursion of one lane over its kPre preloaded slots (k <= kPre):
+// reverse_path's steps in its order, on records that every lane loads
+// before the first step (the hit and esc flags of all k slots at once,
+// then the fields of the reached ones), so that a warp's loads overlap
+// instead of waiting one slot at a time.  The slots are unrolled, so the
+// records stay in registers.  Every lane of the warp calls it; lanes past
+// the warp's range pass valid = false.
+template <int kPre>
+__device__ __forceinline__ void reverse_preloaded(const GlobalSource& src, bool valid, int k,
+                                                  V3 g, int quirks, float inv_pi, float* acc,
+                                                  V3& suf, bool& esc_next) {
+  float hit[kPre], esc[kPre];
+#pragma unroll
+  for (int s = 0; s < kPre; ++s) {
+    const bool here = valid && s < k;
+    hit[s] = here ? src.row(s, 14) : 0.f;
+    esc[s] = here ? src.row(s, 15) : 0.f;
+  }
+  int n_reached = 0;
+  bool escaped = false;
+#pragma unroll
+  for (int s = 0; s < kPre; ++s) {
+    if (n_reached == s && (hit[s] != 0.f || esc[s] != 0.f)) {
+      n_reached = s + 1;
+      escaped = esc[s] != 0.f;
+    }
+  }
+  Rec x[kPre];
+#pragma unroll
+  for (int s = 0; s < kPre; ++s) {
+    if (s < n_reached) x[s] = src.load(s);
+  }
+  const int k_top = __reduce_max_sync(kAllLanes, n_reached);
+  if (n_reached < k) {
+    suf = g * 0.f + suf * 0.f;
+    esc_next = false;
+  }
+#pragma unroll
+  for (int s = kPre - 1; s >= 0; --s) {
+    if (s >= k_top) continue;  // warp-uniform
+    int key = -1;
+    V3 ct = zero3();
+    if (s < n_reached)
+      key = recurse_step(x[s], escaped && s == n_reached - 1, g, quirks, inv_pi, suf, esc_next,
+                         ct);
+    else
+      esc_next = false;
+    warp_add(key, ct, acc);
+  }
+}
+
+// B9's blocks of kB9Warps warps: half of kWarps' rows of accumulators, so
+// that on the large scene (nT = 1298, 62 KB a block) three blocks share an
+// SM where one of kWarps fit.  A stage of at most kB9Preload slots (every
+// stage of the staged paths) loads a lane's slots before the recursion
+// (reverse_preloaded); more take reverse_path's loop, with the same bits.
+constexpr int kB9Warps = 4;
+constexpr int kB9Threads = kB9Warps * 32;
+constexpr int kB9Preload = 4;
+
+// B9, persistent: the recursion over one stage's records (k slots) from
+// the carry suf_in (4, n) = (suf xyz, esc) of the later stages; writes the
+// carry toward the earlier stages to suf_out.  As many blocks as fit on the
+// card at once (stage_reverse_capacity): warp w of the grid owns the contiguous chunks of 32 neighbouring lanes
+// [w * C / W, (w + 1) * C / W) (C = ceil(n / 32) chunks, W warps; the
+// range is cut at n) and walks them in order, so its loads coalesce.  Each
+// block clears its rows once and writes one (nT, 3) partial; no counter is
+// shared between warps, so the sums depend only on (n, the grid) and two
+// calls are bit-equal.  tests/test_torch_regen.py mirrors the ranges.
+template <int kPre>
+__global__ void __launch_bounds__(kB9Threads)
     stage_reverse_kernel(const float* rec, const float* g, const float* suf_in, int n, int n_tri,
                          int k, int quirks, float inv_pi, float* partials, float* suf_out) {
   extern __shared__ float4 smem4[];
   float* acc = reinterpret_cast<float*>(smem4);
-  zero_acc(acc, n_tri);
+  zero_acc(acc, n_tri, kB9Warps);
   __syncthreads();
 
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  const GlobalSource src{rec, n, i};
-  int n_reached = 0;
-  bool escaped = false;
-  V3 gi = zero3(), suf = zero3();
-  bool esc_next = false;
-  if (i < n) {
-    n_reached = reached_slots(src, k, &escaped);
-    gi = load_g(g, n, i);
-    suf = v3(suf_in[i], suf_in[n + i], suf_in[2 * n + i]);
-    esc_next = suf_in[3 * n + i] > 0.f;
-  }
-  const int warp = threadIdx.x >> 5;
-  reverse_path(src, k, n_reached, escaped, gi, quirks, inv_pi,
-               acc + static_cast<size_t>(warp) * n_tri * 3, suf, esc_next);
-  if (i < n) {
-    suf_out[i] = suf.x;
-    suf_out[n + i] = suf.y;
-    suf_out[2 * n + i] = suf.z;
-    suf_out[3 * n + i] = esc_next ? 1.f : 0.f;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float* warp_acc = acc + static_cast<size_t>(warp) * n_tri * 3;
+  const long long chunks = (n + 31) / 32;
+  const long long warps = static_cast<long long>(gridDim.x) * kB9Warps;
+  const long long w = static_cast<long long>(blockIdx.x) * kB9Warps + warp;
+  const long long lo = w * chunks / warps * 32;
+  const long long hi = min((w + 1) * chunks / warps * 32, static_cast<long long>(n));
+  for (long long base = lo; base < hi; base += 32) {  // warp-uniform
+    const int i = static_cast<int>(base) + lane;
+    const bool valid = i < hi;
+    const GlobalSource src{rec, n, i};
+    V3 gi = zero3(), suf = zero3();
+    bool esc_next = false;
+    if (valid) {
+      gi = load_g(g, n, i);
+      suf = v3(suf_in[i], suf_in[n + i], suf_in[2 * n + i]);
+      esc_next = suf_in[3 * n + i] > 0.f;
+    }
+    if constexpr (kPre > 0) {
+      reverse_preloaded<kPre>(src, valid, k, gi, quirks, inv_pi, warp_acc, suf, esc_next);
+    } else {
+      int n_reached = 0;
+      bool escaped = false;
+      if (valid) n_reached = reached_slots(src, k, &escaped);
+      reverse_path(src, k, n_reached, escaped, gi, quirks, inv_pi, warp_acc, suf, esc_next);
+    }
+    if (valid) {
+      suf_out[i] = suf.x;
+      suf_out[n + i] = suf.y;
+      suf_out[2 * n + i] = suf.z;
+      suf_out[3 * n + i] = esc_next ? 1.f : 0.f;
+    }
   }
   __syncthreads();
-  write_partial(acc, n_tri, partials);
+  write_partial(acc, n_tri, partials, kB9Warps);
+}
+
+// B9's instance for a stage of k slots (preloaded slots or the loop), its
+// capacity cache and its dynamic shared memory.
+using StageReverseKernel = void (*)(const float*, const float*, const float*, int, int, int, int,
+                                    float, float*, float*);
+Capacity g_stage_reverse_capacity[2][kMaxDevices] = {};
+
+cudaError_t stage_reverse_capacity(int n_tri, int k, StageReverseKernel* kernel, size_t* dyn,
+                                   int* blocks) {
+  const bool preload = k <= kB9Preload;
+  *kernel = preload ? stage_reverse_kernel<kB9Preload> : stage_reverse_kernel<0>;
+  *dyn = ((static_cast<size_t>(kB9Warps) * n_tri * 3 + 3) & ~size_t(3)) * sizeof(float);
+  return capacity(*kernel, g_stage_reverse_capacity[preload ? 1 : 0], *dyn, blocks, kB9Threads);
 }
 
 // B2's instance for *P (ring of 16 or 64 slots, dense or clustered), its
@@ -412,17 +512,34 @@ int ipt_reverse_tile(const float* rec, const float* g, int n, int n_tri, int max
   return static_cast<int>(cudaGetLastError());
 }
 
-// B9: partials (ceil(n / 256), nT, 3) and the carry suf_out (4, n) from
-// one stage's records (k * 16, n), g (3, n) and the carry suf_in (4, n).
+// B9's grid for n lanes of a stage of k slots over nT triangles: the
+// blocks that fit on the card at once, at most one per kB9Threads lanes
+// (render_kernel.py persistent_blocks).  Returns the cudaError_t.
+int ipt_stage_reverse_blocks(int n, int n_tri, int k, int* blocks) {
+  StageReverseKernel kernel = nullptr;
+  size_t dyn = 0;
+  int cap = 0;
+  const cudaError_t err = stage_reverse_capacity(n_tri, k, &kernel, &dyn, &cap);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  *blocks = min(cap, (n + kB9Threads - 1) / kB9Threads);
+  return 0;
+}
+
+// B9 on `blocks` persistent blocks (ipt_stage_reverse_blocks): partials
+// (blocks, nT, 3) and the carry suf_out (4, n) from one stage's records
+// (k * 16, n), g (3, n) and the carry suf_in (4, n).  Returns the
+// cudaError_t.
 int ipt_stage_reverse_tile(const float* rec, const float* g, const float* suf_in, int n,
                            int n_tri, int k, int quirks, float inv_pi, float* partials,
-                           float* suf_out, void* stream) {
+                           float* suf_out, int blocks, void* stream) {
   if (n <= 0) return 0;
-  const size_t dyn = acc_floats(n_tri) * sizeof(float);
-  cudaError_t err = allow_smem(stage_reverse_kernel, dyn);
+  StageReverseKernel kernel = nullptr;
+  size_t dyn = 0;
+  int cap = 0;
+  const cudaError_t err = stage_reverse_capacity(n_tri, k, &kernel, &dyn, &cap);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int blocks = (n + kThreads - 1) / kThreads;
-  stage_reverse_kernel<<<blocks, kThreads, dyn, static_cast<cudaStream_t>(stream)>>>(
+  if (blocks < 1 || blocks > cap) return static_cast<int>(cudaErrorInvalidValue);
+  kernel<<<blocks, kB9Threads, dyn, static_cast<cudaStream_t>(stream)>>>(
       rec, g, suf_in, n, n_tri, k, quirks, inv_pi, partials, suf_out);
   return static_cast<int>(cudaGetLastError());
 }

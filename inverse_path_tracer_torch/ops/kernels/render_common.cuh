@@ -4,10 +4,10 @@
 // (B10), the shading helpers and the bounce loop of one ray as a lane state
 // (Lane), an init step (init_lane) and a bounce step (bounce_step).
 //
-// trace_path (B1's loop), the regenerating loops of B2 and B3 (warp_rays
-// below) and the stage kernel run the same steps, templated on a record
-// sink, so that B1 (no records), B3 and B8 (records to global memory) and
-// B2 (records in a per-thread ring) run one copy of the arithmetic.  Every
+// The regenerating loops of B1, B2 and B3 (warp_rays below) and the stage
+// kernel run the same steps, templated on a record sink, so that B1 (no
+// records), B3 and B8 (records to global memory) and B2 (records in a
+// per-thread ring) run one copy of the arithmetic.  Every
 // file that includes this header is built with -fmad=false (build.py), so
 // B2's replay takes exactly the branches of B1's forward, a staged render
 // equals a mega one lane for lane, and all of them round exactly as the
@@ -58,6 +58,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace ipt {
 
 constexpr int kPlaneStride = 16;  // n, -c.n, out0, d0, out1, d1, out2, d2
@@ -82,7 +84,10 @@ constexpr int kRecRows = 16;
 constexpr int kCarryRows = 24;
 
 // The inputs of the bounce loop.  Pointers to the scene tables are the
-// global copies; stage_tables returns the ones a block reads.
+// global copies; stage_tables returns the ones a block reads.  The primary
+// rays come from p, d, alive and orig, or, in camera mode (camera = 1),
+// from camera_ray: lane i then traces global sample base + i, and those
+// four pointers are not read.
 struct TraceParams {
   const float* p;         // (3, n)
   const float* d;         // (3, n)
@@ -103,6 +108,13 @@ struct TraceParams {
   int cluster_group, n_groups;  // clusters per group box, group boxes
   float p_rr, min_dot, epsilon;
   float two_pi, inv_pi, inv_2pi, cos_scale, inv_p_rr;
+  // Camera mode: the launch's first global sample, the render's sample
+  // count (a lane past it is dead), the image and its samples per pixel,
+  // the (3, 3) row-major camera matrix and the camera jitter's key words.
+  long long base, n_samples;
+  const float* cam;
+  int camera, width, height, spp;
+  uint32_t ck0, ck1;
 };
 
 struct Tables {
@@ -428,7 +440,7 @@ __device__ __forceinline__ float spec_coeff(float inv_2pi, float shin, V3 n, V3 
   return (shin + 2.f) * inv_2pi * powed;
 }
 
-// Record sinks of trace_path.  put() receives bounce b's record fields.
+// Record sinks of bounce_step.  put() receives bounce b's record fields.
 struct NoRecords {
   __device__ __forceinline__ void put(int, V3, V3, V3, V3, float, int, bool, bool) {}
 };
@@ -508,22 +520,66 @@ __device__ __forceinline__ void store_lane(float* carry, int n, int i, const Lan
   carry[static_cast<size_t>(23) * n + i] = 0.f;
 }
 
+// a / b for a >= 0, b > 0, in 32-bit arithmetic where a fits (a 64-bit
+// divide is a long emulated sequence).
+__device__ __forceinline__ long long div_nonneg(long long a, int b) {
+  if (a < (1LL << 32)) return static_cast<uint32_t>(a) / static_cast<uint32_t>(b);
+  return a / b;
+}
+
+// g / spp: the pixel of global sample g, row-major.
+__device__ __forceinline__ long long pixel_of(const TraceParams& P, long long g) {
+  return div_nonneg(g, P.spp);
+}
+
+// The primary ray of global sample g (camera mode), the plain version's
+// ops/camera.py camera_rays operation for operation: pixel row r and column
+// c (r = g / (spp W) = (g / spp) / W), the jitter of slots 6 and 7 of
+// bounce 0 under the camera key words, x = 2(c + u1)/W - 1, y = 1 - 2(r +
+// u2)/H, normalize(x, y, 1), the camera matrix, normalize; the origin is 0.
+// The hash takes g's low 32 bits, as rng.hash_orig does.
+__device__ __forceinline__ V3 camera_ray(const TraceParams& P, long long g) {
+  const long long q = pixel_of(P, g);
+  const long long r = div_nonneg(q, P.width);
+  const long long c = q - r * P.width;
+  const uint32_t h = fmix32(static_cast<uint32_t>(g) ^ P.ck0);
+  const float u1 = unit_from_bits(fmix32((h + 6u * kGolden) ^ P.ck1));
+  const float u2 = unit_from_bits(fmix32((h + 7u * kGolden) ^ P.ck1));
+  const float x = 2.f * (static_cast<float>(c) + u1) / static_cast<float>(P.width) - 1.f;
+  const float y = 1.f - 2.f * (static_cast<float>(r) + u2) / static_cast<float>(P.height);
+  const V3 d = normalize3(v3(x, y, 1.f));
+  const float* m = P.cam;
+  return normalize3(v3(d.x * m[0] + d.y * m[1] + d.z * m[2],
+                       d.x * m[3] + d.y * m[4] + d.z * m[5],
+                       d.x * m[6] + d.y * m[7] + d.z * m[8]));
+}
+
+// The direction of ray i's primary ray: read, or made in camera mode.
+__device__ __forceinline__ V3 primary_dir(const TraceParams& P, int i) {
+  if (P.camera) return camera_ray(P, P.base + i);
+  return v3(P.d[i], P.d[P.n + i], P.d[2 * P.n + i]);
+}
+
+// Whether ray i of the launch is a sample of the render.
+__device__ __forceinline__ bool lane_alive(const TraceParams& P, int i) {
+  return P.camera ? P.base + i < P.n_samples : P.alive[i] > 0.f;
+}
+
 // Ray i's lane before its primary sweep: a miss at point 0.
 __device__ __forceinline__ Lane fresh_lane(const TraceParams& P, int i) {
-  const int n = P.n;
   Lane L;
-  L.dir = v3(P.d[i], P.d[n + i], P.d[2 * n + i]);
+  L.dir = primary_dir(P, i);
   L.rad = L.l_e = L.l_d = L.point = zero3();
   L.pm = v3(1.f, 1.f, 1.f);
   L.segs = L.shadows = 0.f;
-  L.alive = P.alive[i] > 0.f;
+  L.alive = lane_alive(P, i);
   L.hit = false;
   L.idx = 0;
   return L;
 }
 
 __device__ __forceinline__ V3 ray_origin(const TraceParams& P, int i) {
-  return v3(P.p[i], P.p[P.n + i], P.p[2 * P.n + i]);
+  return P.camera ? zero3() : v3(P.p[i], P.p[P.n + i], P.p[2 * P.n + i]);
 }
 
 // The pending ray's closest hit, from origin o along L.dir.
@@ -546,7 +602,9 @@ __device__ __forceinline__ Lane init_lane(const TraceParams& P, const Tables& T,
 
 // The per-sample half of the fused RNG's hash.
 __device__ __forceinline__ uint32_t hash_orig(const TraceParams& P, int i) {
-  return P.fused ? fmix32(static_cast<uint32_t>(P.orig[i]) ^ P.k0) : 0u;
+  if (!P.fused) return 0u;
+  const uint32_t g = P.camera ? static_cast<uint32_t>(P.base + i) : static_cast<uint32_t>(P.orig[i]);
+  return fmix32(g ^ P.k0);
 }
 
 // Slots 0-5 of the uniforms of global bounce b_global: the fused hash of
@@ -695,36 +753,7 @@ __device__ __forceinline__ bool bounce_step(const TraceParams& P, const Tables& 
   return true;
 }
 
-struct PathOut {
-  V3 rad;
-  float segs, shadows;
-  int n_reached;  // bounces the ray entered (records written)
-  bool escaped;   // the last of them was an escape
-};
-
-// The whole bounce loop of ray i (the mega kernels): init_lane, then
-// bounce_step until the lane dies or max_bounces, every bounce's record
-// handed to `sink`.
-template <bool kClustered, class Sink>
-__device__ __forceinline__ PathOut trace_path(const TraceParams& P, const Tables& T, int i,
-                                              Sink& sink) {
-  Lane L = init_lane<kClustered>(P, T, i);
-  const uint32_t h_orig = hash_orig(P, i);
-  int n_reached = 0;
-  bool escaped = false;
-  if (L.alive) {
-    for (int b = 0; b < P.max_bounces; ++b) {
-      float u[6];
-      draw6(P, i, h_orig, b, b, u);
-      n_reached = b + 1;
-      escaped = !L.hit;
-      if (!bounce_step<kClustered>(P, T, L, b, u, sink, b)) break;
-    }
-  }
-  return PathOut{L.rad, L.segs, L.shadows, n_reached, escaped};
-}
-
-// --- The regenerating schedule (B2, B3) ----------------------------------
+// --- The regenerating schedule (B1, B2, B3) ------------------------------
 //
 // Persistent blocks, as many as fit on the card (capacity below).  Warp w of
 // the grid owns the contiguous rays [w * per, (w + 1) * per) of the launch,
@@ -804,10 +833,11 @@ struct Capacity {
 constexpr int kMaxDevices = 64;
 
 // Opts `kernel` into `smem` bytes on the current device and returns in
-// *blocks how many of its blocks fit on the card at once; `cache` holds one
-// entry per device.
+// *blocks how many of its blocks of `threads` fit on the card at once;
+// `cache` holds one entry per device.
 template <class K>
-cudaError_t capacity(K kernel, Capacity* cache, size_t smem, int* blocks) {
+cudaError_t capacity(K kernel, Capacity* cache, size_t smem, int* blocks,
+                     int threads = kThreads) {
   if (smem > static_cast<size_t>(kMaxSmem)) return cudaErrorInvalidValue;
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -819,7 +849,7 @@ cudaError_t capacity(K kernel, Capacity* cache, size_t smem, int* blocks) {
                                static_cast<int>(smem));
     int per_sm = 0, sms = 0;
     if (err == cudaSuccess)
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem);
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
     if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (err != cudaSuccess) return err;
     if (per_sm < 1) return cudaErrorInvalidConfiguration;

@@ -12,21 +12,23 @@
 // Phong direction sampling, the reference quirks Q1/Q2 (or the quirk-free
 // estimator), and barycentric smooth shading on vertex-normal scenes.
 //
-// B3, render_rec_kernel, replaces render_tile_pallas_rec (render_kernel.py
-// :1571): the same bounce steps, which also write every bounce's record to
-// a (max_bounces * 16, n) array in global memory (layout in
-// render_common.cuh) and zero the slots past the ray's last bounce, so
-// that reverse_tile (render_bwd.cu) needs no replay.  Its radiance and
-// counts are B1's, bit for bit: the record stores touch no arithmetic.
+// B3 replaces render_tile_pallas_rec (render_kernel.py :1571): the same
+// bounce steps, which also write every bounce's record to a (max_bounces *
+// 16, n) array in global memory (layout in render_common.cuh), zero past
+// the ray's last bounce, so that reverse_tile (render_bwd.cu) needs no
+// replay.  Its radiance and counts are B1's, bit for bit: the record stores
+// touch no arithmetic.  B1 and B3 are one kernel template, render_kernel
+// <kRecords, kClustered>.
 //
-// Design.  B1: one thread per ray, the bounce loop in registers (trace_path
-// in render_common.cuh), exit as soon as the ray dies (the TPU kernel pays
-// every bounce slot of a masked block).  B3: persistent blocks whose lanes
-// take a new ray as soon as their path ends (render_common.cuh warp_rays),
-// one round per bounce, so a warp's lanes stay busy under roulette; the
-// rays a warp holds come from one contiguous range, in order, so the record
-// stores of a round fall on neighbouring columns and L2 merges their
-// partial sectors.  The closest hit is a brute-force sweep over all
+// Design.  B1 and B3: persistent blocks whose lanes take a new ray as soon
+// as their path ends (render_common.cuh warp_rays), one round per bounce,
+// so a warp's lanes stay busy under roulette (one ray a thread idled the
+// finished lanes of a warp until its longest path ended); the rays a warp
+// holds come from one contiguous range, in order, so B3's record stores of
+// a round fall on neighbouring columns and L2 merges their partial sectors.
+// In camera mode (TraceParams.camera, the fused paths) a lane makes its
+// primary ray itself (render_common.cuh camera_ray) instead of reading it.
+// The closest hit is a brute-force sweep over all
 // triangles with a strict `<`, so ties keep the lowest triangle index; the
 // per-triangle plane rows (16 floats: face plane, 3 edge planes), the
 // per-triangle material table and the emitter table are staged in shared
@@ -65,9 +67,9 @@
 // of record stores per ray (1 GiB per 2^20-ray launch at 16 bounces),
 // which at 3.35 TB/s is about a tenth of B1's time; its memset writes the
 // whole array and the kernel the reached slots again (about half of it).
-// Warp divergence from rays dying at different bounces is B1's main loss,
-// which B3's regenerating lanes remove; B7 and B8 are the ray compaction
-// the JAX package uses on large scenes.  B8 moves its carry (96 bytes in
+// Warp divergence from rays dying at different bounces was B1's main loss
+// with one ray a thread, which the regenerating lanes remove; B7 and B8
+// are the ray compaction the JAX package uses on large scenes.  B8 moves its carry (96 bytes in
 // and 96 out per lane) and k * 64 bytes of records per lane; its sweeps
 // dominate as B1's do.
 
@@ -86,63 +88,56 @@ __device__ __forceinline__ void store_out(float* rad, float* stats, int n, int i
   stats[n + i] = shadows;
 }
 
-// B1: one thread per ray.
-template <bool kClustered>
-__global__ void __launch_bounds__(kThreads, min_blocks(kClustered))
-    render_fwd_kernel(const TraceParams P, float* rad, float* stats) {
-  extern __shared__ float4 smem4[];
-  const Tables T = stage_tables<kClustered>(P, reinterpret_cast<float*>(smem4));
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= P.n) return;
-  NoRecords sink;
-  const PathOut o = trace_path<kClustered>(P, T, i, sink);
-  store_out(rad, stats, P.n, i, o.rad, o.segs, o.shadows);
-}
-
-// B3: persistent blocks whose lanes regenerate (render_common.cuh
+// B1 and B3: persistent blocks whose lanes regenerate (render_common.cuh
 // warp_rays).  Each round a lane that traces a ray runs one bounce
-// (bounce_step with the next sweep deferred) and writes its record; a lane
-// whose path ends writes its radiance and counts and takes the next ray of
-// its warp's range; then every lane with a pending ray sweeps it together,
-// the next ray of a path or a new primary ray.  The lane carries its ray
-// index i, which keys the fused hash, the external uniforms' column and the
-// output columns, so each ray's arithmetic is one thread's and its
-// radiance, counts and records are B1's and trace_path's, bit for bit.
-// The slots a path does not reach must read zero: the launch clears the
-// record array with a memset first, and the kernel stores the reached slots
-// only.  Zeroing them in the kernel, by each lane at its path's end (a
-// divergent loop of scattered stores) or by the warps before they hand out
-// rays (coalesced), measured slower on the H100 (PERF.md §6).
-template <bool kClustered>
+// (bounce_step with the next sweep deferred) and, for B3, writes its
+// record; a lane whose path ends writes its radiance and counts and takes
+// the next ray of its warp's range; then every lane with a pending ray
+// sweeps it together, the next ray of a path or a new primary ray.  The
+// lane carries its ray index i, which keys the fused hash, the external
+// uniforms' column, the camera ray and the output columns, so each ray's
+// arithmetic is one thread's: B3's radiance and counts are B1's, bit for
+// bit, and both are those of a thread that runs a ray's path to its end
+// (the next ray is swept only where the path goes on; a sweep after
+// roulette ends a path counts nothing).  B3's slots that a path does not
+// reach must read zero: the launch clears the record array with a memset
+// first, and the kernel stores the reached slots only.  Zeroing them in the
+// kernel, by each lane at its path's end (a divergent loop of scattered
+// stores) or by the warps before they hand out rays (coalesced), measured
+// slower on the H100 (PERF.md §6).
+template <bool kRecords, bool kClustered>
 __global__ void __launch_bounds__(kThreads, min_blocks(kClustered))
-    render_rec_kernel(const TraceParams P, float* rad, float* stats, float* rec) {
+    render_kernel(const TraceParams P, float* rad, float* stats, float* rec) {
   extern __shared__ float4 smem4[];
   const Tables T = stage_tables<kClustered>(P, reinterpret_cast<float*>(smem4));
   const int n = P.n;
   WarpRays w = warp_rays(n);
-  GlobalRecords sink{rec, n, 0};  // sink.i: the lane's ray
+  std::conditional_t<kRecords, GlobalRecords, NoRecords> sink;
+  if constexpr (kRecords) sink = GlobalRecords{rec, n, 0};  // sink.i: the lane's ray
   Lane L;
   uint32_t h_orig = 0;
+  int i = 0;         // the lane's ray
   int b = 0;         // the bounce the lane enters next
   bool has = false;  // the lane traces a ray
   for (;;) {
     bool sweep = false;
     if (has) {
       float u[6];
-      draw6(P, sink.i, h_orig, b, b, u);
+      draw6(P, i, h_orig, b, b, u);
       const bool cont = bounce_step<kClustered, true>(P, T, L, b, u, sink, b);
       ++b;
       if (cont && b < P.max_bounces) {
         sweep = true;
       } else {
-        store_out(rad, stats, n, sink.i, L.rad, L.segs, L.shadows);
+        store_out(rad, stats, n, i, L.rad, L.segs, L.shadows);
         has = false;
       }
     }
-    const int i = take_ray(w, !has);
-    if (i >= 0) {
+    const int next = take_ray(w, !has);
+    if (next >= 0) {
+      i = next;
       L = fresh_lane(P, i);
-      sink.i = i;
+      if constexpr (kRecords) sink.i = i;
       b = 0;
       if (L.alive) {
         L.point = ray_origin(P, i);
@@ -266,13 +261,46 @@ __global__ void __launch_bounds__(kThreads, min_blocks(kClustered))
   idx_out[i] = h.idx;
 }
 
-// B3's blocks that fit on the card at once, per instance and device.
-Capacity g_rec_capacity[2][kMaxDevices] = {};
+// B1's and B3's blocks that fit on the card at once, per instance
+// ([kRecords][kClustered]) and device.
+Capacity g_render_capacity[2][2][kMaxDevices] = {};
 
-cudaError_t rec_capacity(TraceParams& P, int* blocks) {
+cudaError_t render_capacity(TraceParams& P, bool records, int* blocks) {
   const size_t dyn = smem_tables(P, 0);
-  return P.cluster_k ? capacity(render_rec_kernel<true>, g_rec_capacity[1], dyn, blocks)
-                     : capacity(render_rec_kernel<false>, g_rec_capacity[0], dyn, blocks);
+  Capacity* c = g_render_capacity[records][P.cluster_k ? 1 : 0];
+  if (records)
+    return P.cluster_k ? capacity(render_kernel<true, true>, c, dyn, blocks)
+                       : capacity(render_kernel<true, false>, c, dyn, blocks);
+  return P.cluster_k ? capacity(render_kernel<false, true>, c, dyn, blocks)
+                     : capacity(render_kernel<false, false>, c, dyn, blocks);
+}
+
+// B1 (rec null) or B3 on `blocks` persistent blocks, at most the capacity.
+cudaError_t launch_render(const TraceParams* Pin, float* rad, float* stats, float* rec, int blocks,
+                          cudaStream_t s) {
+  TraceParams P = *Pin;
+  if (P.n <= 0) return cudaSuccess;
+  int cap = 0;
+  const bool records = rec != nullptr;
+  const cudaError_t err = render_capacity(P, records, &cap);  // opts the kernel into its smem
+  if (err != cudaSuccess) return err;
+  if (blocks < 1 || blocks > cap) return cudaErrorInvalidValue;
+  const size_t dyn = smem_tables(P, 0);
+  if (records) {
+    const size_t bytes = static_cast<size_t>(P.max_bounces) * kRecRows * P.n * sizeof(float);
+    const cudaError_t e = cudaMemsetAsync(rec, 0, bytes, s);
+    if (e != cudaSuccess) return e;
+    if (P.cluster_k) {
+      render_kernel<true, true><<<blocks, kThreads, dyn, s>>>(P, rad, stats, rec);
+    } else {
+      render_kernel<true, false><<<blocks, kThreads, dyn, s>>>(P, rad, stats, rec);
+    }
+  } else if (P.cluster_k) {
+    render_kernel<false, true><<<blocks, kThreads, dyn, s>>>(P, rad, stats, rec);
+  } else {
+    render_kernel<false, false><<<blocks, kThreads, dyn, s>>>(P, rad, stats, rec);
+  }
+  return cudaGetLastError();
 }
 
 // Launches `kernel` on blocks of kThreads threads with `dyn` bytes of
@@ -311,22 +339,19 @@ int launch_persistent(K kernel, size_t dyn, void* stream, const TraceParams& P,
 
 extern "C" {
 
-// B1 on `stream` for the rays and scene of *Pin; returns the cudaError_t
-// of the launch.
-int ipt_render_fwd(const TraceParams* Pin, float* rad, float* stats, void* stream) {
+// B1's (records 0) or B3's (records 1) blocks that fit on the card at once
+// for the scene of *Pin (the wrapper launches at most that many:
+// render_kernel.py persistent_blocks).  Returns the cudaError_t.
+int ipt_render_capacity(const TraceParams* Pin, int records, int* blocks) {
   TraceParams P = *Pin;
-  if (P.n <= 0) return 0;
-  const size_t dyn = smem_tables(P, 0);
-  const int b = blocks_for(P.n);
-  return P.cluster_k ? launch(render_fwd_kernel<true>, b, dyn, stream, P, rad, stats)
-                     : launch(render_fwd_kernel<false>, b, dyn, stream, P, rad, stats);
+  return static_cast<int>(render_capacity(P, records != 0, blocks));
 }
 
-// B3's blocks that fit on the card at once for the scene of *Pin (the
-// wrapper launches at most that many: render_kernel.py persistent_blocks).
-int ipt_render_rec_capacity(const TraceParams* Pin, int* blocks) {
-  TraceParams P = *Pin;
-  return static_cast<int>(rec_capacity(P, blocks));
+// B1 on `blocks` persistent blocks: radiance (3, n) and counts (2, n) of
+// the rays of *Pin.  Returns the cudaError_t.
+int ipt_render_fwd(const TraceParams* Pin, float* rad, float* stats, int blocks, void* stream) {
+  return static_cast<int>(
+      launch_render(Pin, rad, stats, nullptr, blocks, static_cast<cudaStream_t>(stream)));
 }
 
 // B3 on `blocks` persistent blocks: radiance, counts and records
@@ -334,23 +359,9 @@ int ipt_render_rec_capacity(const TraceParams* Pin, int* blocks) {
 // Returns the cudaError_t.
 int ipt_render_rec(const TraceParams* Pin, float* rad, float* stats, float* rec, int blocks,
                    void* stream) {
-  TraceParams P = *Pin;
-  if (P.n <= 0) return 0;
-  int cap = 0;
-  const cudaError_t err = rec_capacity(P, &cap);  // opts the kernel into its shared memory
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (blocks < 1 || blocks > cap) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t dyn = smem_tables(P, 0);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const size_t bytes = static_cast<size_t>(P.max_bounces) * kRecRows * P.n * sizeof(float);
-  const cudaError_t e = cudaMemsetAsync(rec, 0, bytes, s);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  if (P.cluster_k) {
-    render_rec_kernel<true><<<blocks, kThreads, dyn, s>>>(P, rad, stats, rec);
-  } else {
-    render_rec_kernel<false><<<blocks, kThreads, dyn, s>>>(P, rad, stats, rec);
-  }
-  return static_cast<int>(cudaGetLastError());
+  if (rec == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(
+      launch_render(Pin, rad, stats, rec, blocks, static_cast<cudaStream_t>(stream)));
 }
 
 // B7: the initial carry (kCarryRows, n) of the rays of *Pin.

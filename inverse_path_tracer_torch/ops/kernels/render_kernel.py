@@ -16,6 +16,10 @@ reverse_tile_pallas (ops/pallas/render_kernel.py:1440, :1571, :1505, :1640):
     p, d      (3, n) float32 ray origins / directions
     alive     (1, n) float32 0/1 initial alive mask
     orig      (1, n) int32 global sample indices (the fused RNG's counter)
+    camera    in place of p, d, alive and orig: ops/camera.py Camera(base,
+              n, key), the primary rays of global samples base .. base+n-1,
+              which the kernels make themselves (the fused paths' mode; it
+              needs keys); the plain versions make them with camera_rays
     uniforms  (max_bounces*8, n) float32: rows b*8 + [pick, r1, r2, rr, phi,
               theta, -, -] of bounce b (external RNG), or None
     keys      (k0, k1) uint32 key words (fused RNG), or None
@@ -32,10 +36,11 @@ cotangent back to global rows.  Every B1-B9 kernel sweeps through B10
 that ran the clustered sweep, its own included.
 
 Each wrapper launches its CUDA kernel (render_fwd.cu, render_bwd.cu) for
-CUDA tensors and runs its plain version for CPU tensors; it never falls
-back from one to the other on a CUDA tensor.  `<wrapper>.launches` counts
-kernel launches.  B2 and B3 run persistent blocks whose lanes regenerate
-(render_common.cuh warp_rays); `grad_tile.blocks` and
+CUDA tensors (in camera mode: for a scene on the card) and runs its plain
+version for CPU tensors; it never falls back from one to the other on a
+CUDA tensor.  `<wrapper>.launches` counts kernel launches.  B1, B2 and B3
+run persistent blocks whose lanes regenerate (render_common.cuh
+warp_rays); `render_tile.blocks`, `grad_tile.blocks` and
 `render_tile_rec.blocks` hold the grid of their last launch.
 """
 
@@ -51,6 +56,7 @@ import torch
 
 from inverse_path_tracer_torch.ops import rng
 from inverse_path_tracer_torch.ops.bsdf import INV_2PI, INV_PI, bsdf_from_values
+from inverse_path_tracer_torch.ops.camera import Camera, camera_inputs
 from inverse_path_tracer_torch.ops.intersect import (
     Intersection,
     intersect_clustered,
@@ -113,6 +119,7 @@ class KernelTables:
     gab: Optional[torch.Tensor] = None  # (G, 8) boxes of the groups of clusters 1..
     cluster_k: int = 0  # 0 = dense sweep
     group: int = 0  # clusters per group box
+    cam: Optional[torch.Tensor] = None  # (3, 3) camera matrix (camera mode's rays)
 
     @property
     def padded_tri(self) -> int:
@@ -150,6 +157,7 @@ def pack_tables(scene: SceneData, materials: torch.Tensor, cfg=None) -> KernelTa
         gab=view.gab,
         cluster_k=view.cluster_k,
         group=view.group,
+        cam=s.cam_m33.float().contiguous(),
     )
 
 
@@ -172,11 +180,37 @@ def _check_rng(p, uniforms, keys, rows):
         _check(p, {"uniforms": (uniforms, (rows, p.shape[1]), torch.float32)})
 
 
-def _check_inputs(cfg, p, d, alive, uniforms, orig, keys):
-    n = p.shape[1]
-    _check(p, {"p": (p, (3, n), torch.float32), "d": (d, (3, n), torch.float32),
-               "alive": (alive, (1, n), torch.float32), "orig": (orig, (1, n), torch.int32)})
-    _check_rng(p, uniforms, keys, cfg.max_bounces * 8)
+def _check_rays(p, d, alive, orig, camera) -> int:
+    """Checks one launch's rays p, d, alive, orig (orig defaults to zeros)
+    or, in camera mode, a Camera and none of them.  Returns the lane count
+    n."""
+    if camera is None:
+        if p is None or d is None or alive is None:
+            raise ValueError("pass the rays p, d and alive, or camera")
+        n, orig = p.shape[1], _default_orig(p, orig)
+        _check(p, {"p": (p, (3, n), torch.float32), "d": (d, (3, n), torch.float32),
+                   "alive": (alive, (1, n), torch.float32),
+                   "orig": (orig, (1, n), torch.int32)})
+        return n
+    if any(t is not None for t in (p, d, alive, orig)):
+        raise ValueError("camera replaces p, d, alive and orig")
+    if camera.n < 0 or camera.base < 0:
+        raise ValueError(f"bad camera launch {camera}")
+    return camera.n
+
+
+def _check_launch(cfg, scene, p, d, alive, uniforms, orig, keys, camera) -> int:
+    """Checks one launch's ray inputs (_check_rays) and its RNG: uniforms
+    or keys with the rays, the fused RNG's keys in camera mode.  Returns
+    the lane count n."""
+    n = _check_rays(p, d, alive, orig, camera)
+    if camera is None:
+        _check_rng(p, uniforms, keys, cfg.max_bounces * 8)
+    elif uniforms is not None:
+        raise ValueError("camera replaces uniforms: pass the fused RNG's keys")
+    elif keys is None:
+        raise ValueError("camera mode needs the fused RNG's keys")
+    return n
 
 
 def _check_grad_triangles(n_tri):
@@ -186,7 +220,10 @@ def _check_grad_triangles(n_tri):
 
 
 def _on_card(p, scene, materials=None) -> bool:
-    """True for CUDA tensors, False for CPU tensors; raises otherwise."""
+    """True for CUDA tensors, False for CPU tensors; raises otherwise.  In
+    camera mode (p None) the scene's device decides."""
+    if p is None:
+        p = scene.vertices
     if p.device.type == "cpu":
         return False
     if p.device.type != "cuda":
@@ -197,38 +234,53 @@ def _on_card(p, scene, materials=None) -> bool:
 
 
 def _default_orig(p, orig):
-    if orig is None:
+    if orig is None and p is not None:
         return torch.zeros((1, p.shape[1]), dtype=torch.int32, device=p.device)
     return orig
+
+
+def _ray_inputs(scene, cfg, p, d, alive, orig, camera):
+    """The plain versions' rays: as given, or made from `camera` by the
+    plain camera_rays (ops/camera.py camera_inputs)."""
+    if camera is None:
+        return p, d, alive, _default_orig(p, orig)
+    a = camera_inputs(scene, cfg, camera)
+    return a["p"], a["d"], a["alive"], a["orig"]
 
 
 def render_tile(
     materials: torch.Tensor,
     scene: SceneData,
     cfg,
-    p: torch.Tensor,
-    d: torch.Tensor,
-    alive: torch.Tensor,
+    p: Optional[torch.Tensor] = None,
+    d: Optional[torch.Tensor] = None,
+    alive: Optional[torch.Tensor] = None,
     uniforms: Optional[torch.Tensor] = None,
     orig: Optional[torch.Tensor] = None,
     keys: Optional[Keys] = None,
     *,
+    camera: Optional[Camera] = None,
     tables: Optional[KernelTables] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """B1: render one range of rays.  `tables` is pack_tables(scene,
     materials, cfg), packed here when not given."""
-    orig = _default_orig(p, orig)
-    _check_inputs(cfg, p, d, alive, uniforms, orig, keys)
+    n = _check_launch(cfg, scene, p, d, alive, uniforms, orig, keys, camera)
     if not _on_card(p, scene, materials):
-        return render_tile_plain(materials, scene, cfg, p, d, alive, uniforms, orig, keys)
+        return render_tile_plain(materials, scene, cfg, p, d, alive, uniforms, orig, keys,
+                                 camera=camera)
     lib = _library("render_fwd")
-    params, tabs = _trace_params(materials, scene, cfg, tables, p, d, alive, uniforms, orig, keys)
-    rad, stats = _fwd_outputs(p.shape[1], p.device)
-    with torch.cuda.device(p.device):
-        err = lib.ipt_render_fwd(ctypes.byref(params), rad.data_ptr(), stats.data_ptr(),
-                                 torch.cuda.current_stream(p.device).cuda_stream)
+    dev = scene.device
+    params, tabs = _trace_params(materials, scene, cfg, tables, p, d, alive, uniforms,
+                                 _default_orig(p, orig), keys, camera)
+    rad, stats = _fwd_outputs(n, dev)
+    with torch.cuda.device(dev):
+        blocks = _blocks(lib, lambda pr, cap: lib.ipt_render_capacity(pr, 0, cap), params,
+                         "render_fwd render_tile")
+        err = lib.ipt_render_fwd(ctypes.byref(params), rad.data_ptr(), stats.data_ptr(), blocks,
+                                 torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(lib, err, "render_fwd")
     render_tile.launches += 1
+    render_tile.blocks = blocks
     _count_sweep(tabs)
     return rad, stats
 
@@ -237,30 +289,33 @@ def render_tile_rec(
     materials: torch.Tensor,
     scene: SceneData,
     cfg,
-    p: torch.Tensor,
-    d: torch.Tensor,
-    alive: torch.Tensor,
+    p: Optional[torch.Tensor] = None,
+    d: Optional[torch.Tensor] = None,
+    alive: Optional[torch.Tensor] = None,
     uniforms: Optional[torch.Tensor] = None,
     orig: Optional[torch.Tensor] = None,
     keys: Optional[Keys] = None,
     *,
+    camera: Optional[Camera] = None,
     tables: Optional[KernelTables] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """B3: render_tile that also returns the records (max_bounces*16, n)."""
-    orig = _default_orig(p, orig)
-    _check_inputs(cfg, p, d, alive, uniforms, orig, keys)
+    n = _check_launch(cfg, scene, p, d, alive, uniforms, orig, keys, camera)
     if not _on_card(p, scene, materials):
-        return render_tile_rec_plain(materials, scene, cfg, p, d, alive, uniforms, orig, keys)
+        return render_tile_rec_plain(materials, scene, cfg, p, d, alive, uniforms, orig, keys,
+                                     camera=camera)
     lib = _library("render_fwd")
-    params, tabs = _trace_params(materials, scene, cfg, tables, p, d, alive, uniforms, orig, keys)
-    n = p.shape[1]
-    rad, stats = _fwd_outputs(n, p.device)
-    rec = torch.empty((cfg.max_bounces * REC_ROWS, n), dtype=torch.float32, device=p.device)
-    with torch.cuda.device(p.device):
-        blocks = _blocks(lib, lib.ipt_render_rec_capacity, params, "render_fwd render_tile_rec")
+    dev = scene.device
+    params, tabs = _trace_params(materials, scene, cfg, tables, p, d, alive, uniforms,
+                                 _default_orig(p, orig), keys, camera)
+    rad, stats = _fwd_outputs(n, dev)
+    rec = torch.empty((cfg.max_bounces * REC_ROWS, n), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        blocks = _blocks(lib, lambda pr, cap: lib.ipt_render_capacity(pr, 1, cap), params,
+                         "render_fwd render_tile_rec")
         err = lib.ipt_render_rec(ctypes.byref(params), rad.data_ptr(), stats.data_ptr(),
                                  rec.data_ptr(), blocks,
-                                 torch.cuda.current_stream(p.device).cuda_stream)
+                                 torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(lib, err, "render_fwd render_tile_rec")
     render_tile_rec.launches += 1
     render_tile_rec.blocks = blocks
@@ -272,35 +327,42 @@ def grad_tile(
     materials: torch.Tensor,
     scene: SceneData,
     cfg,
-    p: torch.Tensor,
-    d: torch.Tensor,
-    alive: torch.Tensor,
-    g: torch.Tensor,
+    p: Optional[torch.Tensor] = None,
+    d: Optional[torch.Tensor] = None,
+    alive: Optional[torch.Tensor] = None,
+    g: Optional[torch.Tensor] = None,
     uniforms: Optional[torch.Tensor] = None,
     orig: Optional[torch.Tensor] = None,
     keys: Optional[Keys] = None,
     *,
+    camera: Optional[Camera] = None,
     tables: Optional[KernelTables] = None,
 ) -> torch.Tensor:
     """B2: d(sum g * radiance)/d materials (nT, 3), in global rows, for one
     range of rays, replaying the forward and running the suffix recursion
-    in one kernel."""
-    orig = _default_orig(p, orig)
-    _check_inputs(cfg, p, d, alive, uniforms, orig, keys)
-    _check(p, {"g": (g, (3, p.shape[1]), torch.float32)})
+    in one kernel.  g (3, n) is required."""
+    n = _check_launch(cfg, scene, p, d, alive, uniforms, orig, keys, camera)
+    if g is None:
+        raise ValueError("grad_tile needs the radiance cotangent g (3, n)")
+    _check(g, {"g": (g, (3, n), torch.float32)})
     if not _on_card(p, scene, materials):
-        return grad_tile_plain(materials, scene, cfg, p, d, alive, g, uniforms, orig, keys)
+        return grad_tile_plain(materials, scene, cfg, p, d, alive, g, uniforms, orig, keys,
+                               camera=camera)
+    if g.device != scene.device:
+        raise ValueError(f"g is on {g.device}, the scene on {scene.device}")
     if cfg.max_bounces > GRAD_MAX_BOUNCES:
         raise ValueError(f"grad_tile keeps at most {GRAD_MAX_BOUNCES} bounces of records "
                          f"per thread, got max_bounces={cfg.max_bounces}")
     lib = _library("render_bwd")
-    params, tabs = _trace_params(materials, scene, cfg, tables, p, d, alive, uniforms, orig, keys)
+    dev = scene.device
+    params, tabs = _trace_params(materials, scene, cfg, tables, p, d, alive, uniforms,
+                                 _default_orig(p, orig), keys, camera)
     _check_grad_triangles(tabs.padded_tri)
-    with torch.cuda.device(p.device):
+    with torch.cuda.device(dev):
         blocks = _blocks(lib, lib.ipt_grad_tile_capacity, params, "render_bwd grad_tile")
-        partials = torch.empty((blocks, scene.n_tri, 3), dtype=torch.float32, device=p.device)
+        partials = torch.empty((blocks, scene.n_tri, 3), dtype=torch.float32, device=dev)
         err = lib.ipt_grad_tile(ctypes.byref(params), g.data_ptr(), partials.data_ptr(), blocks,
-                                torch.cuda.current_stream(p.device).cuda_stream)
+                                torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(lib, err, "render_bwd grad_tile")
     grad_tile.launches += 1
     grad_tile.blocks = blocks
@@ -360,6 +422,7 @@ def intersect_tile(
 
 
 render_tile.launches = 0
+render_tile.blocks = 0
 render_tile_rec.launches = 0
 render_tile_rec.blocks = 0
 grad_tile.launches = 0
@@ -387,6 +450,10 @@ class _TraceParams(ctypes.Structure):
                                         "cluster_group", "n_groups")]
         + [(f, ctypes.c_float) for f in ("p_rr", "min_dot", "epsilon", "two_pi", "inv_pi",
                                           "inv_2pi", "cos_scale", "inv_p_rr")]
+        + [("base", ctypes.c_longlong), ("n_samples", ctypes.c_longlong),
+           ("cam", ctypes.c_void_p)]
+        + [(f, ctypes.c_int) for f in ("camera", "width", "height", "spp")]
+        + [("ck0", ctypes.c_uint32), ("ck1", ctypes.c_uint32)]
     )
 
 
@@ -399,10 +466,10 @@ def _library(name: str):
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     params = ctypes.POINTER(_TraceParams)
     if name == "render_fwd":
-        lib.ipt_render_fwd.argtypes = [params, vp, vp, vp]  # rad stats stream
+        lib.ipt_render_capacity.argtypes = [params, ci, ctypes.POINTER(ci)]  # records blocks
+        lib.ipt_render_capacity.restype = ci
+        lib.ipt_render_fwd.argtypes = [params, vp, vp, ci, vp]  # rad stats blocks stream
         lib.ipt_render_fwd.restype = ci
-        lib.ipt_render_rec_capacity.argtypes = [params, ctypes.POINTER(ci)]
-        lib.ipt_render_rec_capacity.restype = ci
         # rad stats rec blocks stream
         lib.ipt_render_rec.argtypes = [params, vp, vp, vp, ci, vp]
         lib.ipt_render_rec.restype = ci
@@ -432,8 +499,11 @@ def _library(name: str):
         # rec g n n_tri max_bounces quirks inv_pi partials stream
         lib.ipt_reverse_tile.argtypes = [vp, vp, ci, ci, ci, ci, cf, vp, vp]
         lib.ipt_reverse_tile.restype = ci
-        # rec g suf_in n n_tri k quirks inv_pi partials suf_out stream
-        lib.ipt_stage_reverse_tile.argtypes = [vp, vp, vp, ci, ci, ci, ci, cf, vp, vp, vp]
+        # n n_tri k blocks
+        lib.ipt_stage_reverse_blocks.argtypes = [ci, ci, ci, ctypes.POINTER(ci)]
+        lib.ipt_stage_reverse_blocks.restype = ci
+        # rec g suf_in n n_tri k quirks inv_pi partials suf_out blocks stream
+        lib.ipt_stage_reverse_tile.argtypes = [vp, vp, vp, ci, ci, ci, ci, cf, vp, vp, ci, vp]
         lib.ipt_stage_reverse_tile.restype = ci
     lib.ipt_error_string.argtypes = [ci]
     lib.ipt_error_string.restype = ctypes.c_char_p
@@ -446,19 +516,19 @@ def _raise_on(lib, err: int, what: str) -> None:
 
 
 def _partials(n: int, n_tri: int, device) -> torch.Tensor:
-    """One (nT, 3) partial sum per block of B4 or B9 (none for n = 0, where
+    """One (nT, 3) partial sum per block of B4 (none for n = 0, where
     nothing is launched and the sum is zero)."""
     return torch.empty((-(-n // _BLOCK), n_tri, 3), dtype=torch.float32, device=device)
 
 
-def persistent_blocks(n: int, capacity: int) -> int:
+def persistent_blocks(n: int, capacity: int, block: int = _BLOCK) -> int:
     """Blocks of a persistent launch for n rays: as many as fit on the card
-    at once (`capacity`), at most one per block of rays (none for n = 0)."""
-    return min(capacity, -(-n // _BLOCK))
+    at once (`capacity`), at most one per `block` rays (none for n = 0)."""
+    return min(capacity, -(-n // block))
 
 
 def _blocks(lib, capacity_fn, params, what: str) -> int:
-    """The persistent grid of B2 or B3 for the rays of `params`: the blocks
+    """The persistent grid of B1, B2 or B3 for the rays of `params`: the blocks
     that fit on the card at once (the kernel's occupancy; cached per device
     in the library), cut by persistent_blocks."""
     cap = ctypes.c_int(0)
@@ -473,28 +543,32 @@ def _fwd_outputs(n: int, device) -> Tuple[torch.Tensor, torch.Tensor]:
 
 
 def _trace_params(materials, scene, cfg, tabs, p, d=None, alive=None, uniforms=None, orig=None,
-                  keys=None):
+                  keys=None, camera: Optional[Camera] = None):
     """The kernels' TraceParams (pointers into the caller's tensors, which
     must outlive the launch) and the tables they point to (packed here
-    under cfg when `tabs` is None).  The lanes are p's columns."""
+    under cfg when `tabs` is None).  The lanes are p's columns, or in camera
+    mode the samples of `camera`."""
     if not (cfg.epsilon > 0 and cfg.min_dot > 0 and cfg.epsilon * cfg.min_dot >= 1e-30):
         # The range of render_common.cuh sweep()'s divide-free pre-test.
         raise ValueError("the kernels need epsilon > 0, min_dot > 0 and epsilon * min_dot >= "
                          f"1e-30, got epsilon {cfg.epsilon}, min_dot {cfg.min_dot}")
     if tabs is None:
         tabs = pack_tables(scene, materials, cfg)
-    if tabs.planes.device != p.device:
-        raise ValueError(f"tables are on {tabs.planes.device}, rays on {p.device}")
+    dev = scene.device if p is None else p.device
+    if tabs.planes.device != dev:
+        raise ValueError(f"tables are on {tabs.planes.device}, rays on {dev}")
     ptr = lambda t: None if t is None else t.data_ptr()
     fused = keys is not None
     k0, k1 = keys if fused else (0, 0)
+    ck0, ck1 = rng.key_words(camera.key) if camera is not None else (0, 0)
     ck = tabs.cluster_k
     params = _TraceParams(
         p=ptr(p), d=ptr(d), alive=ptr(alive), orig=ptr(orig), uniforms=ptr(uniforms),
         planes=ptr(tabs.planes), table=ptr(tabs.table), vtab=ptr(tabs.vtab),
         etab=ptr(tabs.etab), cdf=ptr(tabs.cdf), cab=ptr(tabs.cab), gab=ptr(tabs.gab),
         k0=k0, k1=k1,
-        n=p.shape[1], n_tri=scene.n_tri, n_emissive=scene.n_emissive,
+        n=camera.n if camera is not None else p.shape[1], n_tri=scene.n_tri,
+        n_emissive=scene.n_emissive,
         etab_stride=tabs.etab.shape[1], has_vn=int(tabs.vtab is not None),
         no_spec=int(tabs.no_spec), quirks=int(cfg.reference_quirks), fused=int(fused),
         max_bounces=cfg.max_bounces, use_smem=0, cluster_k=ck,
@@ -502,6 +576,9 @@ def _trace_params(materials, scene, cfg, tabs, p, d=None, alive=None, uniforms=N
         n_groups=0 if tabs.gab is None else tabs.gab.shape[0], p_rr=cfg.p_rr, min_dot=cfg.min_dot,
         epsilon=cfg.epsilon, two_pi=TWO_PI, inv_pi=INV_PI, inv_2pi=INV_2PI,
         cos_scale=math.pi / cfg.p_rr, inv_p_rr=1.0 / cfg.p_rr,
+        base=camera.base if camera is not None else 0, n_samples=cfg.n_samples,
+        cam=ptr(tabs.cam), camera=int(camera is not None), width=cfg.width,
+        height=cfg.height, spp=cfg.spp, ck0=ck0, ck1=ck1,
     )
     return params, tabs
 
@@ -671,24 +748,27 @@ def render_tile_plain(
     materials: torch.Tensor,
     scene: SceneData,
     cfg,
-    p: torch.Tensor,
-    d: torch.Tensor,
-    alive: torch.Tensor,
+    p: Optional[torch.Tensor] = None,
+    d: Optional[torch.Tensor] = None,
+    alive: Optional[torch.Tensor] = None,
     uniforms: Optional[torch.Tensor] = None,
     orig: Optional[torch.Tensor] = None,
     keys: Optional[Keys] = None,
     with_records: bool = False,
+    *,
+    camera: Optional[Camera] = None,
 ):
     """The same function in plain PyTorch on any device: init_lanes, then
     run_bounces over all max_bounces bounces.  Differentiable in
-    `materials` by torch autograd.
+    `materials` by torch autograd.  In camera mode the rays are the plain
+    camera_rays' (ops/camera.py camera_inputs).
 
     with_records=True also returns the records (max_bounces*16, n) of
     render/diff.py REC_ROWS, as the JAX _bounce_step does with its
     with_records flag (forward.py:339-349); slots past a ray's last bounce
     are zero, tri rows internal on clustered scenes."""
-    orig = _default_orig(p, orig)
-    _check_inputs(cfg, p, d, alive, uniforms, orig, keys)
+    _check_launch(cfg, scene, p, d, alive, uniforms, orig, keys, camera)
+    p, d, alive, orig = _ray_inputs(scene, cfg, p, d, alive, orig, camera)
     view = kernel_view(scene, cfg)
     lanes = init_lanes(view, cfg, p, d, alive)
     lanes, rec = run_bounces(view, to_kernel_order(materials, view), cfg, lanes, orig, 0,
@@ -699,11 +779,11 @@ def render_tile_plain(
     return lanes.rad.T.contiguous(), stats
 
 
-def render_tile_rec_plain(materials, scene, cfg, p, d, alive, uniforms=None, orig=None,
-                          keys=None):
+def render_tile_rec_plain(materials, scene, cfg, p=None, d=None, alive=None, uniforms=None,
+                          orig=None, keys=None, *, camera=None):
     """B3's plain version: render_tile_plain with records."""
     return render_tile_plain(materials, scene, cfg, p, d, alive, uniforms, orig, keys,
-                             with_records=True)
+                             with_records=True, camera=camera)
 
 
 def reverse_tile_plain(n_tri: int, cfg, rec: torch.Tensor, g: torch.Tensor,
@@ -715,13 +795,13 @@ def reverse_tile_plain(n_tri: int, cfg, rec: torch.Tensor, g: torch.Tensor,
     return unperm_rows(d_mats, perm)
 
 
-def grad_tile_plain(materials, scene, cfg, p, d, alive, g, uniforms=None, orig=None,
-                    keys=None) -> torch.Tensor:
+def grad_tile_plain(materials, scene, cfg, p=None, d=None, alive=None, g=None, uniforms=None,
+                    orig=None, keys=None, *, camera=None) -> torch.Tensor:
     """B2's plain version: the records of render_tile_plain, then the suffix
     recursion, in global rows."""
     with torch.no_grad():
         _, _, rec = render_tile_rec_plain(materials, scene, cfg, p, d, alive, uniforms, orig,
-                                          keys)
+                                          keys, camera=camera)
     return reverse_tile_plain(scene.n_tri, cfg, rec, g, kernel_view(scene, cfg).perm)
 
 

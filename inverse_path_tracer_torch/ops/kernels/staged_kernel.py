@@ -22,6 +22,10 @@ init_tile_pallas, stage_tile_pallas and stage_reverse_tile_pallas
     g         (3, n) radiance cotangent, suf (4, n) the (suf, esc) carry of
               the later stages, both in the stage's lane order
 
+B7 takes the rays p, d (3, n) and alive (1, n), or camera (ops/camera.py
+Camera: the primary rays it makes itself, as render_kernel.py's wrappers
+do).
+
 A lane stops where it dies or where its global bounce reaches
 cfg.max_bounces; it then keeps its state, which the mega kernels' lanes do
 too, so a staged render equals a mega one lane for lane.  On clustered
@@ -32,7 +36,9 @@ in the internal triangle order; the caller maps the cotangent back once
 Each wrapper launches its CUDA kernel (render_fwd.cu: B7, B8;
 render_bwd.cu: B9) for CUDA tensors and runs its plain version for CPU
 tensors; it never falls back from one to the other on a CUDA tensor.
-`<wrapper>.launches` counts kernel launches.
+`<wrapper>.launches` counts kernel launches.  B9 runs persistent blocks,
+as many as fit on the card at once (render_bwd.cu stage_reverse_kernel;
+`stage_reverse_tile.blocks` holds the grid of its last launch).
 """
 
 from __future__ import annotations
@@ -43,6 +49,7 @@ from typing import Optional, Tuple
 import torch
 
 from inverse_path_tracer_torch.ops.bsdf import INV_PI
+from inverse_path_tracer_torch.ops.camera import Camera
 from inverse_path_tracer_torch.ops.kernels.clusters import kernel_view, to_kernel_order
 from inverse_path_tracer_torch.ops.kernels.render_kernel import (
     CARRY_ROWS,
@@ -51,14 +58,16 @@ from inverse_path_tracer_torch.ops.kernels.render_kernel import (
     Lanes,
     _check,
     _check_grad_triangles,
+    _check_rays,
     _check_rng,
     _count_sweep,
     _library,
     _on_card,
-    _partials,
     _raise_on,
+    _ray_inputs,
     _trace_params,
     init_lanes,
+    persistent_blocks,
     run_bounces,
 )
 from inverse_path_tracer_torch.render.diff import REC_ROWS, BounceRecords, suffix_recursion
@@ -69,25 +78,26 @@ def init_tile(
     materials: torch.Tensor,
     scene: SceneData,
     cfg,
-    p: torch.Tensor,
-    d: torch.Tensor,
-    alive: torch.Tensor,
+    p: Optional[torch.Tensor] = None,
+    d: Optional[torch.Tensor] = None,
+    alive: Optional[torch.Tensor] = None,
     *,
+    camera: Optional[Camera] = None,
     tables: Optional[KernelTables] = None,
 ) -> torch.Tensor:
     """B7: the initial carry (CARRY_ROWS, n) of rays p, d (3, n) with the
-    0/1 mask alive (1, n).  `tables` is pack_tables(scene, materials, cfg)."""
-    n = p.shape[1]
-    _check(p, {"p": (p, (3, n), torch.float32), "d": (d, (3, n), torch.float32),
-               "alive": (alive, (1, n), torch.float32)})
+    0/1 mask alive (1, n), or of the primary rays of `camera`.  `tables` is
+    pack_tables(scene, materials, cfg)."""
+    n = _check_rays(p, d, alive, None, camera)
     if not _on_card(p, scene, materials):
-        return init_tile_plain(materials, scene, cfg, p, d, alive)
+        return init_tile_plain(materials, scene, cfg, p, d, alive, camera=camera)
     lib = _library("render_fwd")
-    params, tabs = _trace_params(materials, scene, cfg, tables, p, d, alive)
-    carry = torch.empty((CARRY_ROWS, n), dtype=torch.float32, device=p.device)
-    with torch.cuda.device(p.device):
+    dev = scene.device
+    params, tabs = _trace_params(materials, scene, cfg, tables, p, d, alive, camera=camera)
+    carry = torch.empty((CARRY_ROWS, n), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
         err = lib.ipt_init_tile(ctypes.byref(params), carry.data_ptr(),
-                                torch.cuda.current_stream(p.device).cuda_stream)
+                                torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(lib, err, "render_fwd init_tile")
     init_tile.launches += 1
     _count_sweep(tabs)
@@ -158,26 +168,37 @@ def stage_reverse_tile(
     if g.device.type != "cuda":
         raise ValueError(f"stage_reverse_tile runs on CUDA or CPU tensors, got {g.device}")
     _check_grad_triangles(n_tri)
-    lib = _library("render_bwd")
-    partials = _partials(n, n_tri, g.device)
     suf_out = torch.empty_like(suf)
+    if n == 0:
+        return torch.zeros((n_tri, 3), dtype=torch.float32, device=g.device), suf_out
+    lib = _library("render_bwd")
     with torch.cuda.device(g.device):
+        blocks = ctypes.c_int(0)
+        _raise_on(lib, lib.ipt_stage_reverse_blocks(n, n_tri, k, ctypes.byref(blocks)),
+                  "render_bwd stage_reverse_tile")
+        partials = torch.empty((blocks.value, n_tri, 3), dtype=torch.float32, device=g.device)
         err = lib.ipt_stage_reverse_tile(
             rec.data_ptr(), g.data_ptr(), suf.data_ptr(), n, n_tri, k, int(cfg.reference_quirks),
-            INV_PI, partials.data_ptr(), suf_out.data_ptr(),
+            INV_PI, partials.data_ptr(), suf_out.data_ptr(), blocks.value,
             torch.cuda.current_stream(g.device).cuda_stream)
     _raise_on(lib, err, "render_bwd stage_reverse_tile")
     stage_reverse_tile.launches += 1
+    stage_reverse_tile.blocks = blocks.value
     return partials.sum(dim=0), suf_out
 
 
 init_tile.launches = 0
 stage_tile.launches = 0
 stage_reverse_tile.launches = 0
+stage_reverse_tile.blocks = 0
 
 
-def init_tile_plain(materials, scene, cfg, p, d, alive) -> torch.Tensor:
-    """B7's plain version: render_kernel.init_lanes as a carry."""
+def init_tile_plain(materials, scene, cfg, p=None, d=None, alive=None, *,
+                    camera: Optional[Camera] = None) -> torch.Tensor:
+    """B7's plain version: render_kernel.init_lanes as a carry (of the
+    plain camera_rays' rays in camera mode)."""
+    _check_rays(p, d, alive, None, camera)
+    p, d, alive, _ = _ray_inputs(scene, cfg, p, d, alive, None, camera)
     return init_lanes(kernel_view(scene, cfg), cfg, p, d, alive).to_carry()
 
 

@@ -87,14 +87,21 @@ def draw(keys: Tuple[int, int], h_orig: torch.Tensor, bounce: int,
     return torch.stack(rows, dim=0)
 
 
+def _fmix32_int(x: int) -> int:
+    """fmix32 of one uint32 held in a Python int."""
+    x ^= x >> 16
+    x = (x * _M1) & MASK32
+    x ^= x >> 13
+    x = (x * _M2) & MASK32
+    return x ^ (x >> 16)
+
+
 def fold_in(seed: int, data: int) -> int:
     """A new seed, a pure function of (seed, data): with (k0, k1) =
     key_words(seed), the words fmix32(k0 ^ data) and fmix32(k1 ^ data *
     0x9E3779B9), both mod 2**32.  It stands in for jax.random.fold_in, whose
     threefry mixing has no counterpart on the port's integer seeds; the
-    two give different keys."""
+    two give different keys.  Computed on Python ints: no tensor op."""
     k0, k1 = key_words(seed)
     d = data & MASK32
-    w = fmix32(torch.tensor([k0 ^ d, k1 ^ ((d * GOLDEN) & MASK32)], dtype=torch.int64))
-    w0, w1 = w.tolist()
-    return (w0 << 32) | w1
+    return (_fmix32_int(k0 ^ d) << 32) | _fmix32_int(k1 ^ ((d * GOLDEN) & MASK32))

@@ -34,7 +34,9 @@ Two routes (trace_transport_range):
 Rays follow render/forward.py: launches of cfg.tile_size global sample
 indices.  With cfg.rng="fused" the bounce uniforms are the counter hash of
 `key` at the JAX kernel's slots (ops/rng.py), and the camera jitter comes
-from the disjoint key rng.fold_in(key, rng.CAMERA_STREAM).  With
+from the disjoint key rng.fold_in(key, rng.CAMERA_STREAM); the kernels
+make the primary rays and read each sample's pixel from the target image
+themselves (camera mode), so a launch builds no tensor.  With
 cfg.rng="external" the caller passes rays (count, 3) and uniforms
 (max_bounces*8, count) in the row layout [spec, pick, r1, r2, rr, phi,
 theta, 0] of the JAX _inv_uniforms.  A ray's pixel is
@@ -50,6 +52,7 @@ import torch
 from inverse_path_tracer_torch.config import RenderConfig
 from inverse_path_tracer_torch.ops import rng
 from inverse_path_tracer_torch.ops.bsdf import INV_PI, specular_coeff
+from inverse_path_tracer_torch.ops.camera import camera_inputs, pixel_index, sample_index
 from inverse_path_tracer_torch.ops.intersect import intersect_fast, smooth_normal
 from inverse_path_tracer_torch.ops.kernels.inverse_kernel import (
     N_QUANT,
@@ -190,9 +193,16 @@ def _inv_bounce(scene: SceneData, cfg: RenderConfig, u: torch.Tensor, pixel: tor
     ), hit_act
 
 
-def _wavefront_launch(scene, cfg, a, pixel, grid) -> torch.Tensor:
-    """The wavefront path over one launch's lanes; adds to `grid` and
-    returns the launch's (segments, shadow rays)."""
+def _wavefront_launch(scene, cfg, a, target_flat, grid) -> torch.Tensor:
+    """The wavefront path over one launch's lanes (the rays of a camera
+    launch made by camera_rays); adds to `grid` and returns the launch's
+    (segments, shadow rays)."""
+    if "camera" in a:
+        idx = sample_index(a["camera"], target_flat.device)
+        a = dict(a, **camera_inputs(scene, cfg, a["camera"]), uniforms=None)
+    else:
+        idx = a["orig"][0]
+    pixel = target_flat[pixel_index(cfg, idx)]
     n = a["p"].shape[1]
     keys = a["keys"]
     h_orig = rng.hash_orig(keys, a["orig"][0]) if keys is not None else None
@@ -237,7 +247,7 @@ def trace_transport_range(
     Returns TransportGrids (float32) and the RenderStats (segments, shadow
     rays) of the trace, counted per lane as the forward kernel counts them."""
     dev, scene, _, ext = _prepare(scene.diffuse, scene, cfg, count, rays, uniforms, device)
-    target_flat = target_image01.to(device=dev, dtype=torch.float32).reshape(-1, 3)
+    target_flat = target_image01.to(device=dev, dtype=torch.float32).reshape(-1, 3).contiguous()
     if target_flat.shape[0] != cfg.width * cfg.height:
         raise ValueError(f"target image {tuple(target_image01.shape)} does not match "
                          f"{cfg.height}x{cfg.width}")
@@ -252,17 +262,18 @@ def trace_transport_range(
     totals = torch.zeros(2, dtype=torch.float64, device=dev)
     camera_key = rng.fold_in(key, rng.CAMERA_STREAM)
     for _lo, _hi, a in _launches(scene, cfg, key, start, count, ext, camera_key=camera_key):
-        pix_idx = torch.clamp(a["orig"][0].long() // cfg.spp, 0, cfg.width * cfg.height - 1)
-        pixel = target_flat[pix_idx]
         if route == "wavefront":
-            totals += _wavefront_launch(scene, cfg, a, pixel, grid)
+            totals += _wavefront_launch(scene, cfg, a, target_flat, grid)
             continue
+        if "camera" in a:  # the kernels read each sample's pixel from the image
+            pixels = dict(image=target_flat)
+        else:
+            pixels = dict(pix=target_flat[pixel_index(cfg, a["orig"][0])].T.contiguous())
         if route == "grid":
-            out, stats = inverse_tile(scene, cfg, pix=pixel.T.contiguous(), tables=tables, **a)
+            out, stats = inverse_tile(scene, cfg, tables=tables, **pixels, **a)
             grid += out
         else:
-            _, stats = inverse_tile_global(scene, cfg, pix=pixel.T.contiguous(), tables=tables,
-                                           acc=grid, **a)
+            _, stats = inverse_tile_global(scene, cfg, tables=tables, acc=grid, **pixels, **a)
         totals += stats.sum(dim=1, dtype=torch.float64)
     if route == "global":  # the kernels' order -> global, once per range
         grid = unperm_grid(grid, perm)

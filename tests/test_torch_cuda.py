@@ -575,3 +575,170 @@ def test_clustered_kernels_match_dense_plain(card, monkeypatch):
     grid_p0, st_p0 = inverse_tile_plain(scene0, cfg8, pix=pix, **args0)
     grid_close(grid, grid_p0)
     assert torch.equal(st5, st_p0)
+
+
+def camera_launch(scene, cfg, card, key=5, base=0, n=None):
+    """A fused launch in camera mode and the same launch with the plain
+    camera_rays' rays on the card (ops/camera.py camera_inputs)."""
+    from inverse_path_tracer_torch.ops.camera import Camera, camera_inputs
+
+    cam = Camera(base, cfg.n_samples - base if n is None else n, key)
+    keys = rng.key_words(key)
+    return dict(camera=cam, keys=keys), dict(camera_inputs(scene, cfg, cam), keys=keys)
+
+
+@pytest.mark.parametrize("kind", ["scene0", "sphere", "sphere_dense", "large"])
+def test_camera_mode_equals_the_plain_camera_rays(card, tmp_path, monkeypatch, kind):
+    """The rays the kernels make (camera mode) are the plain camera_rays',
+    bit for bit: B1, B3, B2 and B7 in camera mode equal the same kernels fed
+    those rays, with a launch past the last sample (dead lanes) and an odd
+    width; B3 = B1 and B2 twice bit-equal with the new rays."""
+    from inverse_path_tracer_torch import large_scene
+    from inverse_path_tracer_torch.ops.kernels import clusters
+    from inverse_path_tracer_torch.ops.kernels.render_kernel import pack_tables
+    from inverse_path_tracer_torch.ops.kernels.staged_kernel import init_tile
+
+    scene = {"scene0": lambda: load_scene(SCENE0, asset_root=ASSET_ROOT).to(card),
+             "sphere": lambda: sphere_scene(card, tmp_path),
+             "sphere_dense": lambda: sphere_scene(card, tmp_path),
+             "large": lambda: large_scene(card)}[kind]()
+    if kind == "sphere_dense":
+        monkeypatch.setattr(clusters, "CLUSTER_MIN_TP", 1 << 30)
+    cfg = RenderConfig(width=30, height=17, spp=3, max_bounces=8)
+    base = 11
+    cam, rays = camera_launch(scene, cfg, card, base=base, n=cfg.n_samples - base + 40)
+    mats = scene.diffuse
+    tabs = pack_tables(scene, mats, cfg)
+    n = cam["camera"].n
+    g = torch.rand((3, n), generator=torch.Generator().manual_seed(12)).to(card)
+    before = (render_tile.launches, render_tile_rec.launches, grad_tile.launches)
+    rc, sc = render_tile(mats, scene, cfg, tables=tabs, **cam)
+    rr, sr = render_tile(mats, scene, cfg, tables=tabs, **rays)
+    r3, s3, rec3 = render_tile_rec(mats, scene, cfg, tables=tabs, **cam)
+    _, _, rec3r = render_tile_rec(mats, scene, cfg, tables=tabs, **rays)
+    d1 = grad_tile(mats, scene, cfg, g=g, tables=tabs, **cam)
+    d2 = grad_tile(mats, scene, cfg, g=g, tables=tabs, **cam)
+    dr = grad_tile(mats, scene, cfg, g=g, tables=tabs, **rays)
+    assert (render_tile.launches, render_tile_rec.launches, grad_tile.launches) == (
+        before[0] + 2, before[1] + 2, before[2] + 3)
+    assert torch.equal(rc, rr) and torch.equal(sc, sr)
+    assert torch.equal(r3, rc) and torch.equal(s3, sc) and torch.equal(rec3, rec3r)
+    assert torch.equal(d1, d2) and torch.equal(d1, dr)
+    assert not rc[:, -40:].any() and not sc[:, -40:].any()
+    carry = init_tile(mats, scene, cfg, camera=cam["camera"], tables=tabs)
+    carry_r = init_tile(mats, scene, cfg, rays["p"], rays["d"], rays["alive"], tables=tabs)
+    assert torch.equal(carry, carry_r)
+
+
+@pytest.mark.parametrize("kind", ["scene0", "sphere"])
+def test_inverse_camera_mode_equals_the_plain_camera_rays(card, tmp_path, kind):
+    """B5, B6's records sink and its global-grid sink in camera mode, with
+    the target image in place of the pixel colours, against the same
+    kernels fed the plain camera_rays' rays and the pixels gathered on the
+    host: records and counts bit-equal, grids within their tolerances."""
+    from inverse_path_tracer_torch.ops.kernels.inverse_kernel import (
+        inverse_grid_fits,
+        inverse_tile,
+        inverse_tile_global,
+        inverse_tile_rec,
+    )
+
+    scene = (load_scene(SCENE0, asset_root=ASSET_ROOT).to(card) if kind == "scene0"
+             else sphere_scene(card, tmp_path))
+    cfg = RenderConfig(width=24, height=20, spp=4, max_bounces=8)
+    cam, rays = camera_launch(scene, cfg, card, key=9, base=5, n=cfg.n_samples)  # 5 dead lanes
+    image = torch.rand((cfg.width * cfg.height, 3),
+                       generator=torch.Generator().manual_seed(13)).to(card)
+    idx = (rays["orig"][0].long() // cfg.spp).clamp(0, cfg.width * cfg.height - 1)
+    pix = image[idx].T.contiguous()
+    rec, st = inverse_tile_rec(scene, cfg, **cam)
+    rec_r, st_r = inverse_tile_rec(scene, cfg, **rays)
+    assert torch.equal(rec, rec_r) and torch.equal(st, st_r)
+    acc, st_g = inverse_tile_global(scene, cfg, image=image, **cam)
+    acc_r, _ = inverse_tile_global(scene, cfg, pix=pix, **rays)
+    grid64_close(acc, acc_r)
+    assert torch.equal(st_g, st_r)
+    if inverse_grid_fits(scene):
+        grid, st5 = inverse_tile(scene, cfg, image=image, **cam)
+        grid_r, _ = inverse_tile(scene, cfg, pix=pix, **rays)
+        grid_close(grid, grid_r)
+        assert torch.equal(st5, st_r)
+
+
+def test_persistent_stage_reverse(card):
+    """B9 on its persistent grid: at most one partial per block and as many
+    blocks as fit at once, bit-equal across two calls and between the
+    preloaded slots (k <= 4) and the slot-by-slot loop (the same records
+    with a fifth, empty slot), within the gradient tolerance of its plain
+    version with a ragged lane count, and the (suf, esc) carry close to it;
+    the loop also on a stage of 6 bounces."""
+    from inverse_path_tracer_torch import large_scene
+    from inverse_path_tracer_torch.ops.kernels.render_kernel import pack_tables
+    from inverse_path_tracer_torch.ops.kernels.staged_kernel import (
+        init_tile,
+        stage_reverse_tile,
+        stage_reverse_tile_plain,
+        stage_tile,
+    )
+    from inverse_path_tracer_torch.render.diff import REC_ROWS
+
+    scene = large_scene(card, vertex_normals=False)
+    cfg = RenderConfig(width=37, height=29, spp=3, max_bounces=8)
+    cam, _ = camera_launch(scene, cfg, card, key=3)
+    n, k = cam["camera"].n, 4
+    tabs = pack_tables(scene, scene.diffuse, cfg)
+    carry = init_tile(scene.diffuse, scene, cfg, camera=cam["camera"], tables=tabs)
+    orig = torch.arange(n, dtype=torch.int32, device=card)[None, :]
+    _, rec = stage_tile(scene.diffuse, scene, cfg, carry, orig, 0, k, keys=cam["keys"],
+                        with_rec=True, tables=tabs)
+    g = torch.rand((3, n), generator=torch.Generator().manual_seed(14)).to(card)
+    suf = torch.rand((4, n), generator=torch.Generator().manual_seed(15)).to(card)
+    suf[3] = (suf[3] > 0.5).float()
+    dm, so = stage_reverse_tile(scene.n_tri, cfg, k, rec, g, suf)
+    assert 1 <= stage_reverse_tile.blocks <= -(-n // 128)  # 4 warps a block (kB9Warps)
+    dm2, so2 = stage_reverse_tile(scene.n_tri, cfg, k, rec, g, suf)
+    assert torch.equal(dm, dm2) and torch.equal(so, so2)
+    # The loop on the same records with a fifth slot no lane reaches: from a
+    # zero carry (which a lane that ends inside the stage starts from) the
+    # same bits as the preloaded instance.
+    zero = torch.zeros_like(suf)
+    rec5 = torch.cat([rec, torch.zeros_like(rec[:REC_ROWS])])
+    dm3, so3 = stage_reverse_tile(scene.n_tri, cfg, k, rec, g, zero)
+    dm4, so4 = stage_reverse_tile(scene.n_tri, cfg, k + 1, rec5, g, zero)
+    assert torch.equal(dm3, dm4) and torch.equal(so3, so4)
+    dm_p, so_p = stage_reverse_tile_plain(scene.n_tri, cfg, k, rec, g, suf)
+    assert_grad_close(dm, dm_p)
+    torch.testing.assert_close(so, so_p, rtol=1e-6, atol=0)
+    _, rec6 = stage_tile(scene.diffuse, scene, cfg, carry, orig, 0, 6, keys=cam["keys"],
+                         with_rec=True, tables=tabs)
+    dm6, so6 = stage_reverse_tile(scene.n_tri, cfg, 6, rec6, g, suf)
+    dm6_p, so6_p = stage_reverse_tile_plain(scene.n_tri, cfg, 6, rec6, g, suf)
+    assert_grad_close(dm6, dm6_p)
+    torch.testing.assert_close(so6, so6_p, rtol=1e-6, atol=0)
+
+
+def test_camera_mode_past_2_32_samples(card, scene0):
+    """Global sample indices past 2^32: the kernel's 64-bit pixel divides
+    and its hash of the index's low 32 bits give camera_rays' rays, and
+    B6's global-grid sink reads the pixels of the plain version's 64-bit
+    indices."""
+    cfg = RenderConfig(width=1 << 16, height=1 << 16, spp=2, max_bounces=6)
+    cam, rays = camera_launch(scene0, cfg, card, key=8, base=(1 << 32) - 100, n=700)
+    rc, sc = render_tile(scene0.diffuse, scene0, cfg, **cam)
+    rr, sr = render_tile(scene0.diffuse, scene0, cfg, **rays)
+    assert torch.equal(rc, rr) and torch.equal(sc, sr) and float(sc[0].sum()) > 0
+    # The global-grid sink reads each lane's pixel at its 64-bit index
+    # (a small image: 2^25 samples a pixel).
+    from inverse_path_tracer_torch.ops.kernels.inverse_kernel import (
+        inverse_tile_global,
+        inverse_tile_plain,
+    )
+
+    cfg = RenderConfig(width=16, height=16, spp=1 << 25, max_bounces=6)
+    cam, _ = camera_launch(scene0, cfg, card, key=8, base=(1 << 32) - 100, n=700)
+    image = torch.rand((cfg.width * cfg.height, 3),
+                       generator=torch.Generator().manual_seed(16)).to(card)
+    acc, st = inverse_tile_global(scene0, cfg, image=image, **cam)
+    acc_p, st_p = inverse_tile_plain(scene0, cfg, image=image, kernel_order=True, **cam)
+    grid64_close(acc, acc_p)
+    assert torch.equal(st, st_p)

@@ -1,8 +1,9 @@
-"""The regenerating schedule of B2 and B3 on the CPU, through a Python
+"""The regenerating schedule of B1, B2 and B3 on the CPU, through a Python
 mirror transcribed from render_common.cuh (warp_rays, take_ray) and the
-loops of render_fwd.cu render_rec_kernel and render_bwd.cu
-grad_tile_kernel, and the CPU routes of the two wrappers.  No JAX is
-needed.  The mirror holds the schedule's design; the card tests
+loops of render_fwd.cu render_kernel and render_bwd.cu grad_tile_kernel,
+the persistent grid of B9 (render_bwd.cu stage_reverse_kernel: fixed
+per-warp ranges of 32-lane chunks), and the CPU routes of the wrappers.
+No JAX is needed.  The mirror holds the schedule's design; the card tests
 (tests/test_torch_cuda.py) hold the CUDA code itself.
 
 Path lengths are drawn with numpy from a seed: a live ray enters 1 to
@@ -68,7 +69,7 @@ class WarpTrace(NamedTuple):
 
 
 def simulate(n: int, blocks: int, warp: int, path_len: Sequence[int]) -> WarpTrace:
-    """The loop of one warp (render_fwd.cu render_rec_kernel, render_bwd.cu
+    """The loop of one warp (render_fwd.cu render_kernel, render_bwd.cu
     grad_tile_kernel) over its range, given each ray's path length: the
     bounces it enters (n_reached: at least 1 for a live ray, 0 for a dead
     one, alive = 0).  A lane that traces a ray enters one bounce a round;
@@ -212,6 +213,40 @@ def test_regeneration_takes_fewer_rounds_than_a_ray_a_thread():
         whole = sum(max(lengths[j:j + LANES]) for j in range(lo, hi, LANES))
         regen = simulate(n, blocks, w, lengths).rounds
         assert regen < 0.75 * whole
+
+
+B9_WARPS = 4  # warps per block of B9 (render_bwd.cu kB9Warps)
+
+
+def b9_warp_lanes(n: int, blocks: int, warp: int) -> List[List[int]]:
+    """The chunks of 32 neighbouring lanes that global warp `warp` of B9's
+    grid (`blocks` blocks of B9_WARPS warps) walks, in its order
+    (render_bwd.cu stage_reverse_kernel): chunks [w * C / W, (w + 1) * C /
+    W) of the C = ceil(n / 32) chunks, W warps in all, cut at n."""
+    chunks, total = -(-n // 32), blocks * B9_WARPS
+    lo = warp * chunks // total * 32
+    hi = min((warp + 1) * chunks // total * 32, n)
+    return [list(range(base, min(base + 32, hi))) for base in range(lo, hi, 32)]
+
+
+@pytest.mark.parametrize("n", [1, 31, 33, 1000, 4099, (1 << 20) + 77])
+@pytest.mark.parametrize("capacity", [396, 1188, 132, 1])
+def test_b9_warps_cover_every_lane_once_in_a_fixed_order(n, capacity):
+    # The grid of render_bwd.cu ipt_stage_reverse_blocks: at most one block
+    # per B9_WARPS * 32 lanes, as persistent_blocks cuts B1-B3's.
+    blocks = persistent_blocks(n, capacity, B9_WARPS * LANES)
+    assert blocks == min(capacity, -(-n // (B9_WARPS * LANES))) >= 1
+    walks = [b9_warp_lanes(n, blocks, w) for w in range(blocks * B9_WARPS)]
+    # Every lane once, in the order of the warps and their chunks.
+    assert [i for walk in walks for chunk in walk for i in chunk] == list(range(n))
+    counts = [len(walk) for walk in walks]
+    assert max(counts) - min(counts) <= 1  # whole chunks, balanced over the warps
+    for walk in walks:
+        for chunk in walk:
+            # A chunk is neighbouring lanes from a multiple of 32: its loads coalesce.
+            assert chunk[0] % 32 == 0 and chunk == list(range(chunk[0], chunk[-1] + 1))
+    # The order depends on (n, the grid) only.
+    assert walks == [b9_warp_lanes(n, blocks, w) for w in range(blocks * B9_WARPS)]
 
 
 @pytest.fixture(scope="module")

@@ -21,6 +21,9 @@ configuration (500x500/100 spp/16 bounces, fused RNG, key 0):
     and its counts against the records sink's;
   * B1 on scene 0's and the 242-triangle scene's first 2^20-ray launch of
     the 512x512/64 spp/16 bounce render (mean of 20);
+  * every kernel with the inputs the tree's main path passes (a tree whose
+    chip_smoke.py has camera_launch: the kernels make the rays and read
+    the pixels from the target image);
   * the three extractions (scene 0, the 242-triangle scene, the large
     scene), trace_transport_range over all samples: one warm-up, 3 runs,
     ms and rays/s, and the launches of each inverse kernel;
@@ -84,19 +87,27 @@ def result(key, value, unit, note=""):
 
 
 def first_launch(scene, c):
-    a, pix, _ = cs.first_extraction_launch(scene, c, targets[label_of[id(scene)]])
-    return a, pix, pack_tables(scene, scene.diffuse, c)
+    """The first extraction launch's inputs as the tree's extraction passes
+    them, the pixel input as keywords (pix, or the image in camera mode),
+    each lane's pixel (3, n) and the tables."""
+    out = cs.first_extraction_launch(scene, c, targets[label_of[id(scene)]])
+    if len(out) == 4:  # camera mode: (inputs, {"image": ...}, pix, tables)
+        a, px, pix, _ = out
+    else:
+        a, pix, _ = out
+        px = {"pix": pix}
+    return a, px, pix, pack_tables(scene, scene.diffuse, c)
 
 
 label_of = {id(s): k for k, s in scenes.items()}
-a0, pix0, tab0 = first_launch(scene0, cfg)
-run5 = lambda: ik.inverse_tile(scene0, cfg, pix=pix0, tables=tab0, **a0)
+a0, px0, _, tab0 = first_launch(scene0, cfg)
+run5 = lambda: ik.inverse_tile(scene0, cfg, tables=tab0, **px0, **a0)
 run5()
 result("b5_scene0", cs.cuda_ms(run5, 10), "ms", " (mean of 10)")
 
 
 def b6(label, scene, c, suffix=""):
-    a, pix, tab = first_launch(scene, c)
+    a, px, pix, tab = first_launch(scene, c)
     rec = lambda: ik.inverse_tile_rec(scene, c, tables=tab, **a)
     r, st_r = rec()
     result(f"b6_rec_{label}{suffix}", cs.cuda_ms(rec, 5), "ms",
@@ -105,7 +116,7 @@ def b6(label, scene, c, suffix=""):
         return
     want = ik.grids_from_edge_records(r, pix.T, scene, c, tab.perm)
     del r
-    acc, st_g = ik.inverse_tile_global(scene, c, pix=pix, tables=tab, **a)
+    acc, st_g = ik.inverse_tile_global(scene, c, tables=tab, **px, **a)
     got = ik.unperm_grid(acc, tab.perm)
     ok, _ = cs.grid64_match(got, want)
     ok = ok and torch.equal(st_g, st_r)
@@ -113,7 +124,7 @@ def b6(label, scene, c, suffix=""):
           f"{float((got - want).abs().max()):.3e} of max {float(want.abs().max()):.3e}, counts "
           f"equal {torch.equal(got[..., 8], want[..., 8])}, stats equal {torch.equal(st_g, st_r)}"
           f" -> {'OK' if ok else 'FAIL'}", flush=True)
-    glob = lambda: ik.inverse_tile_global(scene, c, pix=pix, tables=tab, acc=acc, **a)
+    glob = lambda: ik.inverse_tile_global(scene, c, tables=tab, acc=acc, **px, **a)
     glob()
     result(f"b6_global_{label}{suffix}", cs.cuda_ms(glob, 5), "ms",
            f" (mean of 5, clusters {tab.cluster_k})")
@@ -127,7 +138,8 @@ main = RenderConfig(**cs.MAIN)
 
 def b1(label, scene, c):
     n = min(c.tile_size, c.n_samples)
-    a = cs.tile_inputs(scene, c, 0, n, dev, external=False)
+    a = (cs.camera_launch(n, 0) if hasattr(cs, "camera_launch")
+         else cs.tile_inputs(scene, c, 0, n, dev, external=False))
     tab = pack_tables(scene, scene.diffuse, c)
     run = lambda: render_tile(scene.diffuse, scene, c, tables=tab, **a)
     run()
@@ -196,7 +208,7 @@ if profile:
             print(f"  {e.self_device_time_total / 1e3:10.3f} ms  x{e.count:<5d} {e.key[:110]}",
                   flush=True)
     if not has_global:  # the parent's records reduction of one launch
-        a, pix, tab = first_launch(s242, cfg)
+        a, _, pix, tab = first_launch(s242, cfg)
         r, _ = ik.inverse_tile_rec(s242, cfg, tables=tab, **a)
         red = lambda: ik.grids_from_edge_records(r, pix.T, s242, cfg, tab.perm)
         red()

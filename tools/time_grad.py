@@ -10,25 +10,30 @@ lists).  For each tree a fresh process builds the kernels from that tree's
 sources, prints ptxas's registers and spills of render_fwd.cu and
 render_bwd.cu, and times with CUDA events (after warm-up launches), on
 scene 0's first 2^20-ray launch of the 512x512/64 spp/16 bounce render
-(fused RNG, key 0):
+(fused RNG, key 0), with the inputs the tree's main path passes (a tree
+whose chip_smoke.py has camera_launch: the kernels make the rays; else the
+rays of camera_rays):
 
   * B1, B3, B2 and B4 (mean of 10 launches each), each checked against its
     plain version on the same inputs: B1's radiance within rtol 1e-4 /
     atol 1e-5 and its counts equal; B3's radiance and counts equal to B1's
     bit for bit and its records within rtol 1e-4 / atol 1e-5 of the plain
     ones; B2 and B4 within chip_smoke.grad_close; B2 bit-equal across two
-    calls;
-  * the scene-0 fwd+bwd (render_samples, tonemap_mean(...).mean().backward())
-    and loss_and_grad_range at that configuration, one warm-up and three
-    timed runs each;
+    calls; in a tree with camera mode also B1 fed the camera_rays' rays
+    (b1_scene0_rays), bit-equal to B1 in camera mode;
+  * the scene-0 forward (render_samples), fwd+bwd (render_samples,
+    tonemap_mean(...).mean().backward()) and loss_and_grad_range at that
+    configuration, one warm-up and three timed runs each;
   * with --profile, a torch.profiler table of one loss_and_grad_range: the
     device time by kernel, the busy share, and the CPU ops by self time
-    with the calls that wait for the device; then both paths timed again
-    in the same process, after the profiler;
+    with the calls that wait for the device and the kernel launches; then
+    the paths timed again in the same process, after the profiler;
   * with --large, clustered B3 and B2 on the first 2^20-ray launch of the
-    large vertex-normal scene's render (mean of 5), and B9 on that
+    large vertex-normal scene's render (mean of 5; in a tree with camera
+    mode also fed camera_rays' rays), and B9 on that
     launch's stage-0 records (B7, then B8 with records), checked against
-    its plain version (mean of 10);
+    its plain version and twice bit-equal (mean of 10); then the large
+    fwd+bwd (one warm-up, 2 runs) and B9's device time in a profile of one;
   * with --once, only one B3 and one B2 launch on scene 0's inputs and
     nothing else, for a profiler that wraps the command, as in
     `ncu -k regex:'grad_tile|render_rec|render_fwd' --metrics
@@ -89,7 +94,10 @@ if after_smoke:  # chip_smoke.py's phases 3-7 of this tree, in this process
 cfg = RenderConfig(width=512, height=512, spp=64, max_bounces=16)
 n = cfg.tile_size
 scene, mats = cs.fixture(dev)
-a = cs.tile_inputs(scene, cfg, 0, n, dev, external=False)
+camera_mode = hasattr(cs, "camera_launch")
+main_inputs = lambda: (cs.camera_launch(n, 0) if camera_mode
+                       else cs.tile_inputs(scene, cfg, 0, n, dev, external=False))
+a = main_inputs()
 g = torch.rand((3, n), generator=torch.Generator().manual_seed(5)).to(dev)
 nt = scene.n_tri
 if once:
@@ -119,6 +127,15 @@ print(f"  {name}: checks B1 {ok1}, B3 = B1 and records {ok3}, B2 {ok2} (twice bi
 if not (ok1 and ok3 and ok2 and ok4):
     raise SystemExit(f"{name}: a kernel disagrees with its plain version")
 
+if camera_mode:
+    rays = cs.tile_inputs(scene, cfg, 0, n, dev, external=False)
+    r1r, s1r = render_tile(mats, scene, cfg, **rays)
+    print(f"  {name}: B1 in camera mode = B1 fed camera_rays' rays "
+          f"{torch.equal(r1r, r1) and torch.equal(s1r, s1)}", flush=True)
+    fn = lambda: render_tile(mats, scene, cfg, **rays)
+    cs.cuda_ms(fn, 2)
+    print(f"RESULT {name} b1_scene0_rays {cs.cuda_ms(fn, 10):.4f} ms (mean of 10)", flush=True)
+    del rays, r1r, s1r
 timed = {
     "b1": lambda: render_tile(mats, scene, cfg, **a),
     "b3": lambda: render_tile_rec(mats, scene, cfg, **a),
@@ -140,7 +157,9 @@ n_values = cfg.width * cfg.height * 3
 tile_post = lambda vals, start: tonemap_mean(vals, cfg.spp).sum() / n_values
 lgr = lambda key: loss_and_grad_range(mats, scene, key, cfg, 0, cfg.n_samples, tile_post,
                                       device=dev)
-for what, fn in (("fwd_bwd", fwd_bwd), ("loss_and_grad_range", lgr)):
+fwd = lambda key: render_samples(mats, scene, key, cfg, device=dev)
+paths = (("forward", fwd), ("fwd_bwd", fwd_bwd), ("loss_and_grad_range", lgr))
+for what, fn in paths:
     fn(1)
     for r in range(3):
         print(f"RESULT {name} {what}_run{r} {cs.cuda_ms(lambda: fn(r + 2), 1):.3f} ms", flush=True)
@@ -168,18 +187,22 @@ if profile:
               flush=True)
     waits = ("cudaDeviceSynchronize", "cudaStreamSynchronize", "cudaMemcpyAsync",
              "aten::_local_scalar_dense", "aten::item", "aten::nonzero", "cudaMalloc", "cudaFree",
-             "cudaMemsetAsync", "cudaLaunchKernel")
+             "cudaMemsetAsync", "cudaLaunchKernel", "aten::bitwise_xor", "aten::sqrt")
     print("    calls: " + ", ".join(f"{w} {sum(e.count for e in ev if e.key == w)}" for w in waits),
           flush=True)
+    launches = sum(e.count for e in ev if e.key == "cudaLaunchKernel")
+    print(f"RESULT {name} lgr_kernel_launches {launches} per call "
+          f"({launches / (cfg.n_samples / (1 << 20)):.1f} per 2^20 rays)", flush=True)
     # The same paths again in this process, after the profiler has run.
-    for what, fn in (("fwd_bwd", fwd_bwd), ("loss_and_grad_range", lgr)):
+    for what, fn in paths:
         for r in range(3):
             print(f"RESULT {name} {what}_after_profile_run{r} "
                   f"{cs.cuda_ms(lambda: fn(r + 2), 1):.3f} ms", flush=True)
 
 if large:
     big = large_scene(dev)
-    ab = cs.tile_inputs(big, cfg, 0, n, dev, external=False)
+    rays_b = cs.tile_inputs(big, cfg, 0, n, dev, external=False)
+    ab = cs.camera_launch(n, 0) if camera_mode else rays_b
     tabs = pack_tables(big, big.diffuse, cfg)
     gb = torch.rand((3, n), generator=torch.Generator().manual_seed(9)).to(dev)
     rb1, sb1 = render_tile(big.diffuse, big, cfg, tables=tabs, **ab)
@@ -187,8 +210,12 @@ if large:
     same = torch.equal(rb3, rb1) and torch.equal(sb3, sb1)
     print(f"  {name}: clustered B3 = B1 on the large launch {same}", flush=True)
     m = big.diffuse
-    for key, fn in (("b3_large", lambda: render_tile_rec(m, big, cfg, tables=tabs, **ab)),
-                    ("b2_large", lambda: grad_tile(m, big, cfg, g=gb, tables=tabs, **ab))):
+    jobs = [("b3_large", lambda: render_tile_rec(m, big, cfg, tables=tabs, **ab)),
+            ("b2_large", lambda: grad_tile(m, big, cfg, g=gb, tables=tabs, **ab))]
+    if camera_mode:  # the same kernels fed camera_rays' rays
+        jobs += [("b3_large_rays", lambda: render_tile_rec(m, big, cfg, tables=tabs, **rays_b)),
+                 ("b2_large_rays", lambda: grad_tile(m, big, cfg, g=gb, tables=tabs, **rays_b))]
+    for key, fn in jobs:
         fn()
         print(f"RESULT {name} {key} {cs.cuda_ms(fn, 5):.4f} ms (mean of 5, clusters of "
               f"{tabs.cluster_k})", flush=True)
@@ -197,23 +224,46 @@ if large:
         init_tile, stage_reverse_tile, stage_reverse_tile_plain, stage_tile)
     from inverse_path_tracer_torch.render.forward import _binned_order, _scene_bins
     k = cfg.stage_bounces
-    carry = init_tile(m, big, cfg, ab["p"], ab["d"], ab["alive"], tables=tabs)
+    carry = init_tile(m, big, cfg, rays_b["p"], rays_b["d"], rays_b["alive"], tables=tabs)
     order = _binned_order(carry, *_scene_bins(big, cfg), cfg.bin_cells)
-    carry, orig = carry[:, order].contiguous(), ab["orig"][:, order].contiguous()
+    carry, orig = carry[:, order].contiguous(), rays_b["orig"][:, order].contiguous()
     live = (carry[CAR_ALIVE] > 0).sum(dtype=torch.int32).reshape(1)
-    _, rec0 = stage_tile(m, big, cfg, carry, orig, 0, k, keys=ab["keys"], with_rec=True,
+    _, rec0 = stage_tile(m, big, cfg, carry, orig, 0, k, keys=rays_b["keys"], with_rec=True,
                          tables=tabs, live=live)
+    del carry, rays_b
     suf = torch.zeros((4, n), device=dev)
-    dm, suf_o = stage_reverse_tile(big.n_tri, cfg, k, rec0, gb, suf)
     dm_p, suf_p = stage_reverse_tile_plain(big.n_tri, cfg, k, rec0, gb, suf)
+    dm, suf_o = stage_reverse_tile(big.n_tri, cfg, k, rec0, gb, suf)
+    dm2, _ = stage_reverse_tile(big.n_tri, cfg, k, rec0, gb, suf)
     ok9 = cs.grad_close(dm, dm_p) and bool(torch.allclose(suf_o, suf_p, rtol=1e-5, atol=1e-6))
-    print(f"  {name}: B9 on the large launch's stage-0 records within tolerance {ok9}",
-          flush=True)
+    print(f"  {name}: B9 on the large launch's stage-0 records within tolerance {ok9}, twice "
+          f"bit-equal {torch.equal(dm, dm2)}, "
+          f"{getattr(stage_reverse_tile, 'blocks', '-')} blocks", flush=True)
     if not ok9:
         raise SystemExit(f"{name}: B9 disagrees with its plain version")
     fn = lambda: stage_reverse_tile(big.n_tri, cfg, k, rec0, gb, suf)
     cs.cuda_ms(fn, 2)
     print(f"RESULT {name} b9_large_stage0 {cs.cuda_ms(fn, 10):.4f} ms (mean of 10)", flush=True)
+    del rec0
+
+    def fwd_bwd_large(key):
+        mm = m.clone().requires_grad_()
+        vals, _ = render_samples(mm, big, key, cfg, device=dev)
+        tonemap_mean(vals, cfg.spp).mean().backward()
+        return mm.grad
+
+    fwd_bwd_large(1)
+    for r in range(2):
+        print(f"RESULT {name} fwd_bwd_large_run{r} "
+              f"{cs.cuda_ms(lambda: fwd_bwd_large(r + 2), 1):.3f} ms", flush=True)
+    from torch.profiler import ProfilerActivity, profile as prof_ctx
+    with prof_ctx(activities=[ProfilerActivity.CUDA]) as prof:
+        fwd_bwd_large(7)
+        torch.cuda.synchronize()
+    b9 = [e for e in prof.key_averages() if "stage_reverse_kernel" in e.key]
+    print(f"RESULT {name} b9_in_fwd_bwd_large "
+          f"{sum(e.self_device_time_total for e in b9) / 1e3:.3f} ms over "
+          f"{sum(e.count for e in b9)} launches (profiler on)", flush=True)
 '''
 
 

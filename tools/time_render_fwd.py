@@ -11,12 +11,15 @@ sources, prints ptxas's register and spill lines of render_fwd.cu, and
 times with CUDA events (after warm-up launches):
 
   * B1 on scene 0's first 2^20-ray launch of the 512x512/64 spp/16 bounce
-    render (fused RNG, key 0), the dense main path, checked bit for bit
+    render (fused RNG, key 0), the dense main path, with the inputs the
+    tree's main path passes (a tree whose chip_smoke.py has camera_launch:
+    the kernel makes the rays; else camera_rays' rays), checked bit for bit
     against its plain version (mean of 20 launches);
   * at each cluster width of --widths, on the first 2^20-ray launch of the
     large vertex-normal scene's render at the same configuration: B1 with
-    clustered tables (mean of 5; its radiance and counts checked bit for
-    bit against B1 with dense tables), and B8 at stage 0 and stage 2 on the
+    clustered tables and the main path's inputs (mean of 5; its radiance
+    and counts checked bit for bit against B1 with dense tables), and B8
+    at stage 0 and stage 2 on the
     carries of the staged orchestration (B7, then per stage the binned
     sort; mean of 20 each after 2 warm-up launches; at the first width the share of lanes equal to
     its plain version is printed);
@@ -59,7 +62,9 @@ dev = torch.device("cuda", 0)
 cfg = RenderConfig(width=512, height=512, spp=64, max_bounces=16)
 n = cfg.tile_size
 scene, mats = cs.fixture(dev)
-a = cs.tile_inputs(scene, cfg, 0, n, dev, external=False)
+camera_mode = hasattr(cs, "camera_launch")
+a = (cs.camera_launch(n, 0) if camera_mode
+     else cs.tile_inputs(scene, cfg, 0, n, dev, external=False))
 rk, sk = render_tile(mats, scene, cfg, **a)
 rp, sp = render_tile_plain(mats, scene, cfg, **a)
 same = torch.equal(rk, rp) and torch.equal(sk, sp)
@@ -69,17 +74,18 @@ print(f"RESULT {name} b1_scene0 {ms:.4f} ms (mean of 20, bit-equal to plain {sam
 
 big = large_scene(dev)
 bm = big.diffuse
-ab = cs.tile_inputs(big, cfg, 0, n, dev, external=False)
+ab = cs.tile_inputs(big, cfg, 0, n, dev, external=False)  # B7's rays, for B8's carries
+am = cs.camera_launch(n, 0) if camera_mode else ab  # B1's: the main path's inputs
 dense = pack_tables(big, bm)
-rd, sd = render_tile(bm, big, cfg, tables=dense, **ab)
+rd, sd = render_tile(bm, big, cfg, tables=dense, **am)
 takes_live = "live" in inspect.signature(stage_tile).parameters
 for w in widths:
     c = cfg.with_(cluster_k=w)
     tabs = pack_tables(big, bm, c)
-    rb, sb = render_tile(bm, big, c, tables=tabs, **ab)
+    rb, sb = render_tile(bm, big, c, tables=tabs, **am)
     eq = torch.equal(rb, rd) and torch.equal(sb, sd)
-    cs.cuda_ms(lambda: render_tile(bm, big, c, tables=tabs, **ab), 1)
-    ms = cs.cuda_ms(lambda: render_tile(bm, big, c, tables=tabs, **ab), 5)
+    cs.cuda_ms(lambda: render_tile(bm, big, c, tables=tabs, **am), 1)
+    ms = cs.cuda_ms(lambda: render_tile(bm, big, c, tables=tabs, **am), 5)
     print(f"RESULT {name} b1_large_k{w} {ms:.4f} ms (mean of 5, bit-equal to dense B1 {eq})",
           flush=True)
     bins = _scene_bins(big, c)
