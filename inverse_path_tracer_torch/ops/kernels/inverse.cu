@@ -360,7 +360,7 @@ __device__ __forceinline__ void trace_persistent(const TraceParams& P, const Tab
 }
 
 template <bool kClustered>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, min_blocks(kClustered))
     inverse_grid_kernel(const TraceParams P, const float* pix, float* partials, float* stats,
                         int* next_ray) {
   extern __shared__ float4 smem4[];

@@ -26,7 +26,11 @@
 // launches.  Like B4 it is bound by the bytes of the reached records.
 //
 // Schedules.  B4 runs one thread per ray, the recursion warp by warp to
-// the warp's longest path (reverse_path).  B9 runs persistent blocks whose
+// the warp's longest path (reverse_path).  Its loads fetch whole 32-byte
+// sectors of the records' rows whether or not every lane of the sector
+// reached the slot, and with up to 48 warps an SM this kernel streams them
+// faster than persistent blocks that load a lane's slots in groups, as B9
+// does (PERF.md, B4's row).  B9 runs persistent blocks whose
 // warps walk fixed ranges of lanes 32 at a time, each lane loading all of
 // its slots (at most 4) before the recursion (stage_reverse_kernel), so
 // that a block clears its accumulators once and writes one partial for
@@ -379,12 +383,11 @@ constexpr int kB9Preload = 4;
 // B9, persistent: the recursion over one stage's records (k slots) from
 // the carry suf_in (4, n) = (suf xyz, esc) of the later stages; writes the
 // carry toward the earlier stages to suf_out.  As many blocks as fit on the
-// card at once (stage_reverse_capacity): warp w of the grid owns the contiguous chunks of 32 neighbouring lanes
-// [w * C / W, (w + 1) * C / W) (C = ceil(n / 32) chunks, W warps; the
-// range is cut at n) and walks them in order, so its loads coalesce.  Each
-// block clears its rows once and writes one (nT, 3) partial; no counter is
-// shared between warps, so the sums depend only on (n, the grid) and two
-// calls are bit-equal.  tests/test_torch_regen.py mirrors the ranges.
+// card at once (stage_reverse_capacity): each warp walks its fixed range
+// of 32-lane chunks in order (render_common.cuh warp_chunks), so its loads
+// coalesce.  Each block clears its rows once and writes one (nT, 3)
+// partial; no counter is shared between warps, so the sums depend only on
+// (n, the grid) and two calls are bit-equal.
 template <int kPre>
 __global__ void __launch_bounds__(kB9Threads)
     stage_reverse_kernel(const float* rec, const float* g, const float* suf_in, int n, int n_tri,
@@ -396,12 +399,9 @@ __global__ void __launch_bounds__(kB9Threads)
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   float* warp_acc = acc + static_cast<size_t>(warp) * n_tri * 3;
-  const long long chunks = (n + 31) / 32;
-  const long long warps = static_cast<long long>(gridDim.x) * kB9Warps;
-  const long long w = static_cast<long long>(blockIdx.x) * kB9Warps + warp;
-  const long long lo = w * chunks / warps * 32;
-  const long long hi = min((w + 1) * chunks / warps * 32, static_cast<long long>(n));
-  for (long long base = lo; base < hi; base += 32) {  // warp-uniform
+  const LaneRange r = warp_chunks(n, kB9Warps);
+  const long long hi = r.hi;
+  for (long long base = r.lo; base < hi; base += 32) {  // warp-uniform
     const int i = static_cast<int>(base) + lane;
     const bool valid = i < hi;
     const GlobalSource src{rec, n, i};

@@ -2,7 +2,9 @@
 // render_bwd.cu (B2, B4, B9) and inverse.cu (B5, B6): the vector helpers,
 // the counter-hash RNG, the closest-hit sweep with its clustered form
 // (B10), the shading helpers and the bounce loop of one ray as a lane state
-// (Lane), an init step (init_lane) and a bounce step (bounce_step).
+// (Lane), an init step (init_lane) and a bounce step (bounce_step), and the
+// persistent schedules: regenerating lanes (warp_rays: B1, B2, B3) and
+// fixed chunk ranges (warp_chunks: B7, B9).
 //
 // The regenerating loops of B1, B2 and B3 (warp_rays below) and the stage
 // kernel run the same steps, templated on a record sink, so that B1 (no
@@ -777,6 +779,27 @@ __device__ __forceinline__ WarpRays warp_rays(int n) {
   const long long per = (n + warps - 1) / warps;
   const long long lo = (static_cast<long long>(blockIdx.x) * kWarps + (threadIdx.x >> 5)) * per;
   return WarpRays{static_cast<int>(lo < n ? lo : n), static_cast<int>(lo + per < n ? lo + per : n)};
+}
+
+// --- Fixed chunk ranges (B7, B9) -------------------------------------------
+//
+// Persistent blocks of `warps_per_block` warps, as many as fit on the card.
+// Warp w of the grid owns the contiguous chunks of 32 neighbouring lanes
+// [w * C / W, (w + 1) * C / W) (C = ceil(n / 32) chunks, W warps in all;
+// the range is cut at n) and walks them in order, so its loads and stores
+// coalesce.  No counter is shared between warps: which lanes a warp runs,
+// and in what order, depends only on (n, the grid).
+// tests/test_torch_regen.py mirrors it.
+struct LaneRange {
+  long long lo, hi;  // the warp's lanes [lo, hi), lo a multiple of 32
+};
+
+__device__ __forceinline__ LaneRange warp_chunks(int n, int warps_per_block) {
+  const long long chunks = (n + 31) / 32;
+  const long long warps = static_cast<long long>(gridDim.x) * warps_per_block;
+  const long long w = static_cast<long long>(blockIdx.x) * warps_per_block + (threadIdx.x >> 5);
+  return LaneRange{w * chunks / warps * 32,
+                   min((w + 1) * chunks / warps * 32, static_cast<long long>(n))};
 }
 
 // Every lane of the warp calls it.  A lane that asks gets the next ray of

@@ -46,6 +46,13 @@
 // B7, init_kernel, replaces init_tile_pallas / _kernel_init
 // (render_kernel.py:1677, :1098): the bounce-0 intersection of each live
 // ray written into the lane carry (render_common.cuh, kCarryRows rows).
+// It is bound by the bytes of the carry it writes (96 per lane; the rays
+// are made in the kernel in camera mode).  It runs persistent blocks, as
+// many as fit with the tables' shared memory, each staging the tables once
+// and its warps walking fixed ranges of 32-lane chunks (warp_chunks):
+// with one block per 256 rays, every block copied the ~86 KB of the large
+// scene's sweep tables from L2 to sweep 256 primary rays.
+//
 // B8, stage_kernel, replaces stage_tile_pallas / _kernel_stage (:1711,
 // :1141): from a carry, at most k bounces of each live lane starting at a
 // runtime global bounce `start`, with B1's bounce step (bounce_step); the
@@ -152,14 +159,26 @@ __global__ void __launch_bounds__(kThreads, min_blocks(kClustered))
   }
 }
 
+// B7's blocks: kInitWarps warps.
+constexpr int kInitThreads = 512;
+constexpr int kInitWarps = kInitThreads / 32;
+
+// B7, persistent: as many blocks as fit on the card with the tables'
+// shared memory, each staging the tables once; warp w walks its fixed
+// range of 32-lane chunks (render_common.cuh warp_chunks) and writes each
+// lane's carry, a row at a time, lane-contiguous.  Each lane's arithmetic
+// is init_lane's whatever its place, so the carry is the one-thread-a-ray
+// kernel's, bit for bit.
 template <bool kClustered>
-__global__ void __launch_bounds__(kThreads, min_blocks(kClustered))
+__global__ void __launch_bounds__(kInitThreads, min_blocks(kClustered))
     init_kernel(const TraceParams P, float* carry) {
   extern __shared__ float4 smem4[];
   const Tables T = stage_tables<kClustered>(P, reinterpret_cast<float*>(smem4));
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= P.n) return;
-  store_lane(carry, P.n, i, init_lane<kClustered>(P, T, i));
+  const LaneRange r = warp_chunks(P.n, kInitWarps);
+  for (long long base = r.lo; base < r.hi; base += 32) {
+    const int i = static_cast<int>(base) + (threadIdx.x & 31);
+    if (i < r.hi) store_lane(carry, P.n, i, init_lane<kClustered>(P, T, i));
+  }
 }
 
 // Lane i of a stage: its carry in, at most k bounces, its carry out and,
@@ -262,8 +281,16 @@ __global__ void __launch_bounds__(kThreads, min_blocks(kClustered))
 }
 
 // B1's and B3's blocks that fit on the card at once, per instance
-// ([kRecords][kClustered]) and device.
+// ([kRecords][kClustered]) and device; B7's per [kClustered] and device.
 Capacity g_render_capacity[2][2][kMaxDevices] = {};
+Capacity g_init_capacity[2][kMaxDevices] = {};
+
+cudaError_t init_capacity(TraceParams& P, int* blocks) {
+  const size_t dyn = smem_tables(P, 0);
+  Capacity* c = g_init_capacity[P.cluster_k ? 1 : 0];
+  return P.cluster_k ? capacity(init_kernel<true>, c, dyn, blocks, kInitThreads)
+                     : capacity(init_kernel<false>, c, dyn, blocks, kInitThreads);
+}
 
 cudaError_t render_capacity(TraceParams& P, bool records, int* blocks) {
   const size_t dyn = smem_tables(P, 0);
@@ -364,14 +391,35 @@ int ipt_render_rec(const TraceParams* Pin, float* rad, float* stats, float* rec,
       launch_render(Pin, rad, stats, rec, blocks, static_cast<cudaStream_t>(stream)));
 }
 
-// B7: the initial carry (kCarryRows, n) of the rays of *Pin.
-int ipt_init_tile(const TraceParams* Pin, float* carry, void* stream) {
+// B7's grid for the rays of *Pin: the blocks that fit on the card at once,
+// at most one per kInitThreads rays (none for n = 0).  Returns the
+// cudaError_t.
+int ipt_init_blocks(const TraceParams* Pin, int* blocks) {
+  TraceParams P = *Pin;
+  int cap = 0;
+  const cudaError_t err = init_capacity(P, &cap);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  *blocks = min(cap, (P.n + kInitThreads - 1) / kInitThreads);
+  return 0;
+}
+
+// B7 on `blocks` persistent blocks (ipt_init_blocks): the initial carry
+// (kCarryRows, n) of the rays of *Pin.  Returns the cudaError_t.
+int ipt_init_tile(const TraceParams* Pin, float* carry, int blocks, void* stream) {
   TraceParams P = *Pin;
   if (P.n <= 0) return 0;
+  int cap = 0;
+  const cudaError_t err = init_capacity(P, &cap);  // opts the kernel into its smem
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (blocks < 1 || blocks > cap) return static_cast<int>(cudaErrorInvalidValue);
   const size_t dyn = smem_tables(P, 0);
-  const int b = blocks_for(P.n);
-  return P.cluster_k ? launch(init_kernel<true>, b, dyn, stream, P, carry)
-                     : launch(init_kernel<false>, b, dyn, stream, P, carry);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (P.cluster_k) {
+    init_kernel<true><<<blocks, kInitThreads, dyn, s>>>(P, carry);
+  } else {
+    init_kernel<false><<<blocks, kInitThreads, dyn, s>>>(P, carry);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 // B8: at most k bounces from global bounce `start` of the lanes of

@@ -473,7 +473,9 @@ def _library(name: str):
         # rad stats rec blocks stream
         lib.ipt_render_rec.argtypes = [params, vp, vp, vp, ci, vp]
         lib.ipt_render_rec.restype = ci
-        lib.ipt_init_tile.argtypes = [params, vp, vp]  # carry stream
+        lib.ipt_init_blocks.argtypes = [params, ctypes.POINTER(ci)]  # blocks
+        lib.ipt_init_blocks.restype = ci
+        lib.ipt_init_tile.argtypes = [params, vp, ci, vp]  # carry blocks stream
         lib.ipt_init_tile.restype = ci
         # carry_in carry_out rec start k live next stream
         lib.ipt_stage_tile.argtypes = [params, vp, vp, vp, ci, ci, vp, vp, vp]

@@ -36,9 +36,12 @@ in the internal triangle order; the caller maps the cotangent back once
 Each wrapper launches its CUDA kernel (render_fwd.cu: B7, B8;
 render_bwd.cu: B9) for CUDA tensors and runs its plain version for CPU
 tensors; it never falls back from one to the other on a CUDA tensor.
-`<wrapper>.launches` counts kernel launches.  B9 runs persistent blocks,
-as many as fit on the card at once (render_bwd.cu stage_reverse_kernel;
-`stage_reverse_tile.blocks` holds the grid of its last launch).
+`<wrapper>.launches` counts kernel launches.  B7 and B9 run persistent
+blocks, as many as fit on the card at once: B7's warps walk fixed ranges
+of 32-lane chunks after their block staged the tables (render_fwd.cu
+init_kernel), B9's likewise over a stage's records (render_bwd.cu
+stage_reverse_kernel); `init_tile.blocks` and `stage_reverse_tile.blocks`
+hold the grid of their last launch.
 """
 
 from __future__ import annotations
@@ -96,10 +99,14 @@ def init_tile(
     params, tabs = _trace_params(materials, scene, cfg, tables, p, d, alive, camera=camera)
     carry = torch.empty((CARRY_ROWS, n), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
-        err = lib.ipt_init_tile(ctypes.byref(params), carry.data_ptr(),
+        blocks = ctypes.c_int(0)
+        _raise_on(lib, lib.ipt_init_blocks(ctypes.byref(params), ctypes.byref(blocks)),
+                  "render_fwd init_tile")
+        err = lib.ipt_init_tile(ctypes.byref(params), carry.data_ptr(), blocks.value,
                                 torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(lib, err, "render_fwd init_tile")
     init_tile.launches += 1
+    init_tile.blocks = blocks.value
     _count_sweep(tabs)
     return carry
 
@@ -188,6 +195,7 @@ def stage_reverse_tile(
 
 
 init_tile.launches = 0
+init_tile.blocks = 0
 stage_tile.launches = 0
 stage_reverse_tile.launches = 0
 stage_reverse_tile.blocks = 0

@@ -742,3 +742,159 @@ def test_camera_mode_past_2_32_samples(card, scene0):
     acc_p, st_p = inverse_tile_plain(scene0, cfg, image=image, kernel_order=True, **cam)
     grid64_close(acc, acc_p)
     assert torch.equal(st, st_p)
+
+
+@pytest.mark.parametrize("max_bounces", [16, 20])
+@pytest.mark.parametrize("kind", ["scene0", "sphere"])
+def test_reverse_tile_on_records(card, tmp_path, kind, max_bounces):
+    """B4 on B3's records with dead lanes and a ragged lane count, on scene 0
+    (dense) and the clustered 242-triangle sphere scene: within the gradient
+    tolerance of its plain version (the vertex-normal bound on the sphere)
+    and of B9 run from a zero carry over the whole record array, and
+    bit-equal across two calls."""
+    from inverse_path_tracer_torch.ops.kernels.clusters import kernel_perm, unperm_rows
+    from inverse_path_tracer_torch.ops.kernels.render_kernel import pack_tables
+    from inverse_path_tracer_torch.ops.kernels.staged_kernel import stage_reverse_tile
+
+    scene = (load_scene(SCENE0, asset_root=ASSET_ROOT).to(card) if kind == "scene0"
+             else sphere_scene(card, tmp_path))
+    cfg = RenderConfig(width=37, height=29, spp=3, max_bounces=max_bounces)
+    n = cfg.n_samples
+    args = tile_args(scene, cfg, card, "fused")
+    args["alive"][0, -9:] = 0.0
+    tabs = pack_tables(scene, scene.diffuse, cfg)
+    assert (tabs.cluster_k > 0) is (kind == "sphere")
+    perm = kernel_perm(scene, cfg)
+    _, st, rec = render_tile_rec(scene.diffuse, scene, cfg, tables=tabs, **args)
+    assert int(st[0].max()) > 4  # the records reach past a stage's slots
+    g = torch.rand((3, n), generator=torch.Generator().manual_seed(17)).to(card)
+    before = reverse_tile.launches
+    d1 = reverse_tile(scene.n_tri, cfg, rec, g, perm)
+    d2 = reverse_tile(scene.n_tri, cfg, rec, g, perm)
+    assert reverse_tile.launches == before + 2
+    assert torch.equal(d1, d2)
+    d9, suf = stage_reverse_tile(scene.n_tri, cfg, max_bounces, rec, g,
+                                 torch.zeros((4, n), device=card))
+    want = reverse_tile_plain(scene.n_tri, cfg, rec, g, perm)
+    close = assert_grad_close if kind == "scene0" else assert_vn_grad_close
+    close(d1, want)
+    close(unperm_rows(d9, perm), d1)
+    assert bool(torch.isfinite(d1).all()) and float(d1.abs().sum()) > 0
+    assert not bool(suf.isnan().any())
+
+
+# sha256 of B9's outputs (partials summed, then the carry out) on
+# b9_fixed_records, on the card at the time B9 took its one-group preload
+# (stage_reverse_kernel<4>); and of the inputs, so that a change of the
+# inputs' generator is told apart from a change of B9's bits.
+B9_FIXED_INPUTS_SHA256 = "fde46707e3daf9af590a0f93d6acd663036a82d3e3a62c0bb1703875d65d471e"
+B9_FIXED_OUTPUTS_SHA256 = "6c10a0f33c4739538963550c9b0bff84d5877cd045fe026660bf14a023325041"
+
+
+def b9_fixed_records(card, n_tri):
+    """Records of a 4-slot stage for 5017 lanes made with numpy from a
+    seed (path lengths 0 to 4, the last slot an escape for ~30% of them),
+    with g and a random (suf, esc) carry."""
+    import numpy as np
+
+    from inverse_path_tracer_torch.render.diff import REC_ROWS
+
+    r = np.random.default_rng(23)
+    n, k = 5000 + 17, 4
+    lengths = r.integers(0, k + 1, size=n)
+    rec = np.zeros((k, REC_ROWS, n), dtype=np.float32)
+    for s in range(k):
+        on = lengths > s
+        rec[s, :13, on] = r.random((int(on.sum()), 13), dtype=np.float32)
+        rec[s, 13, on] = r.integers(0, n_tri, size=int(on.sum()))
+        last = on & (lengths == s + 1)
+        esc = last & (r.random(n) < 0.3)
+        rec[s, 14, on & ~esc] = 1.0
+        rec[s, 15, esc] = 1.0
+        rec[s, 0:3, esc] = 0.0
+        rec[s, 6:9, esc] = 0.0
+    g = r.random((3, n), dtype=np.float32)
+    suf = r.random((4, n), dtype=np.float32)
+    suf[3] = (suf[3] > 0.5).astype(np.float32)
+    return tuple(torch.from_numpy(x).to(card) for x in (rec.reshape(k * REC_ROWS, n), g, suf))
+
+
+def sha256(*ts):
+    import hashlib
+
+    return hashlib.sha256(b"".join(t.cpu().numpy().tobytes() for t in ts)).hexdigest()
+
+
+def test_stage_reverse_keeps_its_bits(card):
+    """B9 on a fixed set of records (b9_fixed_records, 40 blocks whatever
+    the card): its outputs keep the stored digest, so that a change of its
+    arithmetic or sum order fails here; the preloaded instance (stages of
+    at most 4 slots) equals the loop instance on the same records padded
+    with empty slots (8 and 12 slots) from a zero carry, bit for bit; and
+    it is within the gradient tolerance of the plain version."""
+    from inverse_path_tracer_torch import large_scene
+    from inverse_path_tracer_torch.ops.kernels.staged_kernel import (
+        stage_reverse_tile,
+        stage_reverse_tile_plain,
+    )
+    from inverse_path_tracer_torch.render.diff import REC_ROWS
+
+    scene = large_scene(card, vertex_normals=False)
+    cfg = RenderConfig(width=8, height=8, spp=2, max_bounces=16)
+    rec, g, suf = b9_fixed_records(card, scene.n_tri)
+    k, n = rec.shape[0] // REC_ROWS, rec.shape[1]
+    dm, so = stage_reverse_tile(scene.n_tri, cfg, k, rec, g, suf)
+    assert stage_reverse_tile.blocks == 40
+    assert ((sha256(rec, g, suf), sha256(dm, so))
+            == (B9_FIXED_INPUTS_SHA256, B9_FIXED_OUTPUTS_SHA256))
+    zero = torch.zeros_like(suf)
+    a, sa = stage_reverse_tile(scene.n_tri, cfg, k, rec, g, zero)
+    for pad in (4, 8):
+        rec_p = torch.cat([rec, torch.zeros((pad * REC_ROWS, n), device=card)])
+        b, sb = stage_reverse_tile(scene.n_tri, cfg, k + pad, rec_p, g, zero)
+        assert torch.equal(a, b) and torch.equal(sa, sb)
+    dm_p, so_p = stage_reverse_tile_plain(scene.n_tri, cfg, k, rec, g, suf)
+    assert_grad_close(dm, dm_p)
+    torch.testing.assert_close(so, so_p, rtol=1e-6, atol=0)
+
+
+@pytest.mark.parametrize("kind", ["scene0", "large", "sphere", "large_vn"])
+def test_persistent_init_tile(card, tmp_path, kind):
+    """B7 on its persistent grid (the tables staged once a block, fixed
+    32-lane-chunk ranges), with a lane count that is a multiple neither of
+    32 nor of the grid: the carry equals its plain version (flat scenes:
+    scene 0 dense and the large scene clustered, with the dead lanes' pending
+    point within rtol 1e-4; vertex-normal scenes: at least 97% of lanes), in
+    camera mode (with lanes past the last sample) and fed rays (with dead
+    lanes), bit-equal across two calls, with as many blocks as fit and at
+    most one per 512 lanes (render_fwd.cu kInitThreads)."""
+    from inverse_path_tracer_torch import large_scene
+    from inverse_path_tracer_torch.ops.kernels.render_kernel import pack_tables
+    from inverse_path_tracer_torch.ops.kernels.staged_kernel import init_tile, init_tile_plain
+
+    scene = {"scene0": lambda: load_scene(SCENE0, asset_root=ASSET_ROOT).to(card),
+             "large": lambda: large_scene(card, vertex_normals=False),
+             "sphere": lambda: sphere_scene(card, tmp_path),
+             "large_vn": lambda: large_scene(card)}[kind]()
+    cfg = RenderConfig(width=37, height=29, spp=3, max_bounces=8)
+    cam, rays = camera_launch(scene, cfg, card, key=6, base=7, n=cfg.n_samples - 7 + 21)
+    n = cam["camera"].n
+    assert n % 32 and (n - 21) % 32
+    rays["alive"][0, 100:140] = 0.0
+    mats = scene.diffuse
+    tabs = pack_tables(scene, mats, cfg)
+    assert (tabs.cluster_k > 0) is (kind != "scene0")
+    before = init_tile.launches
+    carry = init_tile(mats, scene, cfg, camera=cam["camera"], tables=tabs)
+    assert init_tile.launches == before + 1 and 1 <= init_tile.blocks <= -(-n // 512)
+    assert torch.equal(init_tile(mats, scene, cfg, camera=cam["camera"], tables=tabs), carry)
+    carry_r = init_tile(mats, scene, cfg, rays["p"], rays["d"], rays["alive"], tables=tabs)
+    want = init_tile_plain(mats, scene, cfg, camera=cam["camera"])
+    want_r = init_tile_plain(mats, scene, cfg, rays["p"], rays["d"], rays["alive"])
+    assert not carry[17, -21:].any() and not carry_r[17, 100:140].any()
+    for got, exp in ((carry, want), (carry_r, want_r)):
+        if kind in ("scene0", "large"):
+            assert_carry_equal(got, exp)
+        else:
+            close = torch.isclose(got, exp, rtol=RTOL, atol=ATOL).all(dim=0).float().mean()
+            assert float(close) >= 0.97

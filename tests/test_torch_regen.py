@@ -1,7 +1,7 @@
 """The regenerating schedule of B1, B2 and B3 on the CPU, through a Python
 mirror transcribed from render_common.cuh (warp_rays, take_ray) and the
 loops of render_fwd.cu render_kernel and render_bwd.cu grad_tile_kernel,
-the persistent grid of B9 (render_bwd.cu stage_reverse_kernel: fixed
+the persistent grids of B7 and B9 (render_common.cuh warp_chunks: fixed
 per-warp ranges of 32-lane chunks), and the CPU routes of the wrappers.
 No JAX is needed.  The mirror holds the schedule's design; the card tests
 (tests/test_torch_cuda.py) hold the CUDA code itself.
@@ -218,12 +218,14 @@ def test_regeneration_takes_fewer_rounds_than_a_ray_a_thread():
 B9_WARPS = 4  # warps per block of B9 (render_bwd.cu kB9Warps)
 
 
-def b9_warp_lanes(n: int, blocks: int, warp: int) -> List[List[int]]:
-    """The chunks of 32 neighbouring lanes that global warp `warp` of B9's
-    grid (`blocks` blocks of B9_WARPS warps) walks, in its order
-    (render_bwd.cu stage_reverse_kernel): chunks [w * C / W, (w + 1) * C /
-    W) of the C = ceil(n / 32) chunks, W warps in all, cut at n."""
-    chunks, total = -(-n // 32), blocks * B9_WARPS
+def b9_warp_lanes(n: int, blocks: int, warp: int, warps_per_block: int = B9_WARPS
+                  ) -> List[List[int]]:
+    """The chunks of 32 neighbouring lanes that global warp `warp` of a
+    grid of `blocks` blocks of `warps_per_block` warps walks, in its order
+    (render_common.cuh warp_chunks; B9 runs B9_WARPS warps a block, B7
+    B7_THREADS // 32): chunks [w * C / W, (w + 1) * C / W) of the C =
+    ceil(n / 32) chunks, W warps in all, cut at n."""
+    chunks, total = -(-n // 32), blocks * warps_per_block
     lo = warp * chunks // total * 32
     hi = min((warp + 1) * chunks // total * 32, n)
     return [list(range(base, min(base + 32, hi))) for base in range(lo, hi, 32)]
@@ -247,6 +249,24 @@ def test_b9_warps_cover_every_lane_once_in_a_fixed_order(n, capacity):
             assert chunk[0] % 32 == 0 and chunk == list(range(chunk[0], chunk[-1] + 1))
     # The order depends on (n, the grid) only.
     assert walks == [b9_warp_lanes(n, blocks, w) for w in range(blocks * B9_WARPS)]
+
+
+B7_THREADS = 512  # threads per block of B7 (render_fwd.cu kInitThreads)
+
+
+@pytest.mark.parametrize("n", [1, 31, 33, 1000, 4099, (1 << 20) + 77])
+@pytest.mark.parametrize("capacity", [264, 528, 132, 1])
+def test_b7_warps_cover_every_lane_once_in_a_fixed_order(n, capacity):
+    # B7's grid (render_fwd.cu ipt_init_blocks): the blocks that fit, at
+    # most one per B7_THREADS lanes, as persistent_blocks cuts B1-B3's.
+    blocks = persistent_blocks(n, capacity, B7_THREADS)
+    assert blocks == min(capacity, -(-n // B7_THREADS)) >= 1
+    warps = B7_THREADS // LANES
+    walks = [b9_warp_lanes(n, blocks, w, warps) for w in range(blocks * warps)]
+    assert [i for walk in walks for chunk in walk for i in chunk] == list(range(n))
+    counts = [len(walk) for walk in walks]
+    assert max(counts) - min(counts) <= 1
+    assert all(chunk[0] % 32 == 0 for walk in walks for chunk in walk)
 
 
 @pytest.fixture(scope="module")
@@ -287,3 +307,33 @@ def test_cpu_tensors_take_the_plain_versions(scene0):
     # The records are zero past each ray's last bounce (its segment count).
     past = torch.arange(cfg.max_bounces)[:, None] >= stats[0].long()[None, :]
     assert not rec.view(cfg.max_bounces, 16, n)[past.unsqueeze(1).expand(-1, 16, -1)].any()
+
+
+def test_cpu_tensors_take_the_plain_reverse_and_init(scene0):
+    """On the CPU the wrappers of B4, B7 and B9 run their plain versions:
+    no launch counted, no grid recorded (B7, B9); B4 is B9's recursion over
+    the whole record array from a zero carry."""
+    from inverse_path_tracer_torch.ops.kernels.render_kernel import reverse_tile, reverse_tile_plain
+    from inverse_path_tracer_torch.ops.kernels.staged_kernel import (
+        init_tile,
+        init_tile_plain,
+        stage_reverse_tile,
+    )
+
+    cfg = RenderConfig(width=8, height=6, spp=3, max_bounces=7)
+    a = tile(scene0, cfg, 4)
+    n = cfg.n_samples
+    g = torch.from_numpy(np.random.default_rng(8).random((3, n)).astype(np.float32))
+    mats = scene0.diffuse
+    _, _, rec = render_tile_rec_plain(mats, scene0, cfg, **a)
+    wrappers = (reverse_tile, init_tile, stage_reverse_tile)
+    before = [(f.launches, getattr(f, "blocks", None)) for f in wrappers]
+    d4 = reverse_tile(scene0.n_tri, cfg, rec, g)
+    carry = init_tile(mats, scene0, cfg, a["p"], a["d"], a["alive"])
+    d9, suf = stage_reverse_tile(scene0.n_tri, cfg, cfg.max_bounces, rec, g, torch.zeros((4, n)))
+    assert [(f.launches, getattr(f, "blocks", None)) for f in wrappers] == before
+    assert torch.equal(d4, reverse_tile_plain(scene0.n_tri, cfg, rec, g))
+    assert torch.equal(d4, d9) and suf.shape == (4, n) and float(d4.abs().sum()) > 0
+    assert torch.equal(carry, init_tile_plain(mats, scene0, cfg, a["p"], a["d"], a["alive"]))
+    assert not carry[17, -5:].any()  # the dead lanes
+

@@ -18,9 +18,10 @@ rays of camera_rays):
     plain version on the same inputs: B1's radiance within rtol 1e-4 /
     atol 1e-5 and its counts equal; B3's radiance and counts equal to B1's
     bit for bit and its records within rtol 1e-4 / atol 1e-5 of the plain
-    ones; B2 and B4 within chip_smoke.grad_close; B2 bit-equal across two
-    calls; in a tree with camera mode also B1 fed the camera_rays' rays
-    (b1_scene0_rays), bit-equal to B1 in camera mode;
+    ones; B2 and B4 within chip_smoke.grad_close; B2 and B4 bit-equal across
+    two calls, and a digest of B4's output (the same digest in two trees:
+    the same bits); in a tree with camera mode also B1 fed the camera_rays'
+    rays (b1_scene0_rays), bit-equal to B1 in camera mode;
   * the scene-0 forward (render_samples), fwd+bwd (render_samples,
     tonemap_mean(...).mean().backward()) and loss_and_grad_range at that
     configuration, one warm-up and three timed runs each;
@@ -30,10 +31,12 @@ rays of camera_rays):
     the paths timed again in the same process, after the profiler;
   * with --large, clustered B3 and B2 on the first 2^20-ray launch of the
     large vertex-normal scene's render (mean of 5; in a tree with camera
-    mode also fed camera_rays' rays), and B9 on that
+    mode also fed camera_rays' rays), B4 on that B3's records (mean of 10,
+    checked against its plain version and twice bit-equal), and B9 on that
     launch's stage-0 records (B7, then B8 with records), checked against
-    its plain version and twice bit-equal (mean of 10); then the large
-    fwd+bwd (one warm-up, 2 runs) and B9's device time in a profile of one;
+    its plain version and twice bit-equal (mean of 10), with digests of
+    B4's and B9's outputs; then the large fwd+bwd (one warm-up, 2 runs) and
+    B9's device time in a profile of one;
   * with --once, only one B3 and one B2 launch on scene 0's inputs and
     nothing else, for a profiler that wraps the command, as in
     `ncu -k regex:'grad_tile|render_rec|render_fwd' --metrics
@@ -56,7 +59,7 @@ import subprocess
 import sys
 
 CHILD = r'''
-import os, sys, time
+import hashlib, os, sys, time
 tree = sys.argv[1]
 profile, large, after_smoke, once = (f == "1" for f in sys.argv[2:6])
 sys.path.insert(0, tree)
@@ -72,6 +75,7 @@ from inverse_path_tracer_torch.ops.kernels.render_kernel import (
 from inverse_path_tracer_torch.ops.tonemap import tonemap_mean
 
 name = os.path.basename(os.path.normpath(tree)) or tree
+digest = lambda *ts: hashlib.sha256(b"".join(t.cpu().numpy().tobytes() for t in ts)).hexdigest()[:16]
 # A build directory of this process's own, so that ptxas's report is always printed.
 build.BUILD_DIR = os.path.join(tree, "build", f"kernels_{os.getpid()}")
 build.build(["render_fwd", "render_bwd"])
@@ -121,9 +125,11 @@ d2b = grad_tile(mats, scene, cfg, g=g, **a)
 ok2 = cs.grad_close(d2, grad_tile_plain(mats, scene, cfg, g=g, **a))
 d4 = reverse_tile(nt, cfg, rec, g)
 ok4 = cs.grad_close(d4, reverse_tile_plain(nt, cfg, rec, g))
+same4 = torch.equal(reverse_tile(nt, cfg, rec, g), d4)
 blocks = (getattr(grad_tile, "blocks", None), getattr(render_tile_rec, "blocks", None))
 print(f"  {name}: checks B1 {ok1}, B3 = B1 and records {ok3}, B2 {ok2} (twice bit-equal "
-      f"{torch.equal(d2, d2b)}), B4 {ok4}; persistent blocks B2, B3 {blocks}", flush=True)
+      f"{torch.equal(d2, d2b)}), B4 {ok4} (twice bit-equal {same4}, digest {digest(d4)}); "
+      f"persistent blocks B2, B3 {blocks}", flush=True)
 if not (ok1 and ok3 and ok2 and ok4):
     raise SystemExit(f"{name}: a kernel disagrees with its plain version")
 
@@ -206,9 +212,20 @@ if large:
     tabs = pack_tables(big, big.diffuse, cfg)
     gb = torch.rand((3, n), generator=torch.Generator().manual_seed(9)).to(dev)
     rb1, sb1 = render_tile(big.diffuse, big, cfg, tables=tabs, **ab)
-    rb3, sb3, _ = render_tile_rec(big.diffuse, big, cfg, tables=tabs, **ab)
+    rb3, sb3, rec_b = render_tile_rec(big.diffuse, big, cfg, tables=tabs, **ab)
     same = torch.equal(rb3, rb1) and torch.equal(sb3, sb1)
     print(f"  {name}: clustered B3 = B1 on the large launch {same}", flush=True)
+    d4b = reverse_tile(big.n_tri, cfg, rec_b, gb)
+    ok4b = cs.grad_close(d4b, reverse_tile_plain(big.n_tri, cfg, rec_b, gb))
+    print(f"  {name}: B4 on the large launch's B3 records within tolerance {ok4b}, twice "
+          f"bit-equal {torch.equal(reverse_tile(big.n_tri, cfg, rec_b, gb), d4b)}, digest "
+          f"{digest(d4b)}", flush=True)
+    if not ok4b:
+        raise SystemExit(f"{name}: B4 disagrees with its plain version on the large launch")
+    fn = lambda: reverse_tile(big.n_tri, cfg, rec_b, gb)
+    cs.cuda_ms(fn, 2)
+    print(f"RESULT {name} b4_large {cs.cuda_ms(fn, 10):.4f} ms (mean of 10)", flush=True)
+    del rec_b
     m = big.diffuse
     jobs = [("b3_large", lambda: render_tile_rec(m, big, cfg, tables=tabs, **ab)),
             ("b2_large", lambda: grad_tile(m, big, cfg, g=gb, tables=tabs, **ab))]
@@ -237,7 +254,7 @@ if large:
     dm2, _ = stage_reverse_tile(big.n_tri, cfg, k, rec0, gb, suf)
     ok9 = cs.grad_close(dm, dm_p) and bool(torch.allclose(suf_o, suf_p, rtol=1e-5, atol=1e-6))
     print(f"  {name}: B9 on the large launch's stage-0 records within tolerance {ok9}, twice "
-          f"bit-equal {torch.equal(dm, dm2)}, "
+          f"bit-equal {torch.equal(dm, dm2)}, digest {digest(dm, suf_o)}, "
           f"{getattr(stage_reverse_tile, 'blocks', '-')} blocks", flush=True)
     if not ok9:
         raise SystemExit(f"{name}: B9 disagrees with its plain version")

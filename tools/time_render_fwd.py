@@ -23,8 +23,11 @@ times with CUDA events (after warm-up launches):
     carries of the staged orchestration (B7, then per stage the binned
     sort; mean of 20 each after 2 warm-up launches; at the first width the share of lanes equal to
     its plain version is printed);
-  * with --forward, the large staged forward render_samples at each width
-    (three runs after a warm-up).
+  * with --forward, at each width B7 alone on that launch with the main
+    path's inputs (mean of 20 after 2 warm-up launches; a digest of its
+    carry, the same in two trees where the carries are bit-equal, and its
+    grid), and the large staged forward render_samples (three runs after a
+    warm-up).
 
 Trees are run in the order given, so pass them as A B B A to compare two
 versions within one call.  Lines that start with RESULT carry one number
@@ -39,7 +42,7 @@ import subprocess
 import sys
 
 CHILD = r'''
-import inspect, os, sys
+import hashlib, inspect, os, sys
 tree, widths, forward = sys.argv[1], [int(w) for w in sys.argv[2].split(",") if w], sys.argv[3] == "1"
 sys.path.insert(0, tree)
 os.chdir(tree)
@@ -111,6 +114,15 @@ for w in widths:
                   f"{agree})", flush=True)
         carry = run()
     if forward:
+        b7 = (lambda: init_tile(bm, big, c, camera=am["camera"], tables=tabs)) if camera_mode \
+            else (lambda: init_tile(bm, big, c, ab["p"], ab["d"], ab["alive"], tables=tabs))
+        carry = b7()
+        h = hashlib.sha256(carry.cpu().numpy().tobytes()).hexdigest()[:16]
+        del carry
+        cs.cuda_ms(b7, 2)
+        ms = cs.cuda_ms(b7, 20)
+        print(f"RESULT {name} b7_k{w} {ms:.4f} ms (mean of 20, carry digest {h}, "
+              f"{getattr(init_tile, 'blocks', '-')} blocks)", flush=True)
         render = lambda key: render_samples(bm, big, key, c, device=dev)
         render(1)
         for r in range(3):
