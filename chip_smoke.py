@@ -140,10 +140,28 @@ Phases, each failing loudly (any failure exits nonzero):
      and B4 (on B3's records) on that launch and clustered B6 (both sinks)
      on the first launch of the
      large extraction, timed; ptxas's registers and spills of the clustered
-     kernels.
+     kernels;
+ 22. batched recovery (recover_materials_batched, B1 and B2) at BASELINE
+     config #4: scenes 0-15 (asserted to share scene 0's vertices) at
+     256x256/64 spp/16 bounces, targets rendered with each scene's labels
+     under other keys, 30 Adam steps at lr 0.1 from theta = 0: last loss <
+     0.75 x first and mean Kd error < 0.7 x the start's; ms per step
+     (synchronized wall clock, median) and rays/s over the batch; 2 steps
+     over all 100 scenes from artifacts/exp100/gcn_init_256.npy, timed, its
+     sigmoid(theta) at step 0 within 1e-6 of the clipped init; at
+     64x64/8 spp/8 bounces with 4 scenes, scene_chunk 0, 1 and 3
+     bit-identical, a resume at step 4 of 8 inside the averaging window
+     (average_last 6) bit-identical, and n_keys 2 finite;
+ 23. the CLI on the card: python3 -m inverse_path_tracer_torch.cli render
+     --profile at 512x512/64 spp in a subprocess (PNG and trace written),
+     then through cli.main, without --cpu, generate, render, extract-graph
+     (B5), train-gcn, evaluate (this CLI's checkpoint and gcn0_params.npz),
+     graph-viz (counts against artifacts/graphviz), recover, recover-batch
+     and make-dataset, each timed with the kernel launches it made.
 
 The kernels' JSON object, then the card's name and power limit, then, last,
 {"ok": true, "device": {...}}.  Needs CUDA; exits nonzero without it.
+About 3 minutes on the H100, the build included.
 """
 
 from __future__ import annotations
@@ -183,6 +201,8 @@ MAIN = dict(width=512, height=512, spp=64, max_bounces=16)
 GOLDEN = dict(width=500, height=500, spp=100, max_bounces=16)
 FD = dict(width=64, height=64, spp=16, max_bounces=8, tile_size=1 << 14)
 RECOVER = dict(width=64, height=64, spp=8, max_bounces=8)
+# BASELINE.json config #4: batched recovery of the reference scenes.
+BATCH = dict(width=256, height=256, spp=64, max_bounces=16)
 # Kernel name -> (source, the TPU kernel it replaces).
 KERNELS = {
     "render_fwd": ("render_fwd.cu", "inverse_path_tracer_tpu/ops/pallas/render_kernel.py:1440"),
@@ -2215,6 +2235,291 @@ def large_kernel_timing(device, launches, check_err, large_target):
     return kernels
 
 
+def batch_scenes(n, device):
+    """Scene 0's geometry and the (n, nT, 3) labels of scenes/0..n-1.txt,
+    which must share scene 0's vertices (they differ in the cube's Kd)."""
+    import torch
+
+    from inverse_path_tracer_torch import ASSET_ROOT, load_scene
+
+    scenes = [load_scene(os.path.join(REPO, "scenes", f"{i}.txt"), asset_root=ASSET_ROOT)
+              for i in range(n)]
+    for i, s in enumerate(scenes):
+        if not torch.equal(s.vertices, scenes[0].vertices):
+            raise AssertionError(f"scenes/{i}.txt does not share scene 0's vertices")
+    return scenes[0].to(device), torch.stack([s.diffuse for s in scenes]).to(device)
+
+
+def batched_recovery(device):
+    """Phase 22: recover_materials_batched (B1 forward, B2 backward) at
+    BASELINE config #4, scenes 0-15 at 256x256/64 spp/16 bounces, targets
+    rendered with each scene's labels under keys distinct from the
+    recovery's: 30 steps at lr 0.1 from theta = 0, gates of phase 9 (last
+    loss < 0.75 x first, mean Kd error over the scenes < 0.7 x the
+    start's), ms per step and rays/s; then 2 steps over all 100 scenes from
+    artifacts/exp100/gcn_init_256.npy (scripts/run_recover100.py's
+    configuration), timed, its sigmoid(theta) at step 0 within 1e-6 of the
+    clipped init; then at 64x64/8 spp/8 bounces with 4 scenes: scene_chunk
+    0, 1 and 3 bit-identical over 3 steps, a resume at step 4 of 8 with
+    average_last 6 bit-identical to the uninterrupted run, and n_keys 2.
+    Returns ms per step at 16 and at 100 scenes."""
+    import numpy as np
+    import torch
+
+    from inverse_path_tracer_torch import (
+        RenderConfig,
+        recover_materials_batched,
+        render_image,
+        render_samples,
+    )
+    from inverse_path_tracer_torch.ops import rng
+    from inverse_path_tracer_torch.ops.kernels.render_kernel import grad_tile, render_tile
+
+    t_phase = time.perf_counter()
+    target_key, key = 100, 1
+
+    def targets_of(scene, labels, cfg):
+        return torch.stack([render_image(labels[j], scene, rng.fold_in(target_key, j), cfg,
+                                         device=device) for j in range(labels.shape[0])])
+
+    def timed(scene, targets, cfg, steps, **kw):
+        """(materials, losses, ms of each step: synchronized wall clock)."""
+        stamps = []
+
+        def stamp(_i, _loss):
+            torch.cuda.synchronize()
+            stamps.append(time.perf_counter())
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mats, losses = recover_materials_batched(scene, targets, cfg, steps=steps, lr=0.1,
+                                                 key=key, log_fn=stamp, device=device, **kw)
+        return mats, losses, np.diff([t0] + stamps) * 1e3
+
+    def step_rays(scene, mats, cfg, step):
+        """Rays (segments + shadow rays) of every scene's forward under step
+        `step`'s keys, rendered again at `mats`."""
+        step_key = rng.fold_in(key, step)
+        total = 0
+        with torch.no_grad():
+            for j in range(mats.shape[0]):
+                _, st = render_samples(mats[j], scene, rng.fold_in(step_key, j), cfg,
+                                       device=device)
+                total += int(st.segments) + int(st.shadow_rays)
+        return total
+
+    cfg = RenderConfig(**BATCH)
+    result = {}
+    for n, steps, init in ((16, 30, None), (100, 2, os.path.join(EXP100, "gcn_init_256.npy"))):
+        scene, labels = batch_scenes(n, device)
+        targets = targets_of(scene, labels, cfg)
+        kw = {}
+        if init is not None:
+            kw["init_materials"] = np.load(init)
+            start, _ = recover_materials_batched(scene, targets, cfg, steps=0, device=device,
+                                                 **kw)
+            m0 = np.clip(kw["init_materials"], 1e-4, 1 - 1e-4)
+            gap = float(np.abs(start.cpu().numpy() - m0).max())
+            log(f"batched recovery, {n} scenes: sigmoid(theta) at step 0 against the clipped "
+                f"init max |d| {gap:.3e} (bound 1e-6)")
+            if not gap <= 1e-6:
+                raise AssertionError("init_materials did not start theta at logit(init)")
+        torch.cuda.reset_peak_memory_stats(device)
+        render_tile.launches = grad_tile.launches = 0
+        mats, losses, ms = timed(scene, targets, cfg, steps, **kw)
+        launches = (render_tile.launches, grad_tile.launches)
+        peak = torch.cuda.max_memory_allocated(device) / 2**30
+        if not all(launches):
+            raise AssertionError(f"batched recovery launched render_fwd/render_bwd_grad "
+                                 f"{launches} times")
+        rays = step_rays(scene, mats, cfg, steps - 1)
+        med = float(np.median(ms))
+        err0 = float((0.5 - labels).abs().mean()) if init is None else None
+        err = float((mats - labels).abs().mean())
+        finite = all(math.isfinite(v) for v in losses) and bool(torch.isfinite(mats).all())
+        log(f"batched recovery {n} scenes {shape(cfg)}, {steps} steps lr 0.1"
+            f"{' from gcn_init_256.npy' if init else ''}: {launches[0]} launches of render_fwd, "
+            f"{launches[1]} of render_bwd_grad; loss {losses[0]:.5f} -> {losses[-1]:.5f}, Kd "
+            f"error {err:.5f}; ms per step {', '.join(f'{t:.1f}' for t in ms)} (median "
+            f"{med:.1f}); rays per step {rays} (a forward of step {steps - 1}'s keys at the "
+            f"recovered Kd), {rays / (med / 1e3):.6e} rays/s; peak device memory {peak:.2f} GiB")
+        if not finite:
+            raise AssertionError("batched recovery gave non-finite losses or materials")
+        if init is None:
+            ok = losses[-1] < 0.75 * losses[0] and err < 0.7 * err0
+            log(f"batched recovery gates: loss {losses[-1] / losses[0]:.3f}x (bound 0.75), Kd "
+                f"error {err0:.5f} -> {err:.5f} ({err / err0:.3f}x, bound 0.7) -> "
+                f"{'OK' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError("batched recovery missed its criteria")
+        result[n] = med
+
+    cfg = RenderConfig(**RECOVER)
+    scene, labels = batch_scenes(4, device)
+    targets = targets_of(scene, labels, cfg)
+    run = lambda steps, **kw: recover_materials_batched(scene, targets, cfg, steps=steps, lr=0.1,
+                                                        key=key, device=device, **kw)
+    whole, whole_losses = run(3)
+    for chunk in (1, 3):
+        mats, losses = run(3, scene_chunk=chunk)
+        same = torch.equal(mats, whole) and losses == whole_losses
+        log(f"batched recovery 4 scenes {shape(cfg)}: scene_chunk {chunk} bit-equal to 0 over 3 "
+            f"steps {same}")
+        if not same:
+            raise AssertionError(f"scene_chunk {chunk} changed the batched recovery")
+    ckpt = os.path.join(OUT_DIR, "recover_batched.npz")
+    for path in (ckpt, ckpt + ".avg"):
+        if os.path.exists(path):
+            os.remove(path)
+    full, full_losses = run(8, average_last=6)
+    run(4, average_last=2, checkpoint_path=ckpt, checkpoint_every=4)
+    resumed, tail = run(8, average_last=6, checkpoint_path=ckpt, resume=True)
+    same = torch.equal(resumed, full) and tail == full_losses[4:]
+    log(f"batched recovery resume at step 4 of 8 inside the averaging window (average_last 6): "
+        f"bit-equal to the uninterrupted run {same}")
+    if not same:
+        raise AssertionError("a resumed batched recovery differs from the uninterrupted one")
+    mats, losses = run(2, n_keys=2)
+    ok = all(math.isfinite(v) for v in losses) and bool(torch.isfinite(mats).all())
+    log(f"batched recovery n_keys 2: losses {', '.join(f'{v:.5f}' for v in losses)} finite {ok}")
+    if not ok:
+        raise AssertionError("batched recovery with n_keys 2 is not finite")
+    log(f"phase 22: {time.perf_counter() - t_phase:.1f} s")
+    return result
+
+
+def cli_commands(device):
+    """Phase 23: the CLI on the card.  One subprocess, python3 -m
+    inverse_path_tracer_torch.cli render --profile at 512x512/64 spp (the
+    module entry point on a machine without JAX or PIL); then every command
+    through cli.main in build/chip_smoke/cli, without --cpu, each timed
+    (synchronized wall clock) with the kernel launches it made: generate 2
+    (128x128/16 spp), render of both scenes at 500x500/100 spp,
+    extract-graph of both (B5), train-gcn (500 epochs, last loss < first),
+    evaluate with that checkpoint and with gcn0_params.npz (4 files in each
+    zip), graph-viz (counts against artifacts/graphviz), render at 64x64/8
+    spp, recover and recover-batch 2 (10 steps), make-dataset 2.  Returns
+    {command: seconds}."""
+    import shutil
+    import zipfile
+
+    import numpy as np
+    import torch
+
+    from inverse_path_tracer_torch import cli
+    from inverse_path_tracer_torch.ops.kernels.inverse_kernel import inverse_tile
+    from inverse_path_tracer_torch.ops.kernels.render_kernel import grad_tile, render_tile
+    from inverse_path_tracer_torch.utils.plyviz import read_ply_counts
+    from inverse_path_tracer_torch.utils.png import read_png
+
+    t_phase = time.perf_counter()
+    work = os.path.join(OUT_DIR, "cli")
+    shutil.rmtree(work, ignore_errors=True)
+    for sub in ("big", "small"):  # render writes into an existing directory
+        os.makedirs(os.path.join(work, sub))
+    at = lambda *p: os.path.join(work, *p)
+    scene0 = os.path.join(REPO, "scenes", "0.txt")
+    size = lambda w, spp, b=16: ["--width", str(w), "--height", str(w), "--spp", str(spp),
+                                 "--bounces", str(b)]
+
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "inverse_path_tracer_torch.cli", "render", scene0, at("0.png"),
+         "--profile", at("trace"), *size(512, 64)],
+        cwd=REPO, capture_output=True, text=True, timeout=600)
+    dt = time.perf_counter() - t0
+    log(f"cli subprocess render 512x512/64spp/16b --profile: {dt:.3f} s, rc {proc.returncode}: "
+        + " | ".join(proc.stdout.strip().splitlines()))
+    if proc.returncode != 0:
+        raise AssertionError(f"python3 -m inverse_path_tracer_torch.cli render failed:\n"
+                             f"{proc.stderr[-4000:]}")
+    traces = os.listdir(at("trace")) if os.path.isdir(at("trace")) else []
+    if read_png(at("0.png")).shape != (512, 512, 3) or not traces:
+        raise AssertionError(f"the subprocess render wrote no 512x512 PNG or no trace ({traces})")
+    times = {"render (subprocess, --profile)": dt}
+
+    counters = {"render_fwd": render_tile, "render_bwd_grad": grad_tile,
+                "inverse_grid": inverse_tile}
+
+    def run(label, argv, expect):
+        for c in counters.values():
+            c.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cli.main(argv)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        got = {k: c.launches for k, c in counters.items() if c.launches}
+        log(f"cli {label}: {dt:.3f} s, launches {got}")
+        missing = [k for k in expect if not got.get(k)]
+        if missing:
+            raise AssertionError(f"cli {label} launched no {missing}")
+        times[label] = dt
+
+    run("generate 2", ["generate", "2", "--scenes-dir", at("scenes"), "--imgs-dir", at("imgs"),
+                       *size(128, 16)], ["render_fwd"])
+    for i in range(2):
+        run(f"render scene {i}", ["render", at("scenes", f"{i}.txt"), at("big", f"{i}.png"),
+                                  *size(500, 100)], ["render_fwd"])
+    big = size(500, 100)
+    for i in range(2):
+        run(f"extract-graph scene {i}", ["extract-graph", at("scenes", f"{i}.txt"),
+                                         at("big", f"{i}.png"), at(f"graph_{i}.npz"), *big],
+            ["inverse_grid"])
+    with np.load(at("graph_0.npz")) as g:
+        w0 = np.array(g["w"])
+    if w0.shape != (31, 30) or read_png(at("imgs", "1.png")).shape != (128, 128, 3):
+        raise AssertionError(f"extract-graph wrote w {w0.shape}")
+    run("train-gcn", ["train-gcn", at("graph_0.npz"), at("graph_1.npz"), "--out", at("gcn.npz"),
+                      "--epochs", "500", "--lr", "1e-3", "--log", at("gcn.jsonl"),
+                      "--log-every", "100"], [])
+    with open(at("gcn.jsonl")) as f:
+        lines = [json.loads(line) for line in f]
+    log(f"cli train-gcn JSONL loss {lines[0]['loss']:.5f} (step {lines[0]['step']}) -> "
+        f"{lines[-1]['loss']:.5f} (step {lines[-1]['step']})")
+    if not lines[-1]["loss"] < lines[0]["loss"]:
+        raise AssertionError("cli train-gcn did not lower the loss")
+    for label, params in (("evaluate", at("gcn.npz")),
+                          ("evaluate gcn0", os.path.join(EXP100, "gcn0_params.npz"))):
+        out_dir = at("preds" if label == "evaluate" else "preds_gcn0")
+        run(label, ["evaluate", params, at("graph_0.npz"), at("graph_1.npz"), "--scenes-dir",
+                    at("scenes"), "--imgs-dir", at("big"), "--out-dir", out_dir, *big],
+            ["render_fwd"])
+        with zipfile.ZipFile(out_dir + ".zip") as zf:
+            if len(zf.namelist()) != 4:
+                raise AssertionError(f"{out_dir}.zip holds {zf.namelist()}")
+    run("graph-viz", ["graph-viz", scene0, at("big", "0.png"), at("viz"), *big], ["inverse_grid"])
+    mesh = read_ply_counts(at("viz", "mesh.ply"))
+    art = {n: read_ply_counts(os.path.join(REPO, "artifacts", "graphviz", f"{n}.ply"))
+           for n in ("mesh", "lines")}
+    edges = read_ply_counts(at("viz", "lines.ply"))["edge"]
+    want_edges = int((w0[:30] > 1e-3).sum())
+    log(f"cli graph-viz: mesh {mesh} (artifact {art['mesh']}), {edges} edges (entries of the "
+        f"port's w[:30] above p_min: {want_edges}; artifact lines.ply: {art['lines']['edge']})")
+    if mesh != art["mesh"] or edges != want_edges:
+        raise AssertionError("cli graph-viz wrote the wrong counts")
+    small = size(64, 8, 8)
+    for i in range(2):
+        run(f"render scene {i} 64x64", ["render", at("scenes", f"{i}.txt"),
+                                        at("small", f"{i}.png"), *small], ["render_fwd"])
+    run("recover", ["recover", scene0, at("small", "0.png"), "--steps", "10", "--out",
+                    at("kd.npy"), *small], ["render_fwd", "render_bwd_grad"])
+    run("recover-batch 2", ["recover-batch", "2", "--scenes-dir", at("scenes"), "--imgs-dir",
+                            at("small"), "--steps", "10", "--out", at("kd_batch.npy"), *small],
+        ["render_fwd", "render_bwd_grad"])
+    run("make-dataset 2", ["make-dataset", "2", "--scenes-dir", at("scenes"), "--imgs-dir",
+                           at("big"), "--out", at("data.npz"), *big], ["inverse_grid"])
+    kd, kd_b = np.load(at("kd.npy")), np.load(at("kd_batch.npy"))
+    with np.load(at("data.npz")) as d:
+        w_shape = d["w"].shape
+    if (kd.shape != (30, 3) or kd_b.shape != (2, 30, 3) or w_shape != (2, 31, 30)
+            or not (np.isfinite(kd).all() and np.isfinite(kd_b).all())):
+        raise AssertionError(f"cli outputs: kd {kd.shape}, batch {kd_b.shape}, w {w_shape}")
+    log("cli wall times (s): " + ", ".join(f"{k} {v:.3f}" for k, v in times.items()))
+    log(f"phase 23: {time.perf_counter() - t_phase:.1f} s")
+    return times
+
+
 def main() -> int:
     import torch
 
@@ -2267,6 +2572,8 @@ def main() -> int:
     fd_gate(device, large_vn, large_vn.diffuse, label="large scene (staged)")
     large_target = large_vn_extraction(device, large_vn)
     kernels += large_kernel_timing(device, launches, check_err, large_target)
+    batched_recovery(device)
+    cli_commands(device)
     for k in kernels:  # the later checks of B1-B6 (clustered tables) count too
         k["max_abs_err"] = max(float(k["max_abs_err"]), check_err.get(k["name"], 0.0))
     for k in kernels:

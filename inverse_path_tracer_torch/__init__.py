@@ -4,12 +4,13 @@ It holds the forward render and its material gradient: scene loading, the
 plain PyTorch ops, the hand-written CUDA kernels of the bounce loop, of its
 backward and of the inverse pass (ops/kernels), the render entry points
 (render_range is differentiable in the materials; loss_and_grad_range is
-the training path), single-device material recovery (models/recover.py),
-and the reference's inverse pipeline: transport-graph extraction
-(render/inverse.py), the GCN (models/gcn.py) and the dataset steps
-(data/pipeline.py).  Large scenes (assets.large_scene) run through the
-clustered sweep and the staged wavefront (render/forward.py).  float32 throughout: TF32 is switched off for matmuls
-and convolutions when the package is imported.
+the training path), single-scene and batched material recovery
+(models/recover.py), the reference's inverse pipeline: transport-graph
+extraction (render/inverse.py), the GCN (models/gcn.py) and the dataset
+steps (data/pipeline.py), and the command-line interface (cli.py).
+Large scenes (assets.large_scene) run through the clustered sweep and the
+staged wavefront (render/forward.py).  float32 throughout: TF32 is switched
+off for matmuls and convolutions when the package is imported.
 """
 
 import torch
@@ -18,7 +19,7 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
 from inverse_path_tracer_torch.assets import large_scene  # noqa: E402
-from inverse_path_tracer_torch.config import CameraConfig, RenderConfig  # noqa: E402
+from inverse_path_tracer_torch.config import CameraConfig, RenderConfig, TrainConfig  # noqa: E402
 from inverse_path_tracer_torch.convert import materials_from_numpy, scene_from_numpy  # noqa: E402
 from inverse_path_tracer_torch.data.pipeline import (  # noqa: E402
     generate_data,
@@ -26,7 +27,10 @@ from inverse_path_tracer_torch.data.pipeline import (  # noqa: E402
     render_with_materials,
 )
 from inverse_path_tracer_torch.models.gcn import GCN, build_dense_graph, train_gcn  # noqa: E402
-from inverse_path_tracer_torch.models.recover import recover_materials  # noqa: E402
+from inverse_path_tracer_torch.models.recover import (  # noqa: E402
+    recover_materials,
+    recover_materials_batched,
+)
 from inverse_path_tracer_torch.render.inverse import (  # noqa: E402
     TransportGrids,
     compress_grids,
@@ -59,6 +63,7 @@ __all__ = [
     "RenderConfig",
     "RenderStats",
     "SceneData",
+    "TrainConfig",
     "TransportGrids",
     "build_dense_graph",
     "build_scene",
@@ -73,6 +78,7 @@ __all__ = [
     "loss_and_grad_range",
     "materials_from_numpy",
     "recover_materials",
+    "recover_materials_batched",
     "render_image",
     "render_range",
     "render_samples",

@@ -1,5 +1,6 @@
 """Static render configuration (the fields of the JAX package's
-RenderConfig / CameraConfig that the forward and inverse paths read).
+RenderConfig / CameraConfig that the forward and inverse paths read) and
+the training schedule TrainConfig (the JAX package's, field for field).
 
 wavefront, stage_bounces, cluster_k, tri_order and bin_cells keep the JAX
 package's meanings (its config.py:110-194).  Its TPU measurement gates
@@ -98,3 +99,17 @@ class RenderConfig:
 
     def with_(self, **kw) -> "RenderConfig":
         return dataclasses.replace(self, **kw)
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """GCN / recovery training schedule (reference ipt.py:110-111)."""
+
+    lr: float = 1e-4
+    epochs: int = 100_000
+    log_every: int = 1000
+    hidden: int = 100  # reference ipt.py:33
+    p_min: float = 1e-3  # edge threshold, reference ipt.py:26
+    seed: int = 0
+    checkpoint_every: int = 0  # 0 = disabled
+    checkpoint_dir: str = "checkpoints"

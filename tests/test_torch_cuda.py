@@ -898,3 +898,36 @@ def test_persistent_init_tile(card, tmp_path, kind):
         else:
             close = torch.isclose(got, exp, rtol=RTOL, atol=ATOL).all(dim=0).float().mean()
             assert float(close) >= 0.97
+
+
+def test_batched_recovery_scene_chunk_on_the_card(card, scene0):
+    """recover_materials_batched through B1 and B2 gives the same bits for
+    every scene_chunk (models/recover.py batched_step)."""
+    from inverse_path_tracer_torch import recover_materials_batched, render_image
+
+    cfg = RenderConfig(width=32, height=32, spp=4, max_bounces=6)
+    targets = torch.stack([render_image(scene0.diffuse * f, scene0, 3, cfg, device=card)
+                           for f in (1.0, 0.5, 0.8)])
+    run = lambda chunk: recover_materials_batched(scene0, targets, cfg, steps=2, lr=0.1, key=4,
+                                                  scene_chunk=chunk, device=card)
+    render_tile.launches = grad_tile.launches = 0
+    whole, losses = run(0)
+    assert render_tile.launches == grad_tile.launches == 6  # 3 scenes x 2 steps, 1 launch each
+    assert whole.device.type == "cuda" and bool(torch.isfinite(whole).all())
+    for chunk in (1, 2):
+        mats, chunk_losses = run(chunk)
+        assert torch.equal(mats, whole) and chunk_losses == losses
+
+
+def test_cli_render_on_the_card(card, tmp_path):
+    """cli.main render without --cpu renders through B1 and writes the PNG."""
+    from inverse_path_tracer_torch import cli
+    from inverse_path_tracer_torch.utils.png import read_png
+
+    out = str(tmp_path / "0.png")
+    render_tile.launches = 0
+    cli.main(["render", SCENE0, out, "--width", "64", "--height", "48", "--spp", "4",
+              "--tile", "4096"])
+    assert render_tile.launches == 3  # 64 x 48 x 4 samples in launches of 4096
+    img = read_png(out)
+    assert img.shape == (48, 64, 3) and img.max() > 0

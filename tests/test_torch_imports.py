@@ -1,6 +1,7 @@
 """The port stands alone: no module of inverse_path_tracer_torch, not
-chip_smoke.py and no script of tools/ imports jax or anything of
-inverse_path_tracer_tpu."""
+chip_smoke.py and no script of tools/ imports jax, anything of
+inverse_path_tracer_tpu or PIL (the card's machine has neither JAX nor
+PIL)."""
 
 import ast
 import os
@@ -11,7 +12,7 @@ import pytest
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(REPO, "inverse_path_tracer_torch")
-FORBIDDEN = ("jax", "jaxlib", "inverse_path_tracer_tpu")
+FORBIDDEN = ("jax", "jaxlib", "inverse_path_tracer_tpu", "PIL")
 
 
 def port_files():
@@ -53,7 +54,8 @@ def test_importing_the_port_loads_no_jax():
             "inverse_path_tracer_torch.models.gcn, inverse_path_tracer_torch.data.pipeline, "
             "inverse_path_tracer_torch.utils.metrics, inverse_path_tracer_torch.assets, "
             "inverse_path_tracer_torch.ops.kernels.clusters, "
-            "inverse_path_tracer_torch.ops.kernels.staged_kernel; "
+            "inverse_path_tracer_torch.ops.kernels.staged_kernel, inverse_path_tracer_torch.cli, "
+            "inverse_path_tracer_torch.utils.plyviz, inverse_path_tracer_torch.utils.profiling; "
             "bad = [m for m in sys.modules if m.split('.')[0] in %r]; "
             "assert not bad, bad" % (FORBIDDEN,))
     env = dict(os.environ, PYTHONPATH=REPO)

@@ -1,7 +1,8 @@
 """The port's scene front end against the JAX package's, on the in-repo
 scene-0 fixture.  Tolerance: rtol 1e-6 on every SceneData field (both
 builders run the same float64/float32 host arithmetic, so in practice the
-arrays are equal)."""
+arrays are equal).  The scene-text writers give the JAX package's strings
+and files, character for character."""
 
 import dataclasses
 import os
@@ -10,9 +11,11 @@ import numpy as np
 import pytest
 
 import inverse_path_tracer_tpu.scene.build as jbuild
+import inverse_path_tracer_tpu.scene.dsl as jdsl
 from inverse_path_tracer_tpu.scene.dsl import ObjectParams as JObjectParams
 from inverse_path_tracer_tpu.scene.dsl import object_from_string as j_object_from_string
 
+import inverse_path_tracer_torch.scene.dsl as tdsl
 from inverse_path_tracer_torch import ASSET_ROOT, SceneData, build_scene, load_scene
 from inverse_path_tracer_torch.assets.make_fixture import sphere_obj_text
 from inverse_path_tracer_torch.convert import materials_from_numpy, scene_from_numpy
@@ -104,3 +107,41 @@ def test_load_params_and_scene_from_numpy():
 def test_object_without_mtl_raises():
     with pytest.raises(ValueError, match="OBJ and MTL"):
         object_from_string("POS 0 0 0\nOBJ ./shapes/cube.obj\n")
+
+
+@pytest.mark.parametrize("mtl_file", [None, "./shapes/other.mtl"])
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_dsl_writers_match_jax(seed, mtl_file):
+    want = jdsl.standard_scene_string(np.random.default_rng(seed), mtl_file=mtl_file)
+    got = tdsl.standard_scene_string(np.random.default_rng(seed), mtl_file=mtl_file)
+    assert got == want
+    assert tdsl.rand_mtl(np.random.default_rng(seed)) == jdsl.rand_mtl(np.random.default_rng(seed))
+    if mtl_file is None:
+        assert got.endswith(tdsl.rand_mtl(np.random.default_rng(seed)) + "\n")
+
+
+@pytest.mark.parametrize("kw", [
+    dict(shp=tdsl.SPHERE, ori=(0.1, 0.2, 0.3)),
+    dict(shp=tdsl.CUBE, pos=(1, 2, 3), scl=(0.5, 0.5, 0.5), mtl_file="*Kd 0.1 0.2 0.3*"),
+    dict(shp=tdsl.CORNELL, pos=(0, 0, 4)),
+    dict(shp=tdsl.OTHER, obj_file="a.obj", mtl_file="a.mtl"),
+    dict(obj_file="b.obj", mtl_file="b.mtl", pos=(0.25, 0, -1)),
+])
+def test_object_to_string_matches_jax(kw):
+    got = tdsl.object_to_string(rng=np.random.default_rng(7), **kw)
+    assert got == jdsl.object_to_string(rng=np.random.default_rng(7), **kw)
+    assert dataclasses.asdict(object_from_string(got)) == j_object_from_string(got).__dict__
+
+
+def test_object_to_string_without_files_raises():
+    with pytest.raises(ValueError, match="OBJ and an MTL"):
+        tdsl.object_to_string(shp=tdsl.OTHER, obj_file="a.obj")
+
+
+def test_generate_scene_files_are_the_jax_files(tmp_path):
+    want = jdsl.generate_scene_files(3, out_dir=str(tmp_path / "j"), seed=11)
+    got = tdsl.generate_scene_files(3, out_dir=str(tmp_path / "t"), seed=11)
+    assert [os.path.basename(p) for p in got] == [os.path.basename(p) for p in want]
+    for a, b in zip(got, want):
+        with open(a, "rb") as fa, open(b, "rb") as fb:
+            assert fa.read() == fb.read()
