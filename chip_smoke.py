@@ -157,11 +157,30 @@ Phases, each failing loudly (any failure exits nonzero):
      then through cli.main, without --cpu, generate, render, extract-graph
      (B5), train-gcn, evaluate (this CLI's checkpoint and gcn0_params.npz),
      graph-viz (counts against artifacts/graphviz), recover, recover-batch
-     and make-dataset, each timed with the kernel launches it made.
+     and make-dataset, each timed with the kernel launches it made;
+ 24. the native bridge and the BVH (ops/bvh.py, utils/native.py) on the
+     large scene: the library builds with g++ from native/src; native and
+     Python OBJ parses and BVH builds equal (host ms of each); intersect_bvh
+     on 2^20 rays on the card (the large render's first camera launch, and
+     random rays from inside the box) with the dense plain sweep's hits (t
+     rtol 1e-5), timed beside B10 alone (intersect_tile, clustered) and the
+     dense plain sweep; the render at 64x64/4 spp/8 bounces of the scene
+     with its BVH attached, bit-equal to the scene without it and through
+     the kernels (counted: the renders do not read the BVH);
+ 25. sharded rendering and recovery (parallel/shard.py) on the main path at
+     512x512/64 spp/16 bounces: a process group of one rank (NCCL) in this
+     process, render_samples_sharded bit-equal to render_samples and a
+     sharded recovery step against recover_step (loss rtol 1e-6, gradient
+     rtol 1e-5 / atol 1e-8), each timed, B1 and B2 counted; two processes
+     on the one card (gloo; this script with --shard-worker), started at
+     once: the gathered radiance and counts bit-equal to one rank's, theta
+     bit-identical on both ranks after 3 steps and within the bars of one
+     rank's, wall times; then two processes of cli recover --shard
+     --coordinator at 64x64/8 spp, their --out bit-identical.
 
 The kernels' JSON object, then the card's name and power limit, then, last,
 {"ok": true, "device": {...}}.  Needs CUDA; exits nonzero without it.
-About 3 minutes on the H100, the build included.
+About 4 minutes on the H100, the build included.
 """
 
 from __future__ import annotations
@@ -2520,6 +2539,431 @@ def cli_commands(device):
     return times
 
 
+# Phase 24: the render of a scene with its BVH attached (the parity checks' size).
+BVH_CHECK = dict(width=64, height=64, spp=4, max_bounces=8)
+# Phase 25: the two-process CLI recovery (the JAX test_multihost recipe at
+# the card's parity size).
+SHARD_CLI = dict(width=64, height=64, spp=8, max_bounces=16)
+# Timeout of every process phase 25 starts, in seconds.
+PROC_TIMEOUT = 300
+
+
+def median_ms(fn, runs: int) -> list:
+    """CUDA-event times (ms) of `runs` calls of fn after one warm-up."""
+    fn()
+    return [cuda_ms(fn, 1) for _ in range(runs)]
+
+
+def host_ms(fn, runs: int) -> list:
+    """Host times (ms) of `runs` calls of fn (host-only work)."""
+    out = []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        fn()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def fmt(ts) -> str:
+    ts = sorted(ts)
+    return f"median {ts[len(ts) // 2]:.3f} ms (runs {', '.join(f'{t:.3f}' for t in ts)})"
+
+
+def random_box_rays(n, seed, device):
+    """Rays from points inside the large scene's box, directions uniform on
+    the sphere (the JAX package's tests/test_bvh.py _random_rays at origin
+    (0, 0, 4), spread 1.8), (n, 3) each."""
+    import numpy as np
+    import torch
+
+    g = np.random.default_rng(seed)
+    p = g.uniform(-1.8, 1.8, size=(n, 3)) + np.array([0.0, 0.0, 4.0])
+    d = g.normal(size=(n, 3))
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    return (torch.from_numpy(p.astype(np.float32)).to(device),
+            torch.from_numpy(d.astype(np.float32)).to(device))
+
+
+def kernel_counters():
+    """Every wrapper's launch counter, by kernel name of the kernels line."""
+    from inverse_path_tracer_torch.ops.kernels.inverse_kernel import (
+        inverse_tile,
+        inverse_tile_global,
+        inverse_tile_rec,
+    )
+    from inverse_path_tracer_torch.ops.kernels.render_kernel import (
+        grad_tile,
+        intersect_tile,
+        render_tile,
+        render_tile_rec,
+        reverse_tile,
+    )
+    from inverse_path_tracer_torch.ops.kernels.staged_kernel import (
+        init_tile,
+        stage_reverse_tile,
+        stage_tile,
+    )
+
+    return {"render_fwd": render_tile, "render_fwd_rec": render_tile_rec,
+            "render_bwd_grad": grad_tile, "render_bwd_reverse": reverse_tile,
+            "inverse_grid": inverse_tile, "inverse_rec": inverse_tile_rec,
+            "inverse_global": inverse_tile_global, "init_tile": init_tile,
+            "stage_tile": stage_tile, "stage_reverse_tile": stage_reverse_tile,
+            "cluster_sweep": intersect_tile}
+
+
+def bvh_phase(device):
+    """Phase 24: the native bridge and the BVH on the large scene.  The
+    native library builds (its g++ time printed); native and Python OBJ
+    parses of the in-repo assets and the generated sphere are equal, and
+    native and Python BVH builds of the large scene are equal, both timed
+    (host ms).  intersect_bvh on 2^20 rays on the card (the large render's
+    first camera launch, and random rays from inside the box): hit and tri
+    equal to the dense plain sweep's, t within rtol 1e-5 (bit-equal
+    printed), timed with CUDA events beside B10 alone (intersect_tile,
+    clustered tables) and the dense plain sweep.  Then the render at
+    64x64/4 spp/8 bounces of the scene with its BVH attached: bit-equal to
+    the scene without it, through the kernels (counted)."""
+    import glob
+
+    import numpy as np
+    import torch
+
+    from inverse_path_tracer_torch import ASSET_ROOT, RenderConfig, large_scene, render_samples
+    from inverse_path_tracer_torch.assets import SPHERE_RINGS, SPHERE_SEGMENTS
+    from inverse_path_tracer_torch.assets.make_fixture import sphere_obj_text
+    from inverse_path_tracer_torch.ops.bvh import BVHData, build_bvh, intersect_bvh
+    from inverse_path_tracer_torch.ops.camera import camera_rays
+    from inverse_path_tracer_torch.ops.intersect import intersect_fast
+    from inverse_path_tracer_torch.ops.kernels.clusters import kernel_perm
+    from inverse_path_tracer_torch.ops.kernels.render_kernel import intersect_tile, pack_tables
+    from inverse_path_tracer_torch.scene import obj_loader
+    from inverse_path_tracer_torch.utils import native
+
+    t_phase = time.perf_counter()
+    if not native.native_available():
+        raise AssertionError(f"the native library did not build: {native.build_error()}")
+    built = (f"{native.build_seconds:.3f} s of g++" if native.build_seconds is not None
+             else "already built")
+    log(f"native library: {os.path.relpath(native.library_path(), REPO)} ({built})")
+    os.makedirs(OUT_DIR, exist_ok=True)
+    sphere = os.path.join(OUT_DIR, "sphere.obj")
+    with open(sphere, "w") as f:
+        f.write(sphere_obj_text(SPHERE_RINGS, SPHERE_SEGMENTS, normals=True))
+    objs = sorted(glob.glob(os.path.join(ASSET_ROOT, "**", "*.obj"), recursive=True)) + [sphere]
+    for path in objs:
+        py, nat = obj_loader.load_obj(path, use_native=False), native.load_obj_native(path)
+        same = all(np.array_equal(getattr(py, k), getattr(nat, k))
+                   for k in ("vertices", "normals", "faces", "face_normals_idx"))
+        same = same and py.material_names == nat.material_names and py.mtllibs == nat.mtllibs
+        log(f"obj {os.path.basename(path)}: {py.faces.shape[0]} faces, native = python {same}")
+        if not same:
+            raise AssertionError(f"native and Python OBJ parses of {path} differ")
+    parse_py = host_ms(lambda: obj_loader.load_obj(sphere, use_native=False), 3)
+    parse_nat = host_ms(lambda: native.load_obj_native(sphere), 5)
+    log(f"obj parse of the 1280-triangle sphere: python {fmt(parse_py)}, native {fmt(parse_nat)}")
+
+    scene = large_scene()
+    bvh_py = build_bvh(scene, use_native=False)
+    bvh_nat = build_bvh(scene, use_native=True)
+    same = all(torch.equal(getattr(bvh_py, k), getattr(bvh_nat, k)) for k in BVHData._fields)
+    t_py = host_ms(lambda: build_bvh(scene, use_native=False), 3)
+    t_nat = host_ms(lambda: build_bvh(scene, use_native=True), 5)
+    log(f"BVH of the large scene ({scene.n_tri} triangles, {bvh_py.n_nodes} nodes): native = "
+        f"python {same}; python {fmt(t_py)}, native {fmt(t_nat)} (host)")
+    if not same:
+        raise AssertionError("native and Python BVH builds differ")
+
+    cfg = RenderConfig(**MAIN)
+    scene_d = scene.to(device)
+    bvh = bvh_nat.to(device)
+    n = 1 << 20
+    tabs = pack_tables(scene_d, scene_d.diffuse, cfg)
+    perm = kernel_perm(scene_d, cfg)
+    idx = torch.arange(n, device=device)
+    rays = {"camera": camera_rays(scene_d, cfg, 0, idx), "box": random_box_rays(n, 5, device)}
+    result = {}
+    for name, (p, d) in rays.items():
+        got = intersect_bvh(scene_d, bvh, p, d)
+        want = intersect_fast(scene_d, p, d)
+        hits = want.hit
+        ok = (torch.equal(got.hit, want.hit) and torch.equal(got.tri[hits], want.tri[hits])
+              and torch.allclose(got.t[hits], want.t[hits], rtol=1e-5, atol=0.0))
+        bit = torch.equal(got.t, want.t) and torch.equal(got.tri, want.tri)
+        t_k, i_k = intersect_tile(scene_d, cfg, p.T.contiguous(), d.T.contiguous(), tables=tabs)
+        tri_k = perm[i_k.long()] if perm is not None else i_k.long()
+        b10_same = float(((tri_k == got.tri) & hits).sum()) / max(int(hits.sum()), 1)
+        t_bvh = median_ms(lambda: intersect_bvh(scene_d, bvh, p, d), 3)
+        pt, dt = p.T.contiguous(), d.T.contiguous()
+        t_b10 = median_ms(lambda: intersect_tile(scene_d, cfg, pt, dt, tables=tabs), 5)
+        t_dense = median_ms(lambda: intersect_fast(scene_d, p, d), 3)
+        ratio = sorted(t_bvh)[1] / sorted(t_b10)[2]
+        log(f"intersect_bvh, {name} rays (2^20, {int(hits.sum())} hits): hit/tri equal to the "
+            f"dense plain sweep and t rtol 1e-5 {ok} (bit-equal {bit}); B10's triangle the "
+            f"BVH's on {100 * b10_same:.4f}% of hits")
+        log(f"  intersect_bvh {fmt(t_bvh)}; B10 intersect_tile (clustered, k="
+            f"{tabs.cluster_k}) {fmt(t_b10)}; dense plain sweep {fmt(t_dense)}; "
+            f"bvh / B10 {ratio:.1f}x ({time.perf_counter() - t_phase:.1f} s into phase 24)")
+        if not ok:
+            raise AssertionError(f"intersect_bvh differs from the dense sweep on {name} rays")
+        result[name] = (t_bvh, t_b10, t_dense)
+
+    # The renders do not read the BVH: a scene that carries one renders
+    # through the kernels, bit-equal to the scene without it.
+    rcfg = RenderConfig(**BVH_CHECK)
+    scene_b = scene_d.replace(bvh=bvh)
+    counters = kernel_counters()
+    for c in counters.values():
+        c.launches = 0
+    t0 = time.perf_counter()
+    got, st = render_samples(scene_b.diffuse, scene_b, 3, rcfg, device=device)
+    torch.cuda.synchronize()
+    t_render = time.perf_counter() - t0
+    launched = {k: c.launches for k, c in counters.items() if c.launches}
+    want, st_w = render_samples(scene_d.diffuse, scene_d, 3, rcfg, device=device)
+    same = torch.equal(got, want) and int(st.segments) == int(st_w.segments)
+    log(f"render {shape(rcfg)} of the scene with its BVH attached against the scene without: "
+        f"bit-equal {same}, segments {int(st.segments)} = {int(st_w.segments)}; kernel launches "
+        f"{launched or 'none'}; {t_render:.2f} s (wall)")
+    if not same:
+        raise AssertionError("the scene with a BVH renders differently")
+    if not launched:
+        raise AssertionError("the render of a scene with a BVH launched no kernel")
+    log(f"phase 24: {time.perf_counter() - t_phase:.1f} s")
+    return result
+
+
+def _digest(t) -> str:
+    import hashlib
+
+    return hashlib.sha256(t.detach().cpu().contiguous().numpy().tobytes()).hexdigest()
+
+
+def shard_steps(mesh, device, n_steps: int):
+    """n_steps sharded Adam steps (lr 0.1) from theta = 0 on scene 0 at the
+    main configuration against a render at a scaled Kd: the losses, the
+    gradient and theta after each step, and each step's wall time (ms,
+    synchronized)."""
+    import torch
+
+    from inverse_path_tracer_torch import RenderConfig, render_image
+    from inverse_path_tracer_torch.models.recover import make_optimizer
+    from inverse_path_tracer_torch.parallel.shard import make_recover_step
+
+    cfg = RenderConfig(**MAIN)
+    scene, mats = fixture(device)
+    target = render_image(mats * 0.6, scene, 50, cfg, device=device)
+    theta = torch.zeros_like(mats, requires_grad=True)
+    step = make_recover_step(scene, cfg, mesh, make_optimizer(theta, 0.1))
+    losses, grads, thetas, times = [], [], [], []
+    for i in range(n_steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(step(theta, 60 + i, target))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        grads.append(theta.grad.detach().cpu().clone())
+        thetas.append(theta.detach().cpu().clone())
+    return losses, grads, thetas, times
+
+
+def shard_worker(args: dict) -> None:
+    """One rank of phase 25's world 2 (python3 chip_smoke.py --shard-worker
+    JSON): both ranks on the one card, gloo.  Saves the gathered radiance's
+    digest, the counts, the steps' losses, gradients and theta, and the
+    wall times to args["out"]."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, REPO)
+    from inverse_path_tracer_torch import RenderConfig
+    from inverse_path_tracer_torch.parallel.multihost import init_distributed, shutdown_distributed
+    from inverse_path_tracer_torch.parallel.shard import make_mesh, render_samples_sharded
+
+    info = init_distributed(args["coordinator"], 2, args["rank"])
+    mesh = make_mesh()
+    log(f"worker rank {mesh.rank}: {info}, device {mesh.device}")
+    cfg = RenderConfig(**MAIN)
+    scene, mats = fixture(mesh.device)
+    out = {}
+    vals, st = render_samples_sharded(mats, scene, 0, cfg, mesh)
+    out["digest"] = np.array(_digest(vals))
+    out["counts"] = np.array([int(st.segments), int(st.shadow_rays)])
+    render_ms = []
+    for k in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        render_samples_sharded(mats, scene, k + 1, cfg, mesh)
+        torch.cuda.synchronize()
+        render_ms.append((time.perf_counter() - t0) * 1e3)
+    losses, grads, thetas, step_ms = shard_steps(mesh, mesh.device, 3)
+    np.savez(args["out"], render_ms=np.array(render_ms), step_ms=np.array(step_ms),
+             losses=np.array(losses), grads=torch.stack(grads).numpy(),
+             thetas=torch.stack(thetas).numpy(), **out)
+    shutdown_distributed()
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def run_together(cmds, label):
+    """Start every command at once, wait for all (PROC_TIMEOUT each), kill
+    what is left on any failure; returns their outputs and the wall time."""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(c, cwd=REPO, env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True) for c in cmds]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=PROC_TIMEOUT)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    dt = time.perf_counter() - t0
+    for i, (p, out) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            raise AssertionError(f"{label} process {i} failed (rc {p.returncode}):\n{out[-4000:]}")
+    return outs, dt
+
+
+def sharded_phase(device):
+    """Phase 25: sharded rendering and recovery on the main path (scene 0 at
+    512x512/64 spp/16 bounces, fused RNG).  World 1, NCCL, in this process:
+    render_samples_sharded bit-equal to render_samples with equal counts,
+    both timed; one sharded recovery step against recover_step on the same
+    theta (loss rtol 1e-6, gradient rtol 1e-5 / atol 1e-8), both timed,
+    with B1's and B2's launches; 3 sharded steps for world 2 to match.
+    World 2, two processes on the one card (gloo), started at once: the
+    gathered radiance and counts equal world 1's bit for bit, theta
+    bit-identical on both ranks after 3 steps, the losses rtol 1e-6 and the
+    gradients rtol 1e-5 / atol 1e-8 of world 1's, theta within rtol 1e-4 /
+    atol 1e-6 of world 1's; wall time per call.  Then the CLI as the JAX
+    package's test_multihost: two processes of cli recover --shard
+    --coordinator at 64x64/8 spp, both in a group of 2, their --out
+    bit-identical, of shape (30, 3)."""
+    import numpy as np
+    import torch
+
+    from inverse_path_tracer_torch import RenderConfig, render_image, render_samples
+    from inverse_path_tracer_torch.models.recover import make_optimizer, recover_step
+    from inverse_path_tracer_torch.ops.kernels.render_kernel import grad_tile, render_tile
+    from inverse_path_tracer_torch.parallel.multihost import init_distributed, shutdown_distributed
+    from inverse_path_tracer_torch.parallel.shard import make_mesh, make_recover_step, \
+        render_samples_sharded
+    from inverse_path_tracer_torch.ops.tonemap import tonemap_to_uint8
+    from inverse_path_tracer_torch.utils.png import write_png
+
+    t_phase = time.perf_counter()
+    info = init_distributed(f"127.0.0.1:{free_port()}", 1, 0)
+    mesh = make_mesh()
+    log(f"world 1: {info}, mesh rank {mesh.rank} of {mesh.size} on {mesh.device}")
+    if info["backend"] != "nccl":
+        raise AssertionError(f"world 1 on a card chose {info['backend']}, not nccl")
+    cfg = RenderConfig(**MAIN)
+    scene, mats = fixture(device)
+    vals, st = render_samples_sharded(mats, scene, 0, cfg, mesh)
+    ref, st_r = render_samples(mats, scene, 0, cfg, device=device)
+    same = torch.equal(vals, ref) and [int(st.segments), int(st.shadow_rays)] == \
+        [int(st_r.segments), int(st_r.shadow_rays)]
+    digest1, counts1 = _digest(vals), [int(st.segments), int(st.shadow_rays)]
+    del vals, ref
+    t_sh = median_ms(lambda: render_samples_sharded(mats, scene, 1, cfg, mesh), 3)
+    t_un = median_ms(lambda: render_samples(mats, scene, 1, cfg, device=device), 3)
+    log(f"world 1 render {shape(cfg)}: sharded = render_samples bit for bit, counts equal "
+        f"{same}; sharded {fmt(t_sh)}, render_samples {fmt(t_un)}")
+    if not same:
+        raise AssertionError("the world-1 sharded render differs from render_samples")
+
+    target = render_image(mats * 0.6, scene, 50, cfg, device=device)
+    theta_a = torch.full_like(mats, 0.3).requires_grad_()
+    theta_b = theta_a.detach().clone().requires_grad_()
+    step = make_recover_step(scene, cfg, mesh, make_optimizer(theta_a, 0.1))
+    opt_b = make_optimizer(theta_b, 0.1)
+    render_tile.launches = grad_tile.launches = 0
+    loss_a = step(theta_a, 61, target)
+    torch.cuda.synchronize()
+    launches = {"render_fwd": render_tile.launches, "render_bwd_grad": grad_tile.launches}
+    loss_b = recover_step(theta_b, opt_b, scene, 61, cfg, target, device=device)
+    ok = (math.isclose(loss_a, loss_b, rel_tol=1e-6)
+          and torch.allclose(theta_a.grad, theta_b.grad, rtol=1e-5, atol=1e-8))
+    log(f"world 1 recovery step: loss {loss_a:.8f} against recover_step's {loss_b:.8f}, "
+        f"gradient max |d| {float((theta_a.grad - theta_b.grad).abs().max()):.3e} -> "
+        f"{'OK' if ok else 'FAIL'}; launches {launches}")
+    if not ok or min(launches.values()) == 0:
+        raise AssertionError("the world-1 sharded step differs from recover_step or launched "
+                             f"no B1/B2 ({launches})")
+    t_step = median_ms(lambda: step(theta_a, 62, target), 3)
+    t_ref = median_ms(lambda: recover_step(theta_b, opt_b, scene, 62, cfg, target,
+                                           device=device), 3)
+    log(f"world 1 recovery step {shape(cfg)}: sharded {fmt(t_step)}, recover_step {fmt(t_ref)}")
+    losses1, grads1, thetas1, step_ms1 = shard_steps(mesh, device, 3)
+    del target
+    shutdown_distributed()
+    torch.cuda.empty_cache()
+
+    coord = f"127.0.0.1:{free_port()}"
+    outs = [os.path.join(OUT_DIR, f"shard_rank{r}.npz") for r in range(2)]
+    cmds = [[sys.executable, os.path.join(REPO, "chip_smoke.py"), "--shard-worker",
+             json.dumps({"coordinator": coord, "rank": r, "out": outs[r]})] for r in range(2)]
+    logs, dt = run_together(cmds, "world-2 worker")
+    for text in logs:
+        for line in text.strip().splitlines():
+            if line.startswith("worker"):
+                log(f"  {line}")
+    ranks = [dict(np.load(o)) for o in outs]
+    same_vals = all(str(r["digest"]) == digest1 and r["counts"].tolist() == counts1
+                    for r in ranks)
+    same_theta = (np.array_equal(ranks[0]["thetas"], ranks[1]["thetas"])
+                  and np.array_equal(ranks[0]["losses"], ranks[1]["losses"]))
+    g1, th1 = torch.stack(grads1).numpy(), torch.stack(thetas1).numpy()
+    near = (np.allclose(ranks[0]["losses"], losses1, rtol=1e-6, atol=0)
+            and np.allclose(ranks[0]["grads"], g1, rtol=1e-5, atol=1e-8)
+            and np.allclose(ranks[0]["thetas"], th1, rtol=1e-4, atol=1e-6))
+    log(f"world 2 (gloo, one card, 2 processes, {dt:.1f} s wall): radiance and counts = world "
+        f"1's bit for bit {same_vals}; theta bit-identical on both ranks {same_theta}; losses, "
+        f"gradients and theta within the bars of world 1's {near} (max |d theta| "
+        f"{float(np.abs(ranks[0]['thetas'] - th1).max()):.3e})")
+    for r, rk in enumerate(ranks):
+        log(f"  rank {r}: render_samples_sharded {fmt(rk['render_ms'])} (wall), steps "
+            f"{', '.join(f'{t:.1f}' for t in rk['step_ms'])} ms (wall)")
+    log(f"  world 1 steps {', '.join(f'{t:.1f}' for t in step_ms1)} ms (wall)")
+    if not (same_vals and same_theta and near):
+        raise AssertionError("world 2 differs from world 1 or across its ranks")
+
+    work = os.path.join(OUT_DIR, "shard_cli")
+    os.makedirs(work, exist_ok=True)
+    ccfg = RenderConfig(**SHARD_CLI)
+    img = render_image(mats, scene, 9, ccfg, device=device)
+    write_png(os.path.join(work, "target.png"), tonemap_to_uint8(img).cpu().numpy())
+    coord = f"127.0.0.1:{free_port()}"
+    size = ["--width", str(ccfg.width), "--height", str(ccfg.height), "--spp", str(ccfg.spp),
+            "--bounces", str(ccfg.max_bounces)]
+    cmds = [[sys.executable, "-m", "inverse_path_tracer_torch.cli", "recover",
+             os.path.join(REPO, "scenes", "0.txt"), os.path.join(work, "target.png"), "--shard",
+             "--coordinator", coord, "--num-processes", "2", "--process-id", str(i),
+             "--steps", "5", "--lr", "0.1", "--out", os.path.join(work, f"out{i}.npy"), *size]
+            for i in range(2)]
+    logs, dt = run_together(cmds, "cli recover --shard")
+    for i, text in enumerate(logs):
+        log(f"  cli process {i}: " + " | ".join(text.strip().splitlines()))
+    kd = [np.load(os.path.join(work, f"out{i}.npy")) for i in range(2)]
+    ok = (all("'process_count': 2" in t for t in logs) and kd[0].shape == (30, 3)
+          and np.array_equal(kd[0], kd[1]) and bool(np.isfinite(kd[0]).all()))
+    log(f"cli recover --shard --coordinator, 2 processes on the card ({dt:.1f} s wall, "
+        f"{shape(ccfg)}, 5 steps): both in a group of 2, --out bit-identical (30, 3) {ok}")
+    if not ok:
+        raise AssertionError("the two-process CLI recovery failed its checks")
+    log(f"phase 25: {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     import torch
 
@@ -2574,6 +3018,8 @@ def main() -> int:
     kernels += large_kernel_timing(device, launches, check_err, large_target)
     batched_recovery(device)
     cli_commands(device)
+    bvh_phase(device)
+    sharded_phase(device)
     for k in kernels:  # the later checks of B1-B6 (clustered tables) count too
         k["max_abs_err"] = max(float(k["max_abs_err"]), check_err.get(k["name"], 0.0))
     for k in kernels:
@@ -2591,4 +3037,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 3 and sys.argv[1] == "--shard-worker":
+        shard_worker(json.loads(sys.argv[2]))
+        sys.exit(0)
     sys.exit(main())

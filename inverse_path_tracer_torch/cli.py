@@ -25,16 +25,23 @@ Arguments and output files are the JAX CLI's, except:
   * images are read and written by utils/png.py, with no imaging package;
   * evaluate takes a checkpoint of this CLI's train-gcn or one written by
     the JAX package (read by convert.read_jax_checkpoint);
-  * --seed is an integer key of ops/rng.py, not a jax.random key.
+  * --seed is an integer key of ops/rng.py, not a jax.random key;
+  * recover and recover-batch take --shard and --coordinator/
+    --num-processes/--process-id, as the JAX CLI does: every process runs
+    the same command with its own --process-id, init_distributed joins
+    them (parallel/multihost.py; the backend is printed with the
+    "multihost:" line: nccl with a card per process, gloo on the CPU or
+    when processes share a card) and --shard splits the rays over them.
+    As in the JAX CLI, every process writes its --out and its log.
 
 Left out:
 
   * --rng: external mode needs rays supplied by the caller;
   * --grad-mode, --pair-sweep and --stage-loop: TPU measurement gates with
     no counterpart here (config.py);
-  * --intersect: waits for the BVH;
-  * --shard and --coordinator/--num-processes/--process-id: wait for the
-    multi-device port.
+  * --intersect: the kernels sweep every triangle (clustered on large
+    scenes) with the same hits as a BVH traversal, and faster; the BVH is
+    an op of its own (ops/bvh.py).
 """
 
 from __future__ import annotations
@@ -99,9 +106,28 @@ def _add_render_args(p: argparse.ArgumentParser, width=512, height=512, spp=64):
     p.add_argument("--cpu", action="store_true", help="run on the CPU")
 
 
+def _add_dist_args(p: argparse.ArgumentParser):
+    """Multi-process flags: every process runs the same command with its own
+    --process-id; --shard splits the rays over the processes."""
+    p.add_argument("--shard", action="store_true",
+                   help="split the rays over the processes (one rank without --coordinator)")
+    p.add_argument("--coordinator", default=None,
+                   help="coordinator address host:port (starts the process group)")
+    p.add_argument("--num-processes", type=int, default=None)
+    p.add_argument("--process-id", type=int, default=None)
+
+
 def _device(args) -> torch.device:
     """The card, or the CPU with --cpu; raises when neither is possible."""
     return resolve_device("cpu" if args.cpu else None)
+
+
+def _mesh(args):
+    """The mesh of the process group's ranks under --shard (one rank without
+    --coordinator), else None."""
+    from inverse_path_tracer_torch.parallel.shard import make_mesh
+
+    return make_mesh(device="cpu" if args.cpu else None) if args.shard else None
 
 
 def cmd_render(args):
@@ -201,6 +227,7 @@ def cmd_recover(args):
     from inverse_path_tracer_torch.utils.metrics import MetricsLogger
 
     dev = _device(args)
+    mesh = _mesh(args)
     scene = load_scene(args.scene, asset_root=args.asset_root)
     cfg = _cfg_from_args(args)
     target = load_image01(args.image)
@@ -210,7 +237,7 @@ def cmd_recover(args):
             scene, target, cfg, steps=args.steps, lr=args.lr, key=args.seed,
             log_fn=_logger_every(logger, args.log_every),
             checkpoint_path=args.checkpoint, checkpoint_every=args.checkpoint_every,
-            resume=args.resume, device=dev)
+            resume=args.resume, device=dev, mesh=mesh)
     finally:
         logger.close()
     mats = mats.cpu()
@@ -250,6 +277,7 @@ def cmd_recover_batch(args):
     from inverse_path_tracer_torch.utils.metrics import MetricsLogger
 
     dev = _device(args)
+    mesh = _mesh(args)
     cfg = _cfg_from_args(args)
     scene_files = [os.path.join(args.scenes_dir, f"{i}.txt") for i in range(args.n)]
     scene = load_scene(scene_files[0], asset_root=args.asset_root)
@@ -261,7 +289,7 @@ def cmd_recover_batch(args):
     try:
         mats, _ = recover_materials_batched(
             scene, targets, cfg, steps=args.steps, lr=args.lr, key=args.seed,
-            log_fn=_logger_every(logger, args.log_every), device=dev)
+            log_fn=_logger_every(logger, args.log_every), device=dev, mesh=mesh)
     finally:
         logger.close()
     mats = mats.cpu().numpy()
@@ -402,6 +430,7 @@ def build_parser() -> argparse.ArgumentParser:
     pv.add_argument("--resume", action="store_true",
                     help="resume from --checkpoint if it exists")
     _add_render_args(pv, width=128, height=128, spp=16)
+    _add_dist_args(pv)
     pv.set_defaults(fn=cmd_recover)
 
     pmd = sub.add_parser("make-dataset", help="cache all scene graphs to one npz")
@@ -422,6 +451,7 @@ def build_parser() -> argparse.ArgumentParser:
     prb.add_argument("--log", default=None)
     prb.add_argument("--log-every", type=int, default=10)
     _add_render_args(prb, width=256, height=256, spp=64)
+    _add_dist_args(prb)
     prb.set_defaults(fn=cmd_recover_batch)
 
     pe2 = sub.add_parser("evaluate", help="render preds/ (true vs GCN-predicted) and zip")
@@ -437,8 +467,22 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None):
+    from inverse_path_tracer_torch.parallel.multihost import init_distributed, shutdown_distributed
+
     args = build_parser().parse_args(argv)
-    args.fn(args)
+    if not getattr(args, "coordinator", None):
+        args.fn(args)
+        return
+    # Under --coordinator the process joins the group first (its summary
+    # printed as the JAX CLI prints it) and leaves it at the end.
+    _device(args)
+    info = init_distributed(args.coordinator, args.num_processes, args.process_id,
+                            device="cpu" if args.cpu else None)
+    print(f"multihost: {info}", flush=True)
+    try:
+        args.fn(args)
+    finally:
+        shutdown_distributed()
 
 
 if __name__ == "__main__":

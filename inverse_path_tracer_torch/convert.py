@@ -2,9 +2,11 @@
 arrays.
 
 `scene_from_numpy` takes the leaves of the JAX package's SceneData as numpy
-arrays (for example ``{k: np.asarray(v) for k, v in scene._asdict().items()}``)
-and returns the port's SceneData, so that both packages render bit-identical
-scenes.  Fields the port does not have (the optional BVH) are ignored.
+arrays (for example ``{k: np.asarray(v) for k, v in scene._asdict().items()}``,
+or `jax_scene_fields(scene)`, which also carries an attached BVH) and returns
+the port's SceneData, so that both packages render bit-identical scenes.  The
+JAX `bvh` leaf, () or the six arrays of its BVHData, becomes the port's
+ops/bvh.py BVHData or None; a missing or empty one means no BVH.
 `adam_state_from_numpy` turns optax.adam's (mu, nu, count) into a
 torch.optim.Adam state entry, so both packages can start from one state.
 `gcn_params_from_numpy` maps the JAX GCN's parameter dict onto the port's
@@ -29,9 +31,23 @@ from inverse_path_tracer_torch.scene.build import SceneData
 _INDEX_FIELDS = ("emissive_idx", "specular_idx")
 
 
+def jax_scene_fields(scene) -> Dict[str, object]:
+    """The leaves of a JAX SceneData as numpy arrays, its `bvh` leaf as a
+    tuple of numpy arrays (a tuple of arrays of several shapes is no array)."""
+    return {k: tuple(np.asarray(a) for a in v) if k == "bvh" else np.asarray(v)
+            for k, v in scene._asdict().items()}
+
+
 def scene_from_numpy(fields: Mapping[str, np.ndarray], device="cpu") -> SceneData:
+    from inverse_path_tracer_torch.ops.bvh import BVHData
+
     out = {}
     for f in dataclasses.fields(SceneData):
+        if f.name == "bvh":
+            leaf = fields.get("bvh")
+            has_bvh = leaf is not None and len(leaf) > 0
+            out["bvh"] = BVHData.from_numpy(leaf).to(device) if has_bvh else None
+            continue
         a = np.asarray(fields[f.name])
         dtype = np.int64 if f.name in _INDEX_FIELDS else np.float32
         out[f.name] = torch.from_numpy(np.array(a, dtype=dtype)).to(device)

@@ -10,6 +10,10 @@ over the (nT, 3) parameter theta with Adam (optax's defaults: b1 0.9, b2
 B1 forward and B2 backward (render_range under autograd).
 recover_materials_batched steps S scenes that share geometry, each with its
 own (nT, 3) rows of a (S, nT, 3) theta, its own target and its own keys.
+With mesh= (parallel/shard.py make_mesh) both split each render's rays over
+the ranks of a process group and all-reduce the loss and the gradient
+before the step (the JAX package's make_batched_step(mesh=) and
+recover_materials(mesh=)).
 """
 
 from __future__ import annotations
@@ -24,6 +28,7 @@ from inverse_path_tracer_torch.config import RenderConfig
 from inverse_path_tracer_torch.convert import adam_state_from_numpy
 from inverse_path_tracer_torch.ops import rng
 from inverse_path_tracer_torch.ops.tonemap import tonemap_mean
+from inverse_path_tracer_torch.parallel.shard import batched_step_sharded, make_recover_step
 from inverse_path_tracer_torch.render.forward import render_samples, resolve_device
 from inverse_path_tracer_torch.scene.build import SceneData
 from inverse_path_tracer_torch.utils.checkpoint import load_checkpoint, save_checkpoint
@@ -131,9 +136,12 @@ def recover_materials(
     checkpoint_every: int = 0,
     resume: bool = False,
     device=None,
+    mesh=None,
 ) -> Tuple[torch.Tensor, List[float]]:
     """Recover per-triangle Kd for one scene against a target image (H, W,
-    3) in [0, 1).  theta starts at 0 (Kd = 0.5).
+    3) in [0, 1).  theta starts at 0 (Kd = 0.5).  With a mesh each step is
+    parallel/shard.py's sharded step on the mesh's device (`device` is not
+    read).
 
     Step i renders with the key rng.fold_in(key, i - i % resample_every): a
     fresh Monte-Carlo sample set every `resample_every` steps, as a pure
@@ -143,18 +151,23 @@ def recover_materials(
     uninterrupted run.
 
     Returns (sigmoid(theta) (nT, 3), the loss of every step run)."""
-    dev = resolve_device(device)
+    dev = resolve_device(device) if mesh is None else mesh.device
     scene = scene.to(dev)
     theta = torch.zeros_like(scene.diffuse, dtype=torch.float32, device=dev, requires_grad=True)
     opt = make_optimizer(theta, lr)
     start_step = 0
     if resume and checkpoint_path and os.path.exists(checkpoint_path):
         start_step = _load_state(checkpoint_path, theta, opt, dev)
+    if mesh is not None:
+        sharded = make_recover_step(scene, cfg, mesh, opt)
     r = max(resample_every, 1)
     losses: List[float] = []
     for i in range(start_step, steps):
         step_key = rng.fold_in(key, i - i % r)
-        losses.append(recover_step(theta, opt, scene, step_key, cfg, target01, device=dev))
+        if mesh is not None:
+            losses.append(sharded(theta, step_key, target01))
+        else:
+            losses.append(recover_step(theta, opt, scene, step_key, cfg, target01, device=dev))
         if log_fn is not None:
             log_fn(i, losses[-1])
         if checkpoint_path and checkpoint_every and (i + 1) % checkpoint_every == 0:
@@ -178,6 +191,7 @@ def recover_materials_batched(
     init_materials=None,
     scene_chunk: int = 0,
     device=None,
+    mesh=None,
 ) -> Tuple[torch.Tensor, List[float]]:
     """Recover per-triangle Kd for S scenes that share `scene`'s geometry and
     differ in their materials (the reference's 100 scenes differ only in
@@ -199,9 +213,16 @@ def recover_materials_batched(
     the sum when the saved step lies inside the averaging window, and the
     result is bit-identical to an uninterrupted run.
 
+    With a mesh (parallel/shard.py make_mesh) each scene's rays are split
+    over its ranks on the mesh's device (`device` is not read), and the
+    step is parallel/shard.py batched_step_sharded.  As in the JAX package,
+    whose sharded batched step takes one key per scene (it passes no
+    n_keys to make_recover_step_fn), n_keys is not read then: scene j of
+    step i renders under the one key above.
+
     Returns (materials (S, nT, 3), the mean loss over scenes of every step
     run)."""
-    dev = resolve_device(device)
+    dev = resolve_device(device) if mesh is None else mesh.device
     scene = scene.to(dev)
     targets01 = torch.as_tensor(targets01).to(device=dev, dtype=torch.float32)
     s = targets01.shape[0]
@@ -229,8 +250,12 @@ def recover_materials_batched(
     for i in range(start_step, steps):
         step_key = rng.fold_in(key, i)
         keys = [rng.fold_in(step_key, j) for j in range(s)]
-        step_losses = batched_step(theta, opt, scene, keys, cfg, targets01, n_keys, scene_chunk,
-                                   device=dev)
+        if mesh is not None:
+            step_losses = batched_step_sharded(theta, opt, scene, keys, cfg, targets01, mesh,
+                                               scene_chunk)
+        else:
+            step_losses = batched_step(theta, opt, scene, keys, cfg, targets01, n_keys,
+                                       scene_chunk, device=dev)
         losses.append(float(step_losses.mean()))
         if average_last and i >= steps - average_last:
             m = torch.sigmoid(theta.detach())

@@ -186,9 +186,11 @@ class KernelView(NamedTuple):
 def permute_scene(scene: SceneData, perm: torch.Tensor) -> SceneData:
     """`scene` with its triangles in the order `perm` (internal -> global);
     emitter and specular indices become internal, emitters keep their
-    order (the light-pick CDF is unchanged)."""
+    order (the light-pick CDF is unchanged).  The BVH, which indexes the
+    global order, is dropped."""
     inv = torch.argsort(perm)
     fields = {f.name: getattr(scene, f.name) for f in dataclasses.fields(scene)}
+    fields["bvh"] = None
     for name in _TRI_FIELDS:
         fields[name] = fields[name][perm]
     fields["emissive_idx"] = inv[scene.emissive_idx]

@@ -20,7 +20,7 @@ from __future__ import annotations
 import dataclasses
 import math
 import os
-from typing import List, Optional, Sequence
+from typing import TYPE_CHECKING, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -28,6 +28,9 @@ import torch
 from inverse_path_tracer_torch.config import CameraConfig
 from inverse_path_tracer_torch.scene import obj_loader
 from inverse_path_tracer_torch.scene.dsl import ObjectParams, load_params
+
+if TYPE_CHECKING:
+    from inverse_path_tracer_torch.ops.bvh import BVHData
 
 ASSET_ROOT = os.path.join(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "assets"
@@ -62,6 +65,10 @@ class SceneData:
     # (4, 4*nT) packed plane equations: column 4t+j is plane j of triangle
     # t, [n, -c.n] for j=0 and [out_{j-1}, d_{j-1}] for the edge planes.
     plane_mat: torch.Tensor
+    # The optional BVH over the triangles in global order (ops/bvh.py
+    # attach_bvh, load_scene(with_bvh=True)), for ops/bvh.py intersect_bvh.
+    # The renders do not read it: the kernels sweep every triangle.
+    bvh: Optional["BVHData"] = None
 
     @property
     def n_tri(self) -> int:
@@ -80,9 +87,14 @@ class SceneData:
         return self.vertices.device
 
     def to(self, device) -> "SceneData":
-        return SceneData(
-            **{f.name: getattr(self, f.name).to(device) for f in dataclasses.fields(self)}
-        )
+        moved = {}
+        for f in dataclasses.fields(self):
+            v = getattr(self, f.name)
+            moved[f.name] = None if v is None else v.to(device)
+        return SceneData(**moved)
+
+    def replace(self, **changes) -> "SceneData":
+        return dataclasses.replace(self, **changes)
 
 
 def _axis_angle_matrix(ori: Sequence[float]) -> np.ndarray:
@@ -277,9 +289,16 @@ def load_scene(
     scenefile: str,
     camera: CameraConfig = CameraConfig(),
     asset_root: Optional[str] = None,
+    with_bvh: bool = False,
 ) -> SceneData:
     """Load a scene DSL file.  asset_root defaults to the parent of the scene
-    file's directory (scene files live in `scenes/`)."""
+    file's directory (scene files live in `scenes/`); with_bvh attaches the
+    scene's BVH (ops/bvh.py attach_bvh)."""
     if asset_root is None:
         asset_root = os.path.dirname(os.path.dirname(os.path.abspath(scenefile)))
-    return build_scene(load_params(scenefile), camera=camera, asset_root=asset_root)
+    scene = build_scene(load_params(scenefile), camera=camera, asset_root=asset_root)
+    if with_bvh:
+        from inverse_path_tracer_torch.ops.bvh import attach_bvh
+
+        scene = attach_bvh(scene)
+    return scene

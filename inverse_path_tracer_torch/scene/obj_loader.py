@@ -106,7 +106,16 @@ class ObjMesh:
     mtllibs: List[str]
 
 
-def load_obj(path: str) -> ObjMesh:
+def load_obj(path: str, use_native: bool = False) -> ObjMesh:
+    """Parse an OBJ file.  use_native=True asks for the C++ parser
+    (utils/native.py, held to identical results by the tests), which is
+    taken when it is available; the Python parser otherwise."""
+    if use_native:
+        from inverse_path_tracer_torch.utils import native
+
+        mesh = native.load_obj_native(path)
+        if mesh is not None:
+            return mesh
     with open(path, "r") as f:
         lines = f.read().splitlines()
 

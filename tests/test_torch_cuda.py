@@ -931,3 +931,56 @@ def test_cli_render_on_the_card(card, tmp_path):
     assert render_tile.launches == 3  # 64 x 48 x 4 samples in launches of 4096
     img = read_png(out)
     assert img.shape == (48, 64, 3) and img.max() > 0
+
+
+def test_intersect_bvh_on_the_card(card):
+    """ops/bvh.py intersect_bvh on CUDA tensors: the dense plain sweep's
+    hits on the large scene (rays from inside the box and from the camera),
+    t bit-equal (the same triangle test), and the CPU traversal's."""
+    from inverse_path_tracer_torch import large_scene
+    from inverse_path_tracer_torch.ops.bvh import build_bvh, intersect_bvh
+    from inverse_path_tracer_torch.ops.intersect import intersect_fast
+
+    scene = large_scene(card)
+    bvh = build_bvh(scene)
+    g = torch.Generator(device="cpu").manual_seed(3)
+    n = 1 << 15
+    p_box = (torch.rand((n, 3), generator=g) * 3.6 - 1.8 + torch.tensor([0.0, 0.0, 4.0])).to(card)
+    d_box = torch.nn.functional.normalize(torch.randn((n, 3), generator=g), dim=1).to(card)
+    cfg = RenderConfig(width=128, height=64, spp=4)
+    p_cam, d_cam = camera_rays(scene, cfg, 2, torch.arange(n, device=card))
+    for p, d in ((p_box, d_box), (p_cam, d_cam)):
+        got = intersect_bvh(scene, bvh, p, d)
+        want = intersect_fast(scene, p, d)
+        assert got.t.device.type == "cuda" and int(want.hit.sum()) > n // 2
+        assert torch.equal(got.hit, want.hit) and torch.equal(got.tri, want.tri)
+        assert torch.equal(got.t, want.t)
+        cpu = intersect_bvh(scene.to("cpu"), bvh.to("cpu"), p.cpu(), d.cpu())
+        assert torch.equal(cpu.tri, got.tri.cpu()) and torch.equal(cpu.t, got.t.cpu())
+
+
+def test_world1_nccl_sharded_render(card):
+    """A process group of one rank on the card chooses NCCL, and
+    render_samples_sharded there equals render_samples bit for bit."""
+    import socket
+
+    from inverse_path_tracer_torch.parallel.multihost import init_distributed, shutdown_distributed
+    from inverse_path_tracer_torch.parallel.shard import make_mesh, render_samples_sharded
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    info = init_distributed(f"127.0.0.1:{port}", 1, 0)
+    try:
+        assert info["backend"] == "nccl" and info["process_count"] == 1
+        mesh = make_mesh()
+        assert (mesh.size, mesh.device.type, mesh.backend) == (1, "cuda", "nccl")
+        scene = load_scene(SCENE0, asset_root=ASSET_ROOT).to(mesh.device)
+        cfg = RenderConfig(width=64, height=64, spp=4, max_bounces=8)
+        got, st = render_samples_sharded(scene.diffuse, scene, 2, cfg, mesh)
+        want, st_w = render_samples(scene.diffuse, scene, 2, cfg, device=mesh.device)
+        assert torch.equal(got, want)
+        assert int(st.segments) == int(st_w.segments)
+        assert int(st.shadow_rays) == int(st_w.shadow_rays)
+    finally:
+        shutdown_distributed()

@@ -27,6 +27,12 @@ def test_tools_are_checked():
     assert os.path.join(REPO, "tools", "time_extract.py") in port_files()
 
 
+def test_new_modules_are_checked():
+    files = port_files()
+    for rel in ("ops/bvh.py", "utils/native.py", "parallel/shard.py", "parallel/multihost.py"):
+        assert os.path.join(PORT, rel) in files, rel
+
+
 def imported_modules(path):
     with open(path) as f:
         tree = ast.parse(f.read(), filename=path)
@@ -55,7 +61,9 @@ def test_importing_the_port_loads_no_jax():
             "inverse_path_tracer_torch.utils.metrics, inverse_path_tracer_torch.assets, "
             "inverse_path_tracer_torch.ops.kernels.clusters, "
             "inverse_path_tracer_torch.ops.kernels.staged_kernel, inverse_path_tracer_torch.cli, "
-            "inverse_path_tracer_torch.utils.plyviz, inverse_path_tracer_torch.utils.profiling; "
+            "inverse_path_tracer_torch.utils.plyviz, inverse_path_tracer_torch.utils.profiling, "
+            "inverse_path_tracer_torch.ops.bvh, inverse_path_tracer_torch.utils.native, "
+            "inverse_path_tracer_torch.parallel.shard, inverse_path_tracer_torch.parallel.multihost; "
             "bad = [m for m in sys.modules if m.split('.')[0] in %r]; "
             "assert not bad, bad" % (FORBIDDEN,))
     env = dict(os.environ, PYTHONPATH=REPO)

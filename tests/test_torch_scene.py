@@ -28,10 +28,16 @@ RTOL = 1e-6
 
 def assert_scenes_equal(jscene, tscene):
     for f in dataclasses.fields(SceneData):
-        a = np.asarray(getattr(jscene, f.name))
-        b = getattr(tscene, f.name).cpu().numpy()
-        assert a.shape == b.shape, f.name
-        np.testing.assert_allclose(b, a, rtol=RTOL, atol=0, err_msg=f.name)
+        if f.name == "bvh":  # JAX's () is the port's None; else the six arrays
+            jb, tb = jscene.bvh, tscene.bvh
+            assert (len(jb) == 0) == (tb is None), f.name
+            pairs = [] if tb is None else list(zip(jb, tb))
+        else:
+            pairs = [(getattr(jscene, f.name), getattr(tscene, f.name))]
+        for a, b in pairs:
+            a, b = np.asarray(a), b.cpu().numpy()
+            assert a.shape == b.shape, f.name
+            np.testing.assert_allclose(b, a, rtol=RTOL, atol=0, err_msg=f.name)
 
 
 def test_fixture_matches_jax_load_scene():

@@ -11,10 +11,16 @@
     write what they promise; evaluate also reads the JAX package's
     checkpoint of artifacts/exp100.
   * Without --cpu and without a card, every command raises before it writes.
+  * recover --shard --coordinator in two processes (the JAX package's
+    tests/test_multihost.py on the in-repo scene): both join the group of
+    two and write bit-identical Kd; --shard alone is one rank.
 """
 
 import json
 import os
+import socket
+import subprocess
+import sys
 import zipfile
 
 import numpy as np
@@ -182,6 +188,60 @@ def test_help_lists_every_command(capsys):
         cli.main(["--help"])
     out = capsys.readouterr().out
     assert all(name in out for name in NO_CARD_COMMANDS)
+
+
+def test_coordinator_without_a_card_raises_before_joining(workdir, tmp_path, monkeypatch):
+    """--coordinator with no card and no --cpu raises before it waits for
+    the other processes, and writes nothing."""
+    for sub in ("scenes", "imgs"):
+        (tmp_path / sub).symlink_to(workdir / sub)
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        cli.main(["recover", "scenes/0.txt", "imgs/0.png", "--steps", "1", "--out", "out.npy",
+                  "--shard", "--coordinator", "127.0.0.1:1", "--num-processes", "2",
+                  "--process-id", "0", *ROOT])
+    assert sorted(os.listdir(tmp_path)) == ["imgs", "scenes"]
+
+
+def test_two_process_recover_with_shard(tmp_path):
+    from inverse_path_tracer_torch.utils.png import write_png
+
+    write_png(str(tmp_path / "target.png"), np.full((16, 16, 3), 128, np.uint8))
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
+    procs = []
+    for pid in range(2):
+        cmd = [sys.executable, "-m", "inverse_path_tracer_torch.cli", "recover",
+               os.path.join(REPO, "scenes", "0.txt"), str(tmp_path / "target.png"),
+               "--cpu", "--shard", "--coordinator", f"127.0.0.1:{port}",
+               "--num-processes", "2", "--process-id", str(pid), "--steps", "2", "--lr", "0.1",
+               "--width", "16", "--height", "16", "--spp", "4", "--bounces", "2",
+               "--tile", "64", "--out", str(tmp_path / f"out{pid}.npy")]
+        procs.append(subprocess.Popen(cmd, env=env, cwd=str(tmp_path), stdout=subprocess.PIPE,
+                                      stderr=subprocess.STDOUT))
+    try:
+        outs = [p.communicate(timeout=100)[0].decode() for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    for pid, (p, out) in enumerate(zip(procs, outs)):
+        assert p.returncode == 0, f"process {pid} failed:\n{out}"
+        assert "'process_count': 2" in out and "'global_devices': 2" in out
+        assert "'backend': 'gloo'" in out
+    a, b = np.load(tmp_path / "out0.npy"), np.load(tmp_path / "out1.npy")
+    np.testing.assert_array_equal(a, b)
+    assert a.shape == (30, 3)
+
+
+def test_shard_without_a_coordinator_is_one_rank(workdir, monkeypatch):
+    monkeypatch.chdir(workdir)
+    cli.main(["recover", "scenes/0.txt", "imgs/0.png", "--steps", "2", "--out", "kd_one.npy",
+              "--shard", *CPU_ARGS])
+    kd = np.load("kd_one.npy")
+    assert kd.shape == (30, 3) and np.all((kd > 0) & (kd < 1))
 
 
 def test_profiling_utils(tmp_path):
