@@ -176,7 +176,20 @@ Phases, each failing loudly (any failure exits nonzero):
      once: the gathered radiance and counts bit-equal to one rank's, theta
      bit-identical on both ranks after 3 steps and within the bars of one
      rank's, wall times; then two processes of cli recover --shard
-     --coordinator at 64x64/8 spp, their --out bit-identical.
+     --coordinator at 64x64/8 spp, their --out bit-identical;
+ 26. the experiment modules (inverse_path_tracer_torch/experiments): the
+     gate on scene 0 at 256x256, B10 alone (intersect_tile) on the gate's
+     rays bit-equal to its plain version in (t, triangle, hit), the
+     direct-pixel counts equal and the gate triangles 0-15 and 20-23 (the
+     JAX run's); recover100 on all 100 scenes at 256x256/64 spp/16 bounces
+     from the GCN of artifacts/exp100/gcn_params.npz (100 renders and B5
+     extractions at 500x500/100 spp), 3 steps at lr 1e-2, then the gate and
+     the hybrid; full_pipeline on 4 scenes at 500x500/100 spp (2000 GCN
+     epochs for train and train0, 2 scenes evaluated, recovery of 4 scenes
+     x 5 steps).  Both with every plain version refused, the launches of
+     B1, B2, B5 and B10 counted from 0 and required, finite results of the
+     expected shapes, the gate, the recovery's loss lower after its 3 steps
+     than before, and each module's phase seconds.
 
 The kernels' JSON object, then the card's name and power limit, then, last,
 {"ok": true, "device": {...}}.  Needs CUDA; exits nonzero without it.
@@ -190,6 +203,7 @@ import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -2964,6 +2978,138 @@ def sharded_phase(device):
     log(f"phase 25: {time.perf_counter() - t_phase:.1f} s")
 
 
+# Phase 26: the gate's triangles on scene 0 at 256x256 (the JAX run's
+# observability_gate_tris, artifacts/exp100/metrics.json).
+GATE_TRIS = list(range(16)) + [20, 21, 22, 23]
+
+
+@contextlib.contextmanager
+def no_plain_versions():
+    """Every kernel's plain version (the *_plain functions of the kernel
+    modules and of the render modules that import them) raises while the
+    block runs: a path on the card must launch the kernels."""
+    from inverse_path_tracer_torch.ops.kernels import inverse_kernel, render_kernel, staged_kernel
+    from inverse_path_tracer_torch.render import forward, inverse
+
+    saved = []
+
+    def refuse(name):
+        def fn(*_a, **_kw):
+            raise AssertionError(f"{name} (a plain version) ran on the card's path")
+        return fn
+
+    for mod in (render_kernel, staged_kernel, inverse_kernel, forward, inverse):
+        for name in dir(mod):
+            if name.endswith("_plain") and callable(getattr(mod, name)):
+                saved.append((mod, name, getattr(mod, name)))
+                setattr(mod, name, refuse(f"{mod.__name__}.{name}"))
+    try:
+        yield
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def experiments_phase(device):
+    """Phase 26: the experiment modules (inverse_path_tracer_torch/experiments)
+    on the card.  The gate on scene 0 at 256x256: B10 alone (intersect_tile)
+    on the gate's rays against its plain version, (t, triangle, hit)
+    bit-equal, the direct-pixel counts equal and the gate GATE_TRIS.  Then
+    recover100 on all 100 scenes at 256x256/64 spp/16 bounces from the GCN
+    of artifacts/exp100/gcn_params.npz (100 renders and B5 extractions at
+    500x500/100 spp), 3 steps at lr 1e-2, then the gate and the hybrid;
+    and full_pipeline on 4 scenes at 500x500/100 spp (GCN 2000 epochs for
+    train and train0, 2 scenes evaluated, recovery of 4 scenes x 5 steps
+    at 256x256/64 spp).  Both under no_plain_versions, with the launches of
+    B1, B2, B5 and B10 alone counted from 0 and required; finite results
+    of the expected shapes, the gate, the recovery's loss lower after its 3
+    steps than before; each module's phase seconds."""
+    import numpy as np
+    import torch
+
+    from inverse_path_tracer_torch import ASSET_ROOT, load_scene
+    from inverse_path_tracer_torch.experiments import full_pipeline, gate, recover100
+    from inverse_path_tracer_torch.ops.kernels.render_kernel import intersect_tile, \
+        intersect_tile_plain
+
+    t_phase = time.perf_counter()
+    scene = load_scene(os.path.join(REPO, "scenes", "0.txt"), asset_root=ASSET_ROOT).to(device)
+    cfg = gate.gate_config(256)
+    p, d = gate.gate_rays(scene, 256)
+    t, row = intersect_tile(scene, cfg, p, d)
+    t_p, row_p = intersect_tile_plain(scene, cfg, p, d)
+    hit, hit_p = torch.isfinite(t), torch.isfinite(t_p)
+    same = torch.equal(t, t_p) and torch.equal(row, row_p) and torch.equal(hit, hit_p)
+    plain_px = torch.bincount(row_p[hit_p].long(), minlength=scene.n_tri).cpu().numpy()
+    g, px, thr = gate.compute_gate(scene, 256, device)
+    tris = np.nonzero(g)[0].tolist()
+    ok = same and np.array_equal(px, plain_px) and tris == GATE_TRIS and thr == 16
+    log(f"gate, scene 0 at 256x256: B10 alone against its plain version on {p.shape[1]} rays "
+        f"(t, triangle, hit) bit-equal {same}; direct px {px.tolist()} (plain equal "
+        f"{np.array_equal(px, plain_px)}), threshold {thr}, gate {tris} -> "
+        f"{'OK' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the gate on the card differs from its plain version or the JAX run")
+
+    counters = kernel_counters()
+    need = ("render_fwd", "render_bwd_grad", "inverse_grid", "cluster_sweep")
+
+    def drive(label, fn):
+        for c in counters.values():
+            c.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with no_plain_versions():
+            out = fn()
+        torch.cuda.synchronize()
+        launches = {k: counters[k].launches for k in need}
+        log(f"{label}: {time.perf_counter() - t0:.1f} s, launches {launches}")
+        return out, launches
+
+    work = os.path.join(OUT_DIR, "recover100")
+    if os.path.isdir(work):
+        shutil.rmtree(work)
+    m, launches = drive("recover100, 100 scenes at 256x256/64 spp, 3 steps", lambda: recover100.main(
+        ["--scenes", "100", "--res", "256", "--spp", "64", "--steps", "3", "--lr", "1e-2",
+         "--init", "gcn", "--workdir", work]))
+    refined = np.load(os.path.join(work, "recovered.npy"))
+    gated = np.load(os.path.join(work, "recovered_gated.npy"))
+    log(f"recover100 seconds: targets {m['targets_wall_s']}, GCN graphs "
+        f"{m['gcn_graphs_wall_s']}, recovery {m['recover_wall_s']}, re-renders "
+        f"{m['rerender_wall_s']}; GCN init Kd error {m['gcn_init_err']:.5f} (cube "
+        f"{m['gcn_init_err_cube']:.5f}), after 3 steps {m['mean_kd_err']:.5f}, gated "
+        f"{m['gated_mean_kd_err']:.5f} (cube {m['gated_mean_kd_err_cube']:.5f}); gate "
+        f"{m['observability_gate_tris']}")
+    with open(os.path.join(work, "losses.jsonl")) as f:
+        losses = [json.loads(line)["loss"] for line in f]
+    log(f"recover100 losses {', '.join(f'{v:.6f}' for v in losses)}")
+    ok = (refined.shape == gated.shape == (100, 30, 3) and np.isfinite(refined).all()
+          and np.isfinite(gated).all() and m["observability_gate_tris"] == GATE_TRIS
+          and len(losses) == 3 and losses[-1] < losses[0]
+          and all(math.isfinite(m[k]) for k in ("gcn_init_err", "mean_kd_err",
+                                                "gated_mean_kd_err", "final_loss")))
+    if not ok or not all(launches[k] for k in need):
+        raise AssertionError(f"recover100 on the card failed its checks: {launches}")
+
+    work = os.path.join(OUT_DIR, "full_pipeline")
+    if os.path.isdir(work):
+        shutil.rmtree(work)
+    m, launches = drive("full_pipeline, 4 scenes at 500x500/100 spp", lambda: full_pipeline.main(
+        ["--n", "4", "--gcn-epochs", "2000", "--eval-scenes", "2", "--recover-n", "4",
+         "--recover-steps", "5", "--workdir", work]))
+    log("full_pipeline seconds: " + ", ".join(f"{ph} {m[ph]['wall_s']}"
+                                              for ph in full_pipeline.PHASES)
+        + f"; train Kd error {m['train']['mean_kd_err']}, train0 {m['train0']['kd_err']} "
+          f"(PSNR {m['train0']['psnr_true_vs_pred']} dB), evaluate PSNR "
+          f"{m['evaluate']['psnr_true_vs_pred']}, recover Kd error {m['recover']['mean_kd_err']}")
+    figures = [m["train"]["mean_kd_err"], m["train0"]["kd_err"], m["recover"]["mean_kd_err"],
+               m["train0"]["psnr_true_vs_pred"], *m["evaluate"]["psnr_true_vs_pred"]]
+    ok = all(math.isfinite(v) for v in figures) and len(m["evaluate"]["psnr_true_vs_pred"]) == 2
+    if not ok or not all(launches[k] for k in need[:3]):
+        raise AssertionError(f"full_pipeline on the card failed its checks: {launches}")
+    log(f"phase 26: {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     import torch
 
@@ -3020,6 +3166,7 @@ def main() -> int:
     cli_commands(device)
     bvh_phase(device)
     sharded_phase(device)
+    experiments_phase(device)
     for k in kernels:  # the later checks of B1-B6 (clustered tables) count too
         k["max_abs_err"] = max(float(k["max_abs_err"]), check_err.get(k["name"], 0.0))
     for k in kernels:

@@ -47,7 +47,6 @@ Left out:
 from __future__ import annotations
 
 import argparse
-import json
 import os
 import shutil
 import zipfile
@@ -198,24 +197,6 @@ def cmd_train_gcn(args):
     print(f"final L1 loss {loss:.5f}; checkpoint -> {args.out}")
 
 
-def _load_gcn(path: str, device):
-    """The GCN of a train-gcn checkpoint, of this CLI's or of the JAX
-    package's (its __meta__ holds a treedef)."""
-    from inverse_path_tracer_torch.convert import gcn_params_from_numpy, read_jax_checkpoint
-    from inverse_path_tracer_torch.models.gcn import GCN
-    from inverse_path_tracer_torch.utils.checkpoint import load_checkpoint
-
-    with np.load(path) as data:
-        meta = json.loads(bytes(data["__meta__"]).decode())
-    if "treedef" in meta:
-        state = gcn_params_from_numpy(read_jax_checkpoint(path)[0])
-    else:
-        state = load_checkpoint(path)[0]
-    model = GCN()
-    model.load_state_dict(state)
-    return model.to(device)
-
-
 def _logger_every(logger, every: int):
     return lambda s, l: logger.log(step=s, loss=l) if s % every == 0 else None
 
@@ -319,12 +300,13 @@ def cmd_evaluate(args):
     the ground-truth render to preds/i_true.png, re-render with the GCN's
     predicted Kd to preds/i_pred.png; then zip preds/."""
     from inverse_path_tracer_torch.data.pipeline import render_with_materials
+    from inverse_path_tracer_torch.models.gcn import load_gcn
     from inverse_path_tracer_torch.utils.metrics import psnr
     from inverse_path_tracer_torch.utils.png import read_png
 
     dev = _device(args)
     cfg = _cfg_from_args(args)
-    model = _load_gcn(args.params, dev)
+    model = load_gcn(args.params, dev)
     _newdir(args.out_dir)
     for i, graph_path in enumerate(args.graphs):
         adj, feats, _ = _load_graph(graph_path, dev)

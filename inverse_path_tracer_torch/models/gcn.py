@@ -18,9 +18,11 @@ drawn from a seeded generator.
 
 from __future__ import annotations
 
+import json
 import os
 from typing import Callable, Optional, Tuple
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -138,3 +140,19 @@ def train_gcn(
         if checkpoint_path and checkpoint_every and done % checkpoint_every == 0:
             _save(checkpoint_path, model, opt, done)
     return model, float("nan") if loss is None else float(loss.detach())
+
+
+def load_gcn(path: str, device) -> GCN:
+    """The GCN of a train_gcn checkpoint (utils/checkpoint.py) or of one
+    written by the JAX package (its __meta__ holds a treedef), on `device`."""
+    from inverse_path_tracer_torch.convert import gcn_params_from_numpy, read_jax_checkpoint
+
+    with np.load(path) as data:
+        meta = json.loads(bytes(data["__meta__"]).decode())
+    if "treedef" in meta:
+        state = gcn_params_from_numpy(read_jax_checkpoint(path)[0])
+    else:
+        state = load_checkpoint(path)[0]
+    model = GCN()
+    model.load_state_dict(state)
+    return model.to(device)

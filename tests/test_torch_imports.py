@@ -29,7 +29,9 @@ def test_tools_are_checked():
 
 def test_new_modules_are_checked():
     files = port_files()
-    for rel in ("ops/bvh.py", "utils/native.py", "parallel/shard.py", "parallel/multihost.py"):
+    for rel in ("ops/bvh.py", "utils/native.py", "parallel/shard.py", "parallel/multihost.py",
+                "experiments/common.py", "experiments/gate.py", "experiments/recover100.py",
+                "experiments/full_pipeline.py"):
         assert os.path.join(PORT, rel) in files, rel
 
 
@@ -63,7 +65,10 @@ def test_importing_the_port_loads_no_jax():
             "inverse_path_tracer_torch.ops.kernels.staged_kernel, inverse_path_tracer_torch.cli, "
             "inverse_path_tracer_torch.utils.plyviz, inverse_path_tracer_torch.utils.profiling, "
             "inverse_path_tracer_torch.ops.bvh, inverse_path_tracer_torch.utils.native, "
-            "inverse_path_tracer_torch.parallel.shard, inverse_path_tracer_torch.parallel.multihost; "
+            "inverse_path_tracer_torch.parallel.shard, inverse_path_tracer_torch.parallel.multihost, "
+            "inverse_path_tracer_torch.experiments.gate, "
+            "inverse_path_tracer_torch.experiments.recover100, "
+            "inverse_path_tracer_torch.experiments.full_pipeline; "
             "bad = [m for m in sys.modules if m.split('.')[0] in %r]; "
             "assert not bad, bad" % (FORBIDDEN,))
     env = dict(os.environ, PYTHONPATH=REPO)
