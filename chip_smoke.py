@@ -6,11 +6,12 @@
 Phases, each failing loudly (any failure exits nonzero):
   1. the card's name and power limit (nvidia-smi);
   2. build every CUDA kernel from the sources here (render_fwd.cu: B1 and
-     B3, the template render_kernel<kRecords, kClustered>, B7, B8 and B10's
+     B3, the template render_kernel<kRecords, kSweep>, B7, B8 and B10's
      own launch; render_bwd.cu: B2, B4 and B9; inverse.cu: B5 and B6's two
-     sinks; every kernel sweeps through B10 in render_common.cuh), one nvcc
-     per source, in parallel; ptxas's report, with no spill allowed in any
-     kernel;
+     sinks; every kernel sweeps through B10 in render_common.cuh, and B1,
+     B2, B3 and B10's launch also search by the BVH traversal there, the
+     flavour kSweep = 2), one nvcc per source, in parallel; ptxas's report,
+     with no spill allowed in any kernel;
   3. each kernel against its plain PyTorch version on the card, on the
      scene-0 fixture at 64x64/4 spp/8 bounces: external uniforms with quirks
      on and off, the fused RNG, a specular (Ks > 0) variant and a small
@@ -166,7 +167,8 @@ Phases, each failing loudly (any failure exits nonzero):
      rtol 1e-5), timed beside B10 alone (intersect_tile, clustered) and the
      dense plain sweep; the render at 64x64/4 spp/8 bounces of the scene
      with its BVH attached, bit-equal to the scene without it and through
-     the kernels (counted: the renders do not read the BVH);
+     the kernels (counted: with intersect "auto" the renders do not read
+     the BVH);
  25. sharded rendering and recovery (parallel/shard.py) on the main path at
      512x512/64 spp/16 bounces: a process group of one rank (NCCL) in this
      process, render_samples_sharded bit-equal to render_samples and a
@@ -189,11 +191,21 @@ Phases, each failing loudly (any failure exits nonzero):
      x 5 steps).  Both with every plain version refused, the launches of
      B1, B2, B5 and B10 counted from 0 and required, finite results of the
      expected shapes, the gate, the recovery's loss lower after its 3 steps
-     than before, and each module's phase seconds.
+     than before, and each module's phase seconds;
+ 27. (run after phase 24) the BVH route (RenderConfig intersect="bvh") on
+     the 20,498-triangle scene (assets.bvh_scene): the traversal kernel on
+     2^20 rays against the plain intersect_bvh and B10's clustered sweep
+     (hit and t bit for bit, triangles equal but for exact ties, the work
+     counts equal), timed with its bound; the route against the clustered
+     mega route at 64x64/4 spp/8 bounces; B2, B4 and B9 past 2048 triangles
+     (accumulators in global memory) against their plain versions and twice
+     bit-equal; the FD gate; forward, fwd+bwd and loss_and_grad_range at
+     512x512/64 spp/16 bounces on both routes, a profile of the route
+     (bvh_route_phase).
 
 The kernels' JSON object, then the card's name and power limit, then, last,
 {"ok": true, "device": {...}}.  Needs CUDA; exits nonzero without it.
-About 4 minutes on the H100, the build included.
+About 5 minutes on the H100, the build included.
 """
 
 from __future__ import annotations
@@ -254,6 +266,8 @@ KERNELS = {
                            "inverse_path_tracer_tpu/ops/pallas/render_kernel.py:1780"),
     "cluster_sweep": ("render_common.cuh",
                       "inverse_path_tracer_tpu/ops/pallas/render_kernel.py:404"),
+    # No Pallas counterpart: the JAX package's BVH route is XLA code.
+    "bvh_traversal": ("render_common.cuh", "inverse_path_tracer_tpu/ops/bvh.py:155"),
 }
 # f32 operations of the suffix recursion per reached bounce (render_bwd.cu
 # reverse_path): ct = pm*suf*(coeff/pi) + g*pm*nee (3+3+1+3+3+3), suf =
@@ -731,16 +745,16 @@ def loss_and_grad_path(device, grad_ref):
     return launches
 
 
-def fd_gate(device, scene=None, mats=None, label="scene 0"):
-    """Phases 8 and 19: central finite differences along the gradient
+def fd_gate(device, scene=None, mats=None, label="scene 0", cfg=None):
+    """Phases 8, 19 and 27: central finite differences along the gradient
     (bench.py:196-236): ratio = <g, v> / FD_v in (0.98, 1.02), on scene 0
-    or the given scene."""
+    or the given scene, at FD or the given config."""
     import torch
 
     from inverse_path_tracer_torch import RenderConfig, render_samples
     from inverse_path_tracer_torch.ops.tonemap import tonemap_mean
 
-    cfg = RenderConfig(**FD)
+    cfg = RenderConfig(**FD) if cfg is None else cfg
     if scene is None:
         scene, mats = fixture(device)
 
@@ -2001,15 +2015,28 @@ def large_vn_extraction(device, scene):
     return target
 
 
+# The kernels whose last template argument is the search flavour
+# (render_common.cuh Sweep; a bool kClustered in the kernels the BVH route
+# does not run).
+SWEEP_KERNELS = ("render_kernel", "intersect_kernel", "grad_tile_kernel", "stage_kernel",
+                 "init_kernel", "inverse_rec_kernel", "inverse_global_kernel",
+                 "inverse_grid_kernel")
+
+
 def clustered_ptxas():
     """ptxas's report of the clustered kernels (the instantiations whose
-    last template argument, kClustered, is true): [(library, kernel,
-    registers, spill store bytes, spill load bytes)]."""
+    search flavour, their last template argument, is the clustered sweep:
+    true or 1): [(library, kernel, registers, spill store bytes, spill load
+    bytes)]."""
     from inverse_path_tracer_torch.ops.kernels import build
+
+    def clustered(kernel):
+        name, _, args = kernel.partition("<")
+        return name in SWEEP_KERNELS and args.rstrip(">").split(", ")[-1] in ("true", "1")
 
     return [(lib, kernel, regs, st, ld)
             for lib, text in build.build_log.items()
-            for kernel, regs, st, ld, _ in ptxas_report(text) if kernel.endswith("true>")]
+            for kernel, regs, st, ld, _ in ptxas_report(text) if clustered(kernel)]
 
 
 def large_kernel_timing(device, launches, check_err, large_target):
@@ -2606,6 +2633,7 @@ def kernel_counters():
         inverse_tile_rec,
     )
     from inverse_path_tracer_torch.ops.kernels.render_kernel import (
+        bvh_traversal,
         grad_tile,
         intersect_tile,
         render_tile,
@@ -2618,7 +2646,7 @@ def kernel_counters():
         stage_tile,
     )
 
-    return {"render_fwd": render_tile, "render_fwd_rec": render_tile_rec,
+    return {"bvh_traversal": bvh_traversal,"render_fwd": render_tile, "render_fwd_rec": render_tile_rec,
             "render_bwd_grad": grad_tile, "render_bwd_reverse": reverse_tile,
             "inverse_grid": inverse_tile, "inverse_rec": inverse_tile_rec,
             "inverse_global": inverse_tile_global, "init_tile": init_tile,
@@ -2722,8 +2750,9 @@ def bvh_phase(device):
             raise AssertionError(f"intersect_bvh differs from the dense sweep on {name} rays")
         result[name] = (t_bvh, t_b10, t_dense)
 
-    # The renders do not read the BVH: a scene that carries one renders
-    # through the kernels, bit-equal to the scene without it.
+    # With intersect "auto" the renders do not read the BVH: a scene that
+    # carries one renders through the kernels, bit-equal to the scene
+    # without it.
     rcfg = RenderConfig(**BVH_CHECK)
     scene_b = scene_d.replace(bvh=bvh)
     counters = kernel_counters()
@@ -2745,6 +2774,337 @@ def bvh_phase(device):
         raise AssertionError("the render of a scene with a BVH launched no kernel")
     log(f"phase 24: {time.perf_counter() - t_phase:.1f} s")
     return result
+
+
+# Phase 27's clustered B2 against its plain version on the 20,498-triangle
+# scene: 131,072 lanes, past the 264-block grid of the accumulators in
+# global memory (the plain clustered sweep loops over 1282 clusters).
+BVH_PLAIN_CHECK = dict(width=128, height=128, spp=8, max_bounces=4)
+
+
+def bvh_route_phase(device):
+    """Phase 27 (run after phase 24): the BVH route (RenderConfig
+    intersect="bvh") on the 20,498-triangle scene (assets.bvh_scene: the
+    box and a vertex-normal sphere of 20,480 triangles, its BVH built by
+    the native library).  The traversal kernel (intersect_tile on BVH
+    tables) on 2^20 rays (the main path's first camera launch, and random
+    rays from inside the box) against the plain intersect_bvh and B10's
+    clustered sweep on the same rays: hit and t bit for bit, the triangle
+    the plain traversal's, and B10's wherever B10's internal order does not
+    break an exact tie the other way (then the BVH's global index is the
+    lower), the nodes popped and the box and triangle tests of kernel and
+    plain version equal, both times printed.  render_samples and
+    loss_and_grad_range at 64x64/4 spp/8 bounces through the route against
+    the clustered mega route: at least 97% of lanes within rtol 1e-4 /
+    atol 1e-5 (the share bit-equal printed), counts equal and the gradients
+    under the vertex-normal bound of phase 16.  Past 2048 triangles (their
+    accumulators in global memory, on grids cut to 2 blocks an SM) against
+    their plain versions, each twice bit-equal: B2 on the route and B4 on
+    the route's B3 records at the main path's first launch (2^20 lanes, 16
+    bounces), B9 on 2^20 lanes of a stage's records, the clustered B2 at
+    BVH_PLAIN_CHECK.  The FD gate of phase 8 through the route.  The main
+    path: render_samples, fwd+bwd and loss_and_grad_range at 512x512/64
+    spp/16 bounces on the route (counted from 0: B1, B2, B3, B4 and the
+    traversal), then on the scene's default route (counted from 0: B7, B8,
+    B9 and the clustered sweep) against the clustered mega route; all three
+    routes timed, 1 warm-up and 2 timed runs each; a profile of the route's
+    fwd+bwd with every plain version refused, the traversal's kernels
+    present and no device-to-host copy.  Returns the traversal's
+    kernels-line entry."""
+    import torch
+
+    from inverse_path_tracer_torch import (
+        RenderConfig,
+        bvh_scene,
+        loss_and_grad_range,
+        render_samples,
+    )
+    from inverse_path_tracer_torch.ops.camera import camera_rays
+    from inverse_path_tracer_torch.ops.kernels.render_kernel import (
+        grad_tile,
+        grad_tile_plain,
+        intersect_tile,
+        intersect_tile_plain,
+        pack_tables,
+        render_tile_rec,
+        reverse_tile,
+        reverse_tile_plain,
+    )
+    from inverse_path_tracer_torch.ops.kernels.staged_kernel import (
+        stage_reverse_tile,
+        stage_reverse_tile_plain,
+    )
+    from inverse_path_tracer_torch.ops.tonemap import tonemap_mean
+
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    scene = bvh_scene(device, use_native=True)
+    nt, mats = scene.n_tri, scene.diffuse
+    cfg = RenderConfig(**MAIN)
+    route, sweep_route = cfg.with_(intersect="bvh"), cfg.with_(wavefront="mega")
+    tabs_b, tabs_c = pack_tables(scene, mats, route), pack_tables(scene, mats, sweep_route)
+    log(f"BVH route scene: {nt} triangles, {scene.bvh.n_nodes} nodes, leaves of at most "
+        f"{int(scene.bvh.n_prims.max())}; built and packed in {time.perf_counter() - t0:.2f} s; "
+        f"clustered tables of {tabs_c.cluster_k}, {-(-nt // tabs_c.cluster_k)} clusters")
+
+    # The traversal alone against the plain traversal and B10.
+    n = 1 << 20
+    rays = {"camera": camera_rays(scene, cfg, 0, torch.arange(n, device=device)),
+            "box": random_box_rays(n, 5, device)}
+    entry = None
+    for name, (p, d) in rays.items():
+        pt, dt = p.T.contiguous(), d.T.contiguous()
+        c_k = torch.zeros(3, dtype=torch.int64, device=device)
+        c_p = torch.zeros(3, dtype=torch.int64, device=device)
+        t_k, i_k = intersect_tile(scene, route, pt, dt, tables=tabs_b, counts=c_k)
+        t_p, i_p = intersect_tile_plain(scene, route, pt, dt, counts=c_p)
+        t_c, i_c = intersect_tile(scene, sweep_route, pt, dt, tables=tabs_c)
+        hit = torch.isfinite(t_k)
+        g_k, g_c = tabs_b.perm[i_k.long()], tabs_c.perm[i_c.long()]
+        tie = hit & (g_k != g_c)
+        plain_ok = torch.equal(t_k, t_p) and torch.equal(i_k, i_p) and torch.equal(c_k, c_p)
+        b10_ok = (torch.equal(t_k, t_c) and torch.equal(hit, torch.isfinite(t_c))
+                  and bool((g_k[tie] < g_c[tie]).all()))
+        ms = median_ms(lambda: intersect_tile(scene, route, pt, dt, tables=tabs_b), 5)
+        ms_c = median_ms(lambda: intersect_tile(scene, sweep_route, pt, dt, tables=tabs_c), 5)
+        nodes, boxes, tris = (int(v) for v in c_k.tolist())
+        log(f"traversal, {name} rays (2^20, {int(hit.sum())} hits): kernel = plain intersect_bvh "
+            f"(t, triangle, counts) {plain_ok}; = B10 clustered (hit, t bit for bit, triangle "
+            f"but {int(tie.sum())} exact ties broken by a lower global index) {b10_ok}; "
+            f"{nodes} nodes popped, {boxes} box tests, {tris} triangle tests "
+            f"({nodes / n:.2f}, {boxes / n:.2f}, {tris / n:.2f} a ray)")
+        log(f"  traversal kernel {fmt(ms)}; B10 clustered {fmt(ms_c)}")
+        if not (plain_ok and b10_ok):
+            raise AssertionError(f"the traversal kernel's hits differ on {name} rays")
+        if entry is None:
+            plain_ms = cuda_ms(lambda: intersect_tile_plain(scene, route, pt, dt), 1)
+            # A triangle test at the sweep's face-plane count, as B10's.
+            t_ops = (boxes * BOX_OPS + tris * FACE_PLANE_OPS) / PEAK_F32_OPS * 1e3
+            t_bytes = n * (6 + 2) * 4 / PEAK_BYTES * 1e3  # rays in, t and triangle out
+            b_ms, b_by = bound(t_ops, t_bytes)
+            entry = {"name": "bvh_traversal", "route": "cuda",
+                     "source": "inverse_path_tracer_torch/ops/kernels/" + KERNELS[
+                         "bvh_traversal"][0],
+                     "replaces": KERNELS["bvh_traversal"][1],
+                     "launches": 0, "max_abs_err": float((t_k - t_p).nan_to_num().abs().max()),
+                     "ms": sorted(ms)[len(ms) // 2], "plain_ms": plain_ms, "bound_ms": b_ms,
+                     "bound_by": b_by, "library_ms": None}
+            log(f"  traversal on the camera launch: plain {plain_ms:.3f} ms, bound {b_ms:.5f} ms "
+                f"({b_by}), {100 * b_ms / entry['ms']:.2f}% of bound")
+    del rays
+
+    # The route against the clustered mega route.
+    ccfg = RenderConfig(**BVH_CHECK)
+    w = torch.rand((ccfg.n_samples, 3), generator=torch.Generator().manual_seed(4)).to(device)
+    outs = {}
+    for what, c in (("bvh", ccfg.with_(intersect="bvh")), ("clustered", ccfg.with_(wavefront="mega"))):
+        m = mats.clone().requires_grad_()
+        vals, st = render_samples(m, scene, 3, c, device=device)
+        (vals * w).sum().backward()
+        loss, g_lg, st_lg = loss_and_grad_range(mats, scene, 3, c, 0, c.n_samples,
+                                                lambda v, lo: (v * w[lo:lo + v.shape[0]]).sum(),
+                                                device=device)
+        outs[what] = (vals.detach(), st, m.grad, g_lg, st_lg)
+    (vb, sb, gb, lb, slb), (vc, sc, gc, lc, slc) = outs["bvh"], outs["clustered"]
+    share, err = lanes_equal(vb.T, vc.T, True)
+    bit = float((vb == vc).all(dim=1).float().mean())
+    counts_ok = all(int(x.segments) == int(y.segments) and int(x.shadow_rays) == int(y.shadow_rays)
+                    for x, y in ((sb, sc), (slb, slc)))
+    ok = share >= 0.97 and counts_ok and vn_grad_close(gb, gc) and vn_grad_close(lb, lc)
+    log(f"route against the clustered mega route {shape(ccfg)}: {share:.5f} of lanes within rtol "
+        f"1e-4 ({bit:.5f} bit-equal, {1 - bit:.5f} differ; max |d| {err:.3e}); counts equal "
+        f"{counts_ok}; autograd gradient max |d| {float((gb - gc).abs().max()):.3e}, "
+        f"loss_and_grad_range's {float((lb - lc).abs().max()):.3e} -> {'OK' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the BVH route differs from the clustered route")
+
+    # B2, B4 and B9 past 2048 triangles against their plain versions, on
+    # grids cut to 2 blocks an SM: B2 on the route and B4 on the route's B3
+    # records at the main path's first launch, B9 on as many lanes of a
+    # stage's records, the clustered B2 at BVH_PLAIN_CHECK.
+    n_main = 1 << 20
+    a = camera_launch(n_main, 6)
+    g = torch.rand((3, n_main), generator=torch.Generator().manual_seed(7)).to(device)
+    t0 = time.perf_counter()
+    checks, errs, grids = {}, {}, {}
+
+    def hold(key, got, again, want, close, blocks):
+        checks[key] = close(got, want) and torch.equal(got, again)
+        errs[key] = float((got - want).abs().max())
+        grids[key] = blocks
+
+    d2 = grad_tile(mats, scene, route, g=g, tables=tabs_b, **a)
+    hold("B2 BVH route", d2, grad_tile(mats, scene, route, g=g, tables=tabs_b, **a),
+         grad_tile_plain(mats, scene, route, g=g, **a), vn_grad_close, grad_tile.blocks)
+    _, _, rec = render_tile_rec(mats, scene, route, tables=tabs_b, **a)
+    d4 = reverse_tile(nt, route, rec, g, tabs_b.perm)
+    hold("B4", d4, reverse_tile(nt, route, rec, g, tabs_b.perm),
+         reverse_tile_plain(nt, route, rec, g, tabs_b.perm), grad_close, reverse_tile.blocks)
+    del rec
+    k = 4
+    rec9, g9, suf9 = b9_records(device, nt, k, n_main)
+    d9, s9 = stage_reverse_tile(nt, cfg, k, rec9, g9, suf9)
+    d9b, s9b = stage_reverse_tile(nt, cfg, k, rec9, g9, suf9)
+    d9p, s9p = stage_reverse_tile_plain(nt, cfg, k, rec9, g9, suf9)
+    hold("B9", d9, d9b, d9p, grad_close, stage_reverse_tile.blocks)
+    checks["B9"] = (checks["B9"] and torch.equal(s9, s9b)
+                    and bool(torch.allclose(s9, s9p, rtol=1e-5, atol=1e-6)))
+    del rec9, g9, suf9
+    pcfg = RenderConfig(**BVH_PLAIN_CHECK).with_(wavefront="mega")
+    ac = camera_launch(pcfg.n_samples, 6)
+    g_c = g[:, :pcfg.n_samples].contiguous()
+    tabs = pack_tables(scene, mats, pcfg)
+    d2c = grad_tile(mats, scene, pcfg, g=g_c, tables=tabs, **ac)
+    hold("B2 clustered", d2c, grad_tile(mats, scene, pcfg, g=g_c, tables=tabs, **ac),
+         grad_tile_plain(mats, scene, pcfg, g=g_c, **ac), vn_grad_close, grad_tile.blocks)
+    ok = all(checks.values())
+    log(f"gradient kernels past 2048 triangles ({nt}; accumulators in global memory) against "
+        f"their plain versions, twice bit-equal: B2 on the route, B4 and B9 at 2^20 lanes "
+        f"({shape(cfg)}'s first launch), B2 clustered {shape(pcfg)}: "
+        + ", ".join(f"{key} {v} (max |d| {errs[key]:.3e}, {grids[key]} blocks)"
+                    for key, v in checks.items())
+        + f"; {time.perf_counter() - t0:.1f} s -> {'OK' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("a gradient kernel past 2048 triangles disagrees with its plain "
+                             "version")
+
+    fd_gate(device, scene, mats, label="20,498-triangle scene (BVH route)",
+            cfg=RenderConfig(**FD).with_(intersect="bvh"))
+
+    # The main path on both routes.
+    n_values = cfg.width * cfg.height * 3
+
+    def forward(c):
+        return lambda key: render_samples(mats, scene, key, c, device=device)
+
+    def fwd_bwd(c):
+        def run(key):
+            m = mats.clone().requires_grad_()
+            v, st = render_samples(m, scene, key, c, device=device)
+            tonemap_mean(v, c.spp).mean().backward()
+            return m.grad, st
+        return run
+
+    def lg(c):
+        return lambda key: loss_and_grad_range(
+            mats, scene, key, c, 0, c.n_samples,
+            lambda v, lo: tonemap_mean(v, c.spp).sum() / n_values, device=device)
+
+    counters = kernel_counters()
+    for c in counters.values():
+        c.launches = 0
+    vals, stats = forward(route)(0)
+    grad_fb, _ = fwd_bwd(route)(0)
+    _, grad_lg, _ = lg(route)(0)
+    torch.cuda.synchronize()
+    launched = {key: c.launches for key, c in counters.items() if c.launches}
+    need = ("render_fwd", "render_bwd_grad", "render_fwd_rec", "render_bwd_reverse",
+            "bvh_traversal")
+    finite = all(bool(torch.isfinite(x).all()) for x in (vals, grad_fb, grad_lg))
+    mean = float(vals.mean())
+    ok = (all(launched.get(key, 0) for key in need) and finite and 0.05 < mean < 50.0
+          and float(grad_fb.abs().sum()) > 0
+          and bool(torch.allclose(grad_lg, grad_fb, rtol=1e-5, atol=0))
+          and not any(key in launched for key in ("init_tile", "stage_tile",
+                                                  "stage_reverse_tile", "cluster_sweep")))
+    log(f"BVH route main path {shape(cfg)}: launches {launched}; segments "
+        f"{int(stats.segments)}, shadow rays {int(stats.shadow_rays)}, mean radiance {mean:.5f}; "
+        f"loss_and_grad_range = autograd's rtol 1e-5 (bit-equal {torch.equal(grad_lg, grad_fb)})"
+        f" -> {'OK' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"the BVH route's main path failed its checks: {launched}")
+    entry["launches"] = launched["bvh_traversal"]
+
+    # The default route on this scene (intersect "auto": the clustered
+    # sweep, staged), counted from 0, against the clustered mega route.
+    for c in counters.values():
+        c.launches = 0
+    st_vals, st_stats = forward(cfg)(0)
+    st_fb, _ = fwd_bwd(cfg)(0)
+    _, st_lg, _ = lg(cfg)(0)
+    torch.cuda.synchronize()
+    st_launched = {key: c.launches for key, c in counters.items() if c.launches}
+    mg_vals, mg_stats = forward(sweep_route)(0)
+    mg_fb, _ = fwd_bwd(sweep_route)(0)
+    _, mg_lg, _ = lg(sweep_route)(0)
+    share, err = lanes_equal(st_vals.T, mg_vals.T, True)
+    finite = all(bool(torch.isfinite(x).all()) for x in (st_vals, st_fb, st_lg))
+    ok = (all(st_launched.get(key, 0) for key in ("init_tile", "stage_tile", "stage_reverse_tile",
+                                                  "cluster_sweep"))
+          and "bvh_traversal" not in st_launched and finite and share >= 0.97
+          and float(st_fb.abs().sum()) > 0 and vn_grad_close(st_fb, mg_fb)
+          and vn_grad_close(st_lg, mg_lg))
+    log(f"staged clustered route (intersect auto) {shape(cfg)}: launches {st_launched}; segments "
+        f"{int(st_stats.segments)} (mega {int(mg_stats.segments)}), shadow rays "
+        f"{int(st_stats.shadow_rays)} (mega {int(mg_stats.shadow_rays)}); against the clustered "
+        f"mega route: {share:.5f} of lanes within rtol 1e-4 (bit-equal "
+        f"{torch.equal(st_vals, mg_vals)}, max |d| {err:.3e}), fwd+bwd gradient max |d| "
+        f"{float((st_fb - mg_fb).abs().max()):.3e}, loss_and_grad_range's "
+        f"{float((st_lg - mg_lg).abs().max()):.3e} -> {'OK' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"the staged route on the 20,498-triangle scene failed: {st_launched}")
+    del st_vals, mg_vals
+    # The scratch of the accumulators in global memory at the main path's
+    # grids: (blocks, warps, nT, 3) floats.
+    log(f"accumulator scratch at {nt} triangles: B2 {grad_tile.blocks} blocks x 8 warps = "
+        f"{grad_tile.blocks * 8 * nt * 3 * 4} bytes, B4 {reverse_tile.blocks} blocks x 8 warps = "
+        f"{reverse_tile.blocks * 8 * nt * 3 * 4} bytes (the launch's partials "
+        f"{grad_tile.blocks * nt * 3 * 4} and {reverse_tile.blocks * nt * 3 * 4} bytes)")
+    stats_of = {"forward": lambda o: o[1], "fwd+bwd": lambda o: o[1], "loss_and_grad_range":
+                lambda o: o[2]}
+    for what, make in (("forward", forward), ("fwd+bwd", fwd_bwd), ("loss_and_grad_range", lg)):
+        for label, c in (("BVH route", route), ("clustered mega", sweep_route),
+                         ("clustered staged", cfg)):
+            fn = make(c)
+            fn(1)  # warm-up
+            for k in range(2):
+                out = []
+                t = cuda_ms(lambda: out.append(fn(k + 2)), 1)
+                st = stats_of[what](out[0])
+                rays_n = int(st.segments) + int(st.shadow_rays)
+                log(f"{what} {label} {shape(cfg)} run {k}: {t:.3f} ms, rays {rays_n}, "
+                    f"{rays_n / (t / 1e3):.6e} rays/s")
+    with no_plain_versions():
+        prof, calls = profile_once("one BVH-route fwd+bwd", lambda: fwd_bwd(route)(7),
+                                   ops=CAMERA_OPS + ("aten::_local_scalar_dense",))
+    names = list(prof)
+    traversal = [nm for nm in names if ("render_kernel<" in nm or "grad_tile_kernel<" in nm)
+                 and ", 2>" in nm]
+    dtoh = [nm for nm in names if "DtoH" in nm]
+    log(f"BVH-route fwd+bwd profile: traversal kernels {traversal}; device-to-host copies "
+        f"{dtoh or 'none'}, .item() calls {calls['aten::_local_scalar_dense']}")
+    if prof and (not traversal or dtoh or calls["aten::_local_scalar_dense"]):
+        raise AssertionError("the BVH route's fwd+bwd ran no traversal kernel or copied to the host")
+    log(f"phase 27: {time.perf_counter() - t_phase:.1f} s")
+    return entry
+
+
+def b9_records(device, n_tri, k, n):
+    """Records of a k-slot stage for n lanes over n_tri triangles, made with
+    numpy from a seed (path lengths 0 to k, the last slot an escape for ~30%
+    of them), with g (3, n) and a random (suf, esc) carry (4, n): B9's
+    inputs past 2048 triangles."""
+    import numpy as np
+    import torch
+
+    from inverse_path_tracer_torch.render.diff import REC_ROWS
+
+    r = np.random.default_rng(29)
+    lengths = r.integers(0, k + 1, size=n)
+    rec = np.zeros((k, REC_ROWS, n), dtype=np.float32)
+    for s in range(k):
+        on = lengths > s
+        rec[s, :13, on] = r.random((int(on.sum()), 13), dtype=np.float32)
+        rec[s, 13, on] = r.integers(0, n_tri, size=int(on.sum()))
+        esc = on & (lengths == s + 1) & (r.random(n) < 0.3)
+        rec[s, 14, on & ~esc] = 1.0
+        rec[s, 15, esc] = 1.0
+        rec[s, 0:3, esc] = 0.0
+        rec[s, 6:9, esc] = 0.0
+    g = r.random((3, n), dtype=np.float32)
+    suf = r.random((4, n), dtype=np.float32)
+    suf[3] = (suf[3] > 0.5).astype(np.float32)
+    return tuple(torch.from_numpy(x).to(device) for x in (rec.reshape(k * REC_ROWS, n), g, suf))
 
 
 def _digest(t) -> str:
@@ -3165,6 +3525,7 @@ def main() -> int:
     batched_recovery(device)
     cli_commands(device)
     bvh_phase(device)
+    kernels.append(bvh_route_phase(device))
     sharded_phase(device)
     experiments_phase(device)
     for k in kernels:  # the later checks of B1-B6 (clustered tables) count too

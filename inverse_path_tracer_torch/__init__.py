@@ -9,7 +9,8 @@ the training path), single-scene and batched material recovery
 extraction (render/inverse.py), the GCN (models/gcn.py) and the dataset
 steps (data/pipeline.py), and the command-line interface (cli.py).
 Large scenes (assets.large_scene) run through the clustered sweep and the
-staged wavefront (render/forward.py).  float32 throughout: TF32 is switched
+staged wavefront (render/forward.py); with RenderConfig(intersect="bvh") a
+scene with a BVH (assets.bvh_scene) runs through the BVH traversal.  float32 throughout: TF32 is switched
 off for matmuls and convolutions when the package is imported.
 """
 
@@ -18,7 +19,7 @@ import torch
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
-from inverse_path_tracer_torch.assets import large_scene  # noqa: E402
+from inverse_path_tracer_torch.assets import bvh_scene, large_scene  # noqa: E402
 from inverse_path_tracer_torch.config import CameraConfig, RenderConfig, TrainConfig  # noqa: E402
 from inverse_path_tracer_torch.convert import materials_from_numpy, scene_from_numpy  # noqa: E402
 from inverse_path_tracer_torch.data.pipeline import (  # noqa: E402
@@ -67,6 +68,7 @@ __all__ = [
     "TransportGrids",
     "build_dense_graph",
     "build_scene",
+    "bvh_scene",
     "camera_rays",
     "compress_grids",
     "extract_graph",

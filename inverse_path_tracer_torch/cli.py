@@ -26,6 +26,11 @@ Arguments and output files are the JAX CLI's, except:
   * evaluate takes a checkpoint of this CLI's train-gcn or one written by
     the JAX package (read by convert.read_jax_checkpoint);
   * --seed is an integer key of ops/rng.py, not a jax.random key;
+  * --intersect bvh loads the scenes that render, recover and
+    recover-batch read with their BVH (load_scene(with_bvh=True)), and the
+    pipeline's steps do too (data/pipeline.py), so that the BVH route
+    (RenderConfig.intersect) is taken; the JAX CLI attaches no BVH, so its
+    flag has no scene to act on;
   * recover and recover-batch take --shard and --coordinator/
     --num-processes/--process-id, as the JAX CLI does: every process runs
     the same command with its own --process-id, init_distributed joins
@@ -39,9 +44,6 @@ Left out:
   * --rng: external mode needs rays supplied by the caller;
   * --grad-mode, --pair-sweep and --stage-loop: TPU measurement gates with
     no counterpart here (config.py);
-  * --intersect: the kernels sweep every triangle (clustered on large
-    scenes) with the same hits as a BVH traversal, and faster; the BVH is
-    an op of its own (ops/bvh.py).
 """
 
 from __future__ import annotations
@@ -74,7 +76,15 @@ def _cfg_from_args(args) -> RenderConfig:
         cluster_k=args.cluster_k,
         bin_cells=args.bin_cells,
         tri_order=args.tri_order,
+        intersect=args.intersect,
     )
+
+
+def _load(args, path: str):
+    """The scene file at `path`, with its BVH under --intersect bvh."""
+    from inverse_path_tracer_torch.scene.build import load_scene
+
+    return load_scene(path, asset_root=args.asset_root, with_bvh=args.intersect == "bvh")
 
 
 def _add_render_args(p: argparse.ArgumentParser, width=512, height=512, spp=64):
@@ -100,6 +110,8 @@ def _add_render_args(p: argparse.ArgumentParser, width=512, height=512, spp=64):
     p.add_argument("--tri-order", dest="tri_order", default="morton",
                    choices=("morton", "file"),
                    help="kernel-internal triangle order for clustered scenes")
+    p.add_argument("--intersect", default="auto", choices=("auto", "brute", "bvh"),
+                   help="closest-hit search of the render (bvh = BVH traversal)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--asset-root", default=ASSET_ROOT)
     p.add_argument("--cpu", action="store_true", help="run on the CPU")
@@ -131,11 +143,10 @@ def _mesh(args):
 
 def cmd_render(args):
     from inverse_path_tracer_torch.render.forward import render_to_png
-    from inverse_path_tracer_torch.scene.build import load_scene
     from inverse_path_tracer_torch.utils.profiling import profile_trace
 
     dev = _device(args)
-    scene = load_scene(args.scene, asset_root=args.asset_root)
+    scene = _load(args, args.scene)
     cfg = _cfg_from_args(args)
     with profile_trace(args.profile):
         render_to_png(scene.diffuse, scene, args.seed, cfg, args.out, device=dev)
@@ -204,12 +215,11 @@ def _logger_every(logger, every: int):
 def cmd_recover(args):
     from inverse_path_tracer_torch.data.pipeline import load_image01, render_with_materials
     from inverse_path_tracer_torch.models.recover import recover_materials
-    from inverse_path_tracer_torch.scene.build import load_scene
     from inverse_path_tracer_torch.utils.metrics import MetricsLogger
 
     dev = _device(args)
     mesh = _mesh(args)
-    scene = load_scene(args.scene, asset_root=args.asset_root)
+    scene = _load(args, args.scene)
     cfg = _cfg_from_args(args)
     target = load_image01(args.image)
     logger = MetricsLogger(args.log)
@@ -261,7 +271,7 @@ def cmd_recover_batch(args):
     mesh = _mesh(args)
     cfg = _cfg_from_args(args)
     scene_files = [os.path.join(args.scenes_dir, f"{i}.txt") for i in range(args.n)]
-    scene = load_scene(scene_files[0], asset_root=args.asset_root)
+    scene = _load(args, scene_files[0])
     targets = torch.stack([load_image01(os.path.join(args.imgs_dir, f"{i}.png"))
                            for i in range(args.n)])
     labels = np.stack([load_scene(f, asset_root=args.asset_root).diffuse.numpy()

@@ -2,8 +2,8 @@
 RenderConfig / CameraConfig that the forward and inverse paths read) and
 the training schedule TrainConfig (the JAX package's, field for field).
 
-wavefront, stage_bounces, cluster_k, tri_order and bin_cells keep the JAX
-package's meanings (its config.py:110-194).  Its TPU measurement gates
+wavefront, stage_bounces, cluster_k, tri_order, bin_cells and intersect
+keep the JAX package's meanings (its config.py:110-207).  Its TPU measurement gates
 stage_loop, pair_sweep and fast_recip have no counterpart: the kernels
 always compute t with an exact IEEE divide, test each ray against each
 cluster box on its own, and end a stage's loop when its ray dies.
@@ -18,6 +18,7 @@ BACKENDS = ("auto", "plain")
 RNG_MODES = ("fused", "external")
 WAVEFRONTS = ("auto", "mega", "staged")
 TRI_ORDERS = ("morton", "file")
+INTERSECTS = ("auto", "brute", "bvh")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -79,6 +80,15 @@ class RenderConfig:
     # Origin cells per axis of the staged wavefront's ray binning on
     # clustered scenes (render/forward.py _binned_order).
     bin_cells: int = 2
+    # The closest-hit search of the render and its gradient: "auto" and
+    # "brute" sweep every triangle (clustered on large scenes); "bvh", on a
+    # scene with a BVH (load_scene(with_bvh=True), ops/bvh.py attach_bvh),
+    # traverses the BVH (render_common.cuh traverse on the card,
+    # ops/bvh.py intersect_bvh in the plain versions), with the same hits,
+    # in one unstaged wavefront whatever `wavefront` says; on a scene
+    # without one it sweeps.  The extraction always sweeps, as in the JAX
+    # package.
+    intersect: str = "auto"
 
     def __post_init__(self):
         if self.backend not in BACKENDS:
@@ -89,6 +99,8 @@ class RenderConfig:
             raise ValueError(f"unknown wavefront {self.wavefront!r}; expected one of {WAVEFRONTS}")
         if self.tri_order not in TRI_ORDERS:
             raise ValueError(f"unknown tri_order {self.tri_order!r}; expected one of {TRI_ORDERS}")
+        if self.intersect not in INTERSECTS:
+            raise ValueError(f"unknown intersect {self.intersect!r}; expected one of {INTERSECTS}")
         if self.cluster_k < 0 or self.stage_bounces < 1 or self.bin_cells < 1:
             raise ValueError(f"need cluster_k >= 0, stage_bounces >= 1 and bin_cells >= 1, got "
                              f"{self.cluster_k}, {self.stage_bounces}, {self.bin_cells}")

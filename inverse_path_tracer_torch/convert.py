@@ -7,6 +7,7 @@ or `jax_scene_fields(scene)`, which also carries an attached BVH) and returns
 the port's SceneData, so that both packages render bit-identical scenes.  The
 JAX `bvh` leaf, () or the six arrays of its BVHData, becomes the port's
 ops/bvh.py BVHData or None; a missing or empty one means no BVH.
+`render_config_from_jax` carries a JAX RenderConfig's fields across.
 `adam_state_from_numpy` turns optax.adam's (mu, nu, count) into a
 torch.optim.Adam state entry, so both packages can start from one state.
 `gcn_params_from_numpy` maps the JAX GCN's parameter dict onto the port's
@@ -26,9 +27,27 @@ from typing import Dict, Mapping, Tuple
 import numpy as np
 import torch
 
+from inverse_path_tracer_torch.config import CameraConfig, RenderConfig
 from inverse_path_tracer_torch.scene.build import SceneData
 
 _INDEX_FIELDS = ("emissive_idx", "specular_idx")
+# RenderConfig fields whose JAX values mean something else in the port:
+# backend ("xla", "pallas"), rng ("auto") and tile_size (a TPU memory size).
+_CONFIG_OWN = ("backend", "rng", "tile_size")
+
+
+def render_config_from_jax(cfg) -> RenderConfig:
+    """The port's RenderConfig of a JAX RenderConfig (any object with its
+    attributes): every field of the port's config but backend, rng and
+    tile_size, which keep the port's defaults; the camera field by field."""
+    kw = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(RenderConfig)
+          if f.name not in _CONFIG_OWN and f.name != "camera" and hasattr(cfg, f.name)}
+    cam = cfg.camera
+    kw["camera"] = CameraConfig(**{f.name: tuple(getattr(cam, f.name))
+                                   if isinstance(getattr(cam, f.name), (tuple, list))
+                                   else getattr(cam, f.name)
+                                   for f in dataclasses.fields(CameraConfig)})
+    return RenderConfig(**kw)
 
 
 def jax_scene_fields(scene) -> Dict[str, object]:
@@ -39,14 +58,18 @@ def jax_scene_fields(scene) -> Dict[str, object]:
 
 
 def scene_from_numpy(fields: Mapping[str, np.ndarray], device="cpu") -> SceneData:
-    from inverse_path_tracer_torch.ops.bvh import BVHData
+    """The port's scene of a JAX scene's numpy fields; its BVH, if any, is
+    checked by ops/bvh.py check_bvh (the traversal's preconditions)."""
+    from inverse_path_tracer_torch.ops.bvh import BVHData, check_bvh
 
     out = {}
     for f in dataclasses.fields(SceneData):
         if f.name == "bvh":
             leaf = fields.get("bvh")
-            has_bvh = leaf is not None and len(leaf) > 0
-            out["bvh"] = BVHData.from_numpy(leaf).to(device) if has_bvh else None
+            bvh = BVHData.from_numpy(leaf) if leaf is not None and len(leaf) > 0 else None
+            if bvh is not None:
+                check_bvh(bvh, np.asarray(fields["vertices"]).shape[0])
+            out["bvh"] = None if bvh is None else bvh.to(device)
             continue
         a = np.asarray(fields[f.name])
         dtype = np.int64 if f.name in _INDEX_FIELDS else np.float32

@@ -7,8 +7,14 @@ against its rendered image; returns (w, pixel, light, labels) as the
 reference's createGraph + getMaterials do.
 render_with_materials: re-render a scene with predicted materials.
 
+The renders load their scene with its BVH under cfg.intersect == "bvh", so
+that they take the BVH route (RenderConfig.intersect).
+
 Keys are integer seeds (ops/rng.py); scene i of generate_files renders with
-rng.fold_in(key, i).  Entry points run on the card unless device="cpu".
+target_key(key, i), under its own stream, so that its samples differ from
+those of render_with_materials and generate_data at their default key 0
+(rng.fold_in(0, 0) is 0; the JAX package's keys differ too).  Entry points
+run on the card unless device="cpu".
 """
 
 from __future__ import annotations
@@ -68,6 +74,11 @@ def load_image01(path: str, size: Optional[Tuple[int, int]] = None) -> torch.Ten
     return torch.from_numpy((img / 255.0).astype(np.float32))
 
 
+def target_key(key: int, i: int) -> int:
+    """The render key of scene i of generate_files under `key`."""
+    return rng.fold_in(rng.fold_in(key, rng.TARGET_STREAM), i)
+
+
 def generate_files(
     n: int,
     cfg: RenderConfig,
@@ -83,8 +94,8 @@ def generate_files(
     os.makedirs(imgs_dir, exist_ok=True)
     key = seed if key is None else key
     for i, path in enumerate(generate_scene_files(n, out_dir=scenes_dir, seed=seed)):
-        scene = load_scene(path, asset_root=asset_root)
-        render_to_png(scene.diffuse, scene, rng.fold_in(key, i), cfg,
+        scene = load_scene(path, asset_root=asset_root, with_bvh=cfg.intersect == "bvh")
+        render_to_png(scene.diffuse, scene, target_key(key, i), cfg,
                       os.path.join(imgs_dir, f"{i}.png"), device=device)
 
 
@@ -122,6 +133,6 @@ def render_with_materials(
     """Re-render a scene with per-triangle diffuse `materials` (nT, 3)
     (ipt_cuda.py:167-183), write the PNG, and return the (H, W, 3) uint8
     image."""
-    scene = load_scene(scenefile, asset_root=asset_root)
+    scene = load_scene(scenefile, asset_root=asset_root, with_bvh=cfg.intersect == "bvh")
     mats = torch.as_tensor(materials, dtype=torch.float32)
     return render_to_png(mats, scene, key, cfg, imgfile, device=device)

@@ -25,10 +25,15 @@ the working set.  Two choices keep its hits those of the dense sweep
     rounding never culls a hit and exact ties reach the comparison, which
     keeps the lowest triangle index.
 
-The renders do not traverse the BVH: the kernels (and their plain versions)
-sweep every triangle, clustered on large scenes (ops/kernels/clusters.py),
-with the same hits.  intersect_bvh is an op of its own, held against the
-JAX package's and timed on the card beside the kernels' sweep.
+The renders traverse the BVH where RenderConfig.intersect is "bvh" and the
+scene carries one (the BVH route): the plain versions through
+intersect_bvh, the kernels through render_common.cuh traverse, the same
+steps ray by ray on the tables of node_rows.  check_bvh validates a tree
+where it enters the port (build_bvh, convert.py scene_from_numpy), so a
+render copies nothing to the host; the kernel traps on a stack overflow
+as the last guard.  Elsewhere
+they sweep every triangle, clustered on large scenes
+(ops/kernels/clusters.py), with the same hits.
 """
 
 from __future__ import annotations
@@ -39,6 +44,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from inverse_path_tracer_torch.ops import intersect as _intersect
 from inverse_path_tracer_torch.ops.intersect import Intersection, plane_rows
 from inverse_path_tracer_torch.scene.build import SceneData
 
@@ -120,9 +126,9 @@ def _build_python(verts: np.ndarray, leaf_size: int) -> dict:
 
 
 def build_bvh(scene: SceneData, leaf_size: int = 4, use_native: bool = False) -> BVHData:
-    """The BVH of the scene's triangles, on the scene's device.
-    use_native=True asks for the C++ builder (utils/native.py), which is
-    taken when it is available; both give the same arrays."""
+    """The BVH of the scene's triangles, on the scene's device, checked by
+    check_bvh.  use_native=True asks for the C++ builder (utils/native.py),
+    which is taken when it is available; both give the same arrays."""
     verts = scene.vertices.detach().to("cpu", torch.float32).numpy()
     arrays = None
     if use_native:
@@ -131,7 +137,9 @@ def build_bvh(scene: SceneData, leaf_size: int = 4, use_native: bool = False) ->
         arrays = native.build_bvh_native(verts, leaf_size)
     if arrays is None:
         arrays = _build_python(verts, leaf_size)
-    return BVHData.from_numpy(arrays).to(scene.device)
+    bvh = BVHData.from_numpy(arrays)
+    check_bvh(bvh, scene.n_tri)
+    return bvh.to(scene.device)
 
 
 def attach_bvh(scene: SceneData, leaf_size: int = 4) -> SceneData:
@@ -144,6 +152,49 @@ def _padded_boxes(bvh: BVHData):
     cluster boxes."""
     m = 1e-4 * (bvh.bbox_max - bvh.bbox_min) + 1e-5
     return bvh.bbox_min - m, bvh.bbox_max + m
+
+
+def check_bvh(bvh: BVHData, n_tri: int) -> None:
+    """Raises ValueError unless `bvh` is a tree over n_tri triangles that
+    the kernels' traversal takes: tri_order a permutation of the
+    triangles, every leaf's slots inside it, every inner node's children
+    after it and inside the node table (left = i + 1, right = i +
+    right_offset > i + 1), and no path from the root longer than
+    MAX_STACK - 1 nodes, so that the traversal's stack (the farther child
+    pushed first, at most one node more per level) cannot overflow.  It
+    copies the tree to the host: the port calls it where a tree enters it
+    (build_bvh, convert.py scene_from_numpy), not per render."""
+    start, n_prims, right = (t.detach().to("cpu", torch.int64).numpy()
+                             for t in (bvh.start, bvh.n_prims, bvh.right_offset))
+    order = bvh.tri_order.detach().to("cpu", torch.int64).numpy()
+    m = start.shape[0]
+    if m == 0 or not np.array_equal(np.sort(order), np.arange(n_tri)):
+        raise ValueError(f"the BVH's tri_order is not a permutation of {n_tri} triangles")
+    leaf = n_prims > 0
+    if (n_prims < 0).any() or (leaf & ((start < 0) | (start + n_prims > n_tri))).any():
+        raise ValueError("a BVH leaf holds slots outside tri_order")
+    inner = np.nonzero(~leaf)[0]
+    if ((right[inner] < 2) | (inner + right[inner] >= m)).any():
+        raise ValueError("a BVH inner node's children lie outside the node table")
+    depth = np.zeros(m, dtype=np.int64)  # children follow their parent
+    for i in inner:
+        for c in (i + 1, i + right[i]):
+            depth[c] = max(depth[c], depth[i] + 1)
+    if int(depth.max()) + 1 > MAX_STACK:
+        raise ValueError(f"the BVH is {int(depth.max()) + 1} nodes deep; the traversal's stack "
+                         f"holds {MAX_STACK}")
+
+
+def node_rows(bvh: BVHData) -> torch.Tensor:
+    """(M, 8) float32 node table of the kernels' traversal
+    (render_common.cuh traverse): the box padded as _padded_boxes pads it,
+    then, as int32 bits, a leaf's first slot or an inner node's right-child
+    offset, and n_prims."""
+    lo, hi = _padded_boxes(bvh)
+    link = torch.where(bvh.n_prims > 0, bvh.start, bvh.right_offset)
+    rows = torch.cat([lo.float().view(torch.int32), hi.float().view(torch.int32),
+                      link.to(torch.int32)[:, None], bvh.n_prims.to(torch.int32)[:, None]], dim=1)
+    return rows.contiguous().view(torch.float32)
 
 
 def _slab(lo, hi, p, inv_d, best_t):
@@ -184,8 +235,11 @@ def intersect_bvh(
     and results: exact ties keep the lowest triangle index.  A round pops
     one node per ray, tests a leaf's slots together (as many as the
     fullest leaf holds, whatever leaf size built the tree) and both
-    children's boxes together."""
+    children's boxes together.  Inside ops/intersect.py counting_sweeps it
+    counts the nodes popped, the (ray, box) tests and the (ray, triangle)
+    tests."""
     n, dev = p.shape[0], p.device
+    counts = _intersect._counts
     leaf_size = max(int(bvh.n_prims.max()), 1) if bvh.n_nodes else 1
     planes = plane_rows(scene)
     lo_box, hi_box = _padded_boxes(bvh)
@@ -224,6 +278,10 @@ def intersect_bvh(
         # An inner node whose box the ray meets pushes the children it
         # meets, the farther first, so that the nearer pops first.
         push = hit_box & (count == 0)
+        if counts is not None:
+            counts["nodes"] += lane.numel()
+            counts["node_tests"] += lane.numel() + 2 * int(push.sum())
+            counts["tri_tests"] += int(take.sum())
         kids = torch.stack([torch.clamp(node + 1, max=last_node), node + right[node]], dim=1)
         hit_k, t_k = _slab(lo_box[kids], hi_box[kids], pa[:, None, :], ia[:, None, :],
                            best_t[:, None])

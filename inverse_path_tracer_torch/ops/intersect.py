@@ -191,9 +191,12 @@ def counting_sweeps():
     """Counts, inside the block, the clustered sweeps' (ray, group) box
     tests and how many of them entered, the (ray, cluster) box tests of
     clusters 1.. inside entered groups and how many of them entered, and
-    the (ray, triangle) pairs swept: yields the dict of running totals."""
+    the (ray, triangle) pairs swept; and ops/bvh.py intersect_bvh's nodes
+    popped, (ray, node box) tests and (ray, triangle) tests: yields the
+    dict of running totals."""
     global _counts
-    _counts = {"group_tests": 0, "group_entered": 0, "tests": 0, "entered": 0, "pairs": 0}
+    _counts = {"group_tests": 0, "group_entered": 0, "tests": 0, "entered": 0, "pairs": 0,
+               "nodes": 0, "node_tests": 0, "tri_tests": 0}
     try:
         yield _counts
     finally:

@@ -15,16 +15,24 @@ global order with `perm` (perm[i] = the global index of internal row i).
 
 kernel_view() gives the plain versions the same order: a SceneData whose
 per-triangle fields are permuted and whose emitter indices are internal.
+
+On the BVH route (uses_bvh: cfg.intersect == "bvh" on a scene with a BVH)
+the internal order is instead the tree's leaf order, perm = the BVH's
+tri_order, so that a leaf's triangles are contiguous rows; the view keeps
+the BVH and the scene in global order, which its traversal indexes.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple, Optional
+from typing import TYPE_CHECKING, NamedTuple, Optional
 
 import torch
 
 from inverse_path_tracer_torch.scene.build import SceneData
+
+if TYPE_CHECKING:
+    from inverse_path_tracer_torch.ops.bvh import BVHData
 
 # The clustered sweep is used at padded triangle counts of at least
 # CLUSTER_MIN_TP (cluster_k_for); CLUSTER_K, when not 0, overrides the auto
@@ -122,10 +130,19 @@ def morton_order(vertices: torch.Tensor, hot: int = 0) -> torch.Tensor:
     return torch.argsort(key, stable=True)
 
 
+def uses_bvh(scene: SceneData, cfg) -> bool:
+    """Whether the render takes the BVH route: cfg.intersect == "bvh" on a
+    scene that carries a BVH (the JAX package's _intersect rule)."""
+    return cfg is not None and cfg.intersect == "bvh" and scene.bvh is not None
+
+
 def kernel_perm(scene: SceneData, cfg) -> Optional[torch.Tensor]:
     """The internal -> global triangle order of the kernels (on the
-    scene's device), or None where the scene keeps global order (dense
+    scene's device): the BVH's leaf order on the BVH route, else the
+    clustered order, or None where the scene keeps global order (dense
     sweep, or cfg.tri_order == "file")."""
+    if uses_bvh(scene, cfg):
+        return scene.bvh.tri_order.to(scene.device, torch.int64)
     ck = cluster_k_for(scene.n_tri, cfg)
     if ck == 0 or cfg.tri_order != "morton":
         return None
@@ -181,6 +198,8 @@ class KernelView(NamedTuple):
     cab: Optional[torch.Tensor]  # (C, 8) cluster boxes
     gab: Optional[torch.Tensor] = None  # (G, 8) boxes of the groups of clusters 1..
     group: int = 0  # clusters per group box
+    bvh: Optional["BVHData"] = None  # the BVH route's tree (global tri_order)
+    source: Optional[SceneData] = None  # the BVH route's scene in global order
 
 
 def permute_scene(scene: SceneData, perm: torch.Tensor) -> SceneData:
@@ -201,7 +220,16 @@ def permute_scene(scene: SceneData, perm: torch.Tensor) -> SceneData:
 
 
 def kernel_view(scene: SceneData, cfg) -> KernelView:
-    """The kernels' view of `scene` under cfg (cfg None: dense, global)."""
+    """The kernels' view of `scene` under cfg (cfg None: dense, global).
+    On the BVH route the tree must order the scene's triangles (its
+    structure was checked where it entered the port: ops/bvh.py
+    check_bvh)."""
+    if uses_bvh(scene, cfg):
+        if scene.bvh.tri_order.shape[0] != scene.n_tri:
+            raise ValueError(f"the BVH orders {scene.bvh.tri_order.shape[0]} triangles, the "
+                             f"scene has {scene.n_tri}")
+        perm = kernel_perm(scene, cfg)
+        return KernelView(permute_scene(scene, perm), perm, 0, None, bvh=scene.bvh, source=scene)
     ck = 0 if cfg is None else cluster_k_for(scene.n_tri, cfg)
     if ck == 0:
         return KernelView(scene, None, 0, None)

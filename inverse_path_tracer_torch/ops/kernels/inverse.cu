@@ -438,6 +438,7 @@ extern "C" {
 // B5's block count for the rays of *Pin.  Returns the cudaError_t.
 int ipt_inverse_grid_blocks(const TraceParams* Pin, int* blocks) {
   TraceParams P = *Pin;
+  if (P.n_nodes) return static_cast<int>(cudaErrorInvalidValue);  // no BVH flavour
   P.use_smem = 1;
   int cap = 0;
   const cudaError_t err = grid_capacity(P, &cap);
@@ -452,6 +453,7 @@ int ipt_inverse_grid_blocks(const TraceParams* Pin, int* blocks) {
 int ipt_inverse_grid(const TraceParams* Pin, const float* pix, float* partials, float* stats,
                      int* next_ray, int blocks, void* stream) {
   TraceParams P = *Pin;
+  if (P.n_nodes) return static_cast<int>(cudaErrorInvalidValue);
   P.use_smem = 1;
   if (P.cluster_k && !(aligned16(P.planes) && aligned16(P.cab) && aligned16(P.gab)))
     return static_cast<int>(cudaErrorMisalignedAddress);  // the TMA copy's sources
@@ -476,6 +478,7 @@ int ipt_inverse_grid(const TraceParams* Pin, const float* pix, float* partials, 
 int ipt_inverse_global(const TraceParams* Pin, const float* pix, double* grid, float* stats,
                        int* next_ray, void* stream) {
   TraceParams P = *Pin;
+  if (P.n_nodes) return static_cast<int>(cudaErrorInvalidValue);
   if (P.n <= 0) return 0;
   int cap = 0;
   const cudaError_t err = global_capacity(P, &cap);
@@ -496,6 +499,7 @@ int ipt_inverse_global(const TraceParams* Pin, const float* pix, double* grid, f
 // (render_common.cuh smem_tables).
 int ipt_inverse_rec(const TraceParams* Pin, float* rec, float* stats, void* stream) {
   TraceParams P = *Pin;
+  if (P.n_nodes) return static_cast<int>(cudaErrorInvalidValue);
   if (P.n <= 0) return 0;
   const size_t dyn = smem_tables(P, 0);
   const int blocks = (P.n + kThreads - 1) / kThreads;

@@ -84,6 +84,7 @@ from inverse_path_tracer_torch.ops.kernels.render_kernel import (
     _on_card,
     _raise_on,
     _ray_inputs,
+    _refuse_bvh,
     _trace_params,
     sweep,
 )
@@ -177,6 +178,7 @@ def inverse_tile(
     lib = _library("inverse")
     params, tabs = _trace_params(scene.diffuse, scene, cfg, tables, p, d, alive, uniforms,
                                  _default_orig(p, orig), keys, camera)
+    _refuse_bvh(tabs, "inverse_tile")
     nt, dev = scene.n_tri, scene.device
     stats = torch.empty((2, n), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
@@ -218,6 +220,7 @@ def inverse_tile_rec(
     lib = _library("inverse")
     params, tabs = _trace_params(scene.diffuse, scene, cfg, tables, p, d, alive, uniforms,
                                  _default_orig(p, orig), keys, camera)
+    _refuse_bvh(tabs, "inverse_tile_rec")
     dev = scene.device
     rec = torch.empty((cfg.max_bounces * REC_INV_ROWS, n), dtype=torch.float32, device=dev)
     stats = torch.empty((2, n), dtype=torch.float32, device=dev)
@@ -268,6 +271,7 @@ def inverse_tile_global(
     lib = _library("inverse")
     params, tabs = _trace_params(scene.diffuse, scene, cfg, tables, p, d, alive, uniforms,
                                  _default_orig(p, orig), keys, camera)
+    _refuse_bvh(tabs, "inverse_tile_global")
     stats = torch.empty((2, n), dtype=torch.float32, device=dev)
     next_ray = torch.zeros(1, dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):

@@ -53,10 +53,18 @@
 // lengths), so every result is bit-reproducible from run to run on one card
 // (it does depend on how rays fall into warps and blocks, as any float sum
 // depends on its order).  Shared memory holds one (nT, 3) row of
-// accumulators per warp (up to the wrapper's limit) and, for B2, when they
-// fit beside them in 48 KB, the scene tables.
+// accumulators per warp and, for B2, when they fit beside them, the scene
+// tables.  Where a block's rows do not fit in shared memory (past ~2,400
+// triangles for B2 and B4, ~4,800 for B9: acc_in_smem), the kGlobalAcc
+// instances keep them in a scratch buffer in global memory, (blocks,
+// warps, nT, 3) floats that the wrapper allocates, each warp's row its own,
+// so still no atomics: the block clears its rows, its warps add into them,
+// and it sums them in warp order into its partial, as in shared memory.
+// Those instances run at most kGlobalAccBlocksPerSm blocks per SM, which
+// bounds the scratch (B4's then walk their rays block by block), and the
+// shared-memory instances are unchanged.
 //
-// Bound.  B2 does B1's work again (the closest-hit sweeps, f32 ALU) plus
+// Bound.  B2 does B1's work again (the closest-hit searches, f32 ALU) plus
 // the recursion, ~40 f32 operations and a warp sum per reached bounce, and
 // moves 2 x 56 bytes per reached bounce through local memory (L1 and L2).
 // B4 reads the records of the reached bounces (64 bytes each) and a flag
@@ -188,6 +196,27 @@ __device__ __forceinline__ int reached_slots(const GlobalSource& src, int slots,
   return n_reached;
 }
 
+// Blocks per SM of the kGlobalAcc instances (header comment).
+constexpr int kGlobalAccBlocksPerSm = 2;
+
+// Whether `warps` (nT, 3) rows of accumulators fit in a block's shared
+// memory.
+__host__ __device__ inline bool acc_in_smem(int n_tri, int warps) {
+  return ((static_cast<size_t>(warps) * n_tri * 3 + 3) & ~size_t(3)) * sizeof(float) <=
+         static_cast<size_t>(kMaxSmem);
+}
+
+// The accumulators of this block: its `warps` rows of the scratch buffer
+// (kGlobalAcc), or of dynamic shared memory.
+template <bool kGlobalAcc>
+__device__ __forceinline__ float* block_acc(float* smem, float* scratch, int n_tri, int warps) {
+  if constexpr (kGlobalAcc) {
+    return scratch + static_cast<size_t>(blockIdx.x) * warps * n_tri * 3;
+  } else {
+    return smem;
+  }
+}
+
 // The block's accumulators: `rows` (nT, 3) rows, one per warp.
 __device__ __forceinline__ void zero_acc(float* acc, int n_tri, int rows = kWarps) {
   for (int e = threadIdx.x; e < rows * n_tri * 3; e += blockDim.x) acc[e] = 0.f;
@@ -244,14 +273,17 @@ __device__ __forceinline__ void recurse_ended(const LocalRecords<kCap>& recs, bo
 // recursions together (recurse_ended) and then take new rays; every lane
 // with a pending ray then sweeps it together.  The hand-out depends only on
 // (n, the grid, the path lengths), and every sum has a fixed order, so the
-// gradient is the same in every run on one card.
-template <int kCap, bool kClustered>
-__global__ void __launch_bounds__(kThreads, min_blocks(kClustered))
-    grad_tile_kernel(const TraceParams P, const float* g, float* partials) {
+// gradient is the same in every run on one card.  kSweep is the search
+// flavour (the BVH route's traversal included); kGlobalAcc keeps the
+// accumulators in `scratch` (header comment).
+template <int kCap, bool kGlobalAcc, int kSweep>
+__global__ void __launch_bounds__(kThreads, min_blocks(kSweep))
+    grad_tile_kernel(const TraceParams P, const float* g, float* partials, float* scratch) {
   extern __shared__ float4 smem4[];
-  float* acc = reinterpret_cast<float*>(smem4);
+  float* smem = reinterpret_cast<float*>(smem4);
+  float* acc = block_acc<kGlobalAcc>(smem, scratch, P.n_tri, kWarps);
   zero_acc(acc, P.n_tri);
-  const Tables T = stage_tables<kClustered>(P, acc + acc_floats(P.n_tri));
+  const Tables T = stage_tables<kSweep>(P, kGlobalAcc ? smem : acc + acc_floats(P.n_tri));
   __syncthreads();
 
   float* warp_acc = acc + static_cast<size_t>(threadIdx.x >> 5) * P.n_tri * 3;
@@ -268,7 +300,7 @@ __global__ void __launch_bounds__(kThreads, min_blocks(kClustered))
       float u[6];
       draw6(P, i, h_orig, b, b, u);
       escaped = !L.hit;
-      const bool cont = bounce_step<kClustered, true>(P, T, L, b, u, recs, round & (kCap - 1));
+      const bool cont = bounce_step<kSweep, true>(P, T, L, b, u, recs, round & (kCap - 1));
       ++b;
       sweep = cont && b < P.max_bounces;
       done = !sweep;
@@ -288,21 +320,16 @@ __global__ void __launch_bounds__(kThreads, min_blocks(kClustered))
       }
     }
     if (w.next >= w.end && !__any_sync(kAllLanes, has)) break;
-    if (sweep) sweep_from<kClustered>(P, T, L, L.point);
+    if (sweep) sweep_from<kSweep>(P, T, L, L.point);
   }
   __syncthreads();
   write_partial(acc, P.n_tri, partials);
 }
 
-__global__ void __launch_bounds__(kThreads)
-    reverse_tile_kernel(const float* rec, const float* g, int n, int n_tri, int max_bounces,
-                        int quirks, float inv_pi, float* partials) {
-  extern __shared__ float4 smem4[];
-  float* acc = reinterpret_cast<float*>(smem4);
-  zero_acc(acc, n_tri);
-  __syncthreads();
-
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+// B4's recursion of ray i (none past n) into this warp's row `acc`.
+__device__ __forceinline__ void reverse_ray(const float* rec, const float* g, int n, int i,
+                                            int max_bounces, int quirks, float inv_pi,
+                                            float* acc) {
   const GlobalSource src{rec, n, i};
   int n_reached = 0;
   bool escaped = false;
@@ -311,11 +338,33 @@ __global__ void __launch_bounds__(kThreads)
     n_reached = reached_slots(src, max_bounces, &escaped);
     gi = load_g(g, n, i);
   }
-  const int warp = threadIdx.x >> 5;
   V3 suf = zero3();
   bool esc_next = false;
-  reverse_path(src, max_bounces, n_reached, escaped, gi, quirks, inv_pi,
-               acc + static_cast<size_t>(warp) * n_tri * 3, suf, esc_next);
+  reverse_path(src, max_bounces, n_reached, escaped, gi, quirks, inv_pi, acc, suf, esc_next);
+}
+
+// B4: one thread per ray, one block per kThreads rays; the kGlobalAcc
+// instance runs at most kGlobalAccBlocksPerSm blocks per SM, block b taking
+// the kThreads-ray blocks b, b + gridDim.x, ... in order.
+template <bool kGlobalAcc>
+__global__ void __launch_bounds__(kThreads)
+    reverse_tile_kernel(const float* rec, const float* g, int n, int n_tri, int max_bounces,
+                        int quirks, float inv_pi, float* partials, float* scratch) {
+  extern __shared__ float4 smem4[];
+  float* acc = block_acc<kGlobalAcc>(reinterpret_cast<float*>(smem4), scratch, n_tri, kWarps);
+  zero_acc(acc, n_tri);
+  __syncthreads();
+
+  float* warp_acc = acc + static_cast<size_t>(threadIdx.x >> 5) * n_tri * 3;
+  if constexpr (kGlobalAcc) {
+    for (long long base = static_cast<long long>(blockIdx.x) * kThreads; base < n;
+         base += static_cast<long long>(gridDim.x) * kThreads)
+      reverse_ray(rec, g, n, static_cast<int>(base) + threadIdx.x, max_bounces, quirks, inv_pi,
+                  warp_acc);
+  } else {
+    reverse_ray(rec, g, n, blockIdx.x * blockDim.x + threadIdx.x, max_bounces, quirks, inv_pi,
+                warp_acc);
+  }
   __syncthreads();
   write_partial(acc, n_tri, partials);
 }
@@ -388,12 +437,13 @@ constexpr int kB9Preload = 4;
 // coalesce.  Each block clears its rows once and writes one (nT, 3)
 // partial; no counter is shared between warps, so the sums depend only on
 // (n, the grid) and two calls are bit-equal.
-template <int kPre>
+template <int kPre, bool kGlobalAcc>
 __global__ void __launch_bounds__(kB9Threads)
     stage_reverse_kernel(const float* rec, const float* g, const float* suf_in, int n, int n_tri,
-                         int k, int quirks, float inv_pi, float* partials, float* suf_out) {
+                         int k, int quirks, float inv_pi, float* partials, float* suf_out,
+                         float* scratch) {
   extern __shared__ float4 smem4[];
-  float* acc = reinterpret_cast<float*>(smem4);
+  float* acc = block_acc<kGlobalAcc>(reinterpret_cast<float*>(smem4), scratch, n_tri, kB9Warps);
   zero_acc(acc, n_tri, kB9Warps);
   __syncthreads();
 
@@ -431,35 +481,94 @@ __global__ void __launch_bounds__(kB9Threads)
   write_partial(acc, n_tri, partials, kB9Warps);
 }
 
-// B9's instance for a stage of k slots (preloaded slots or the loop), its
-// capacity cache and its dynamic shared memory.
-using StageReverseKernel = void (*)(const float*, const float*, const float*, int, int, int, int,
-                                    float, float*, float*);
-Capacity g_stage_reverse_capacity[2][kMaxDevices] = {};
-
-cudaError_t stage_reverse_capacity(int n_tri, int k, StageReverseKernel* kernel, size_t* dyn,
-                                   int* blocks) {
-  const bool preload = k <= kB9Preload;
-  *kernel = preload ? stage_reverse_kernel<kB9Preload> : stage_reverse_kernel<0>;
-  *dyn = ((static_cast<size_t>(kB9Warps) * n_tri * 3 + 3) & ~size_t(3)) * sizeof(float);
-  return capacity(*kernel, g_stage_reverse_capacity[preload ? 1 : 0], *dyn, blocks, kB9Threads);
+// The blocks of a kGlobalAcc grid: at most kGlobalAccBlocksPerSm per SM.
+cudaError_t global_acc_blocks(int* blocks) {
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  *blocks = kGlobalAccBlocksPerSm * sms;
+  return err;
 }
 
-// B2's instance for *P (ring of 16 or 64 slots, dense or clustered), its
-// capacity cache and its dynamic shared memory (sets P.use_smem).
-using GradKernel = void (*)(const TraceParams, const float*, float*);
-Capacity g_grad_capacity[4][kMaxDevices] = {};
+// The grid of a kernel of `cap` blocks (kGlobalAcc: cut to
+// global_acc_blocks) and the scratch floats per block (0: the
+// accumulators are in shared memory).
+cudaError_t acc_grid(bool global, int cap, int n_tri, int warps, int* blocks,
+                     long long* scratch) {
+  *blocks = cap;
+  *scratch = 0;
+  if (!global) return cudaSuccess;
+  int most = 0;
+  const cudaError_t err = global_acc_blocks(&most);
+  *blocks = min(cap, most);
+  *scratch = static_cast<long long>(warps) * n_tri * 3;
+  return err;
+}
 
-cudaError_t grad_kernel(TraceParams& P, GradKernel* kernel, Capacity** cache, size_t* dyn) {
+// B9's instance for a stage of k slots (preloaded slots or the loop) over
+// nT triangles (accumulators in shared or global memory), its dynamic
+// shared memory, the blocks that fit on the card at once (cut as acc_grid
+// does) and the scratch floats per block.
+using StageReverseKernel = void (*)(const float*, const float*, const float*, int, int, int, int,
+                                    float, float*, float*, float*);
+Capacity g_stage_reverse_capacity[2][2][kMaxDevices] = {};
+
+cudaError_t stage_reverse_capacity(int n_tri, int k, StageReverseKernel* kernel, size_t* dyn,
+                                   int* blocks, long long* scratch) {
+  const bool preload = k <= kB9Preload;
+  const bool global = !acc_in_smem(n_tri, kB9Warps);
+  const StageReverseKernel kernels[2][2] = {
+      {stage_reverse_kernel<0, false>, stage_reverse_kernel<0, true>},
+      {stage_reverse_kernel<kB9Preload, false>, stage_reverse_kernel<kB9Preload, true>}};
+  *kernel = kernels[preload][global];
+  *dyn = global ? 0
+                : ((static_cast<size_t>(kB9Warps) * n_tri * 3 + 3) & ~size_t(3)) * sizeof(float);
+  int cap = 0;
+  const cudaError_t err = capacity(*kernel, g_stage_reverse_capacity[preload][global], *dyn, &cap,
+                                   kB9Threads);
+  if (err != cudaSuccess) return err;
+  return acc_grid(global, cap, n_tri, kB9Warps, blocks, scratch);
+}
+
+// B2's instance for *P (ring of 16 or 64 slots, accumulators in shared or
+// global memory, dense, clustered or BVH search), its capacity cache and
+// its dynamic shared memory (sets P.use_smem).
+using GradKernel = void (*)(const TraceParams, const float*, float*, float*);
+Capacity g_grad_capacity[2][2][3][kMaxDevices] = {};
+
+cudaError_t grad_kernel(TraceParams& P, GradKernel* kernel, Capacity** cache, size_t* dyn,
+                        bool* global) {
   if (P.max_bounces > 64) return cudaErrorInvalidValue;
-  const size_t acc = acc_floats(P.n_tri) * sizeof(float);
+  *global = !acc_in_smem(P.n_tri, kWarps);
+  const size_t acc = *global ? 0 : acc_floats(P.n_tri) * sizeof(float);
   *dyn = acc + smem_tables(P, acc);
-  const int k = (P.cluster_k ? 2 : 0) + (P.max_bounces <= 16 ? 0 : 1);
-  const GradKernel kernels[4] = {grad_tile_kernel<16, false>, grad_tile_kernel<64, false>,
-                                 grad_tile_kernel<16, true>, grad_tile_kernel<64, true>};
-  *kernel = kernels[k];
-  *cache = g_grad_capacity[k];
+  const int ring = P.max_bounces <= 16 ? 0 : 1, sweep = sweep_of(P);
+  const GradKernel kernels[2][2][3] = {
+      {{grad_tile_kernel<16, false, kSweepDense>, grad_tile_kernel<16, false, kSweepClustered>,
+        grad_tile_kernel<16, false, kSweepBvh>},
+       {grad_tile_kernel<16, true, kSweepDense>, grad_tile_kernel<16, true, kSweepClustered>,
+        grad_tile_kernel<16, true, kSweepBvh>}},
+      {{grad_tile_kernel<64, false, kSweepDense>, grad_tile_kernel<64, false, kSweepClustered>,
+        grad_tile_kernel<64, false, kSweepBvh>},
+       {grad_tile_kernel<64, true, kSweepDense>, grad_tile_kernel<64, true, kSweepClustered>,
+        grad_tile_kernel<64, true, kSweepBvh>}}};
+  *kernel = kernels[ring][*global][sweep];
+  *cache = g_grad_capacity[ring][*global][sweep];
   return cudaSuccess;
+}
+
+// B2's instance and dynamic shared memory for *P, its grid (at most the
+// blocks that fit on the card at once, cut as acc_grid does) and its
+// scratch floats per block.
+cudaError_t grad_grid(TraceParams& P, GradKernel* kernel, size_t* dyn, int* blocks,
+                      long long* scratch) {
+  Capacity* cache = nullptr;
+  bool global = false;
+  cudaError_t err = grad_kernel(P, kernel, &cache, dyn, &global);
+  int cap = 0;
+  if (err == cudaSuccess) err = capacity(*kernel, cache, *dyn, &cap);
+  if (err != cudaSuccess) return err;
+  return acc_grid(global, cap, P.n_tri, kWarps, blocks, scratch);
 }
 
 }  // namespace
@@ -468,58 +577,81 @@ extern "C" {
 
 // B2's blocks that fit on the card at once for the scene of *Pin (the
 // wrapper launches at most that many: render_kernel.py
-// persistent_blocks).  Returns the cudaError_t.
-int ipt_grad_tile_capacity(const TraceParams* Pin, int* blocks) {
+// persistent_blocks) and the scratch floats a block needs (0: none).
+// Returns the cudaError_t.
+int ipt_grad_tile_capacity(const TraceParams* Pin, int* blocks, long long* scratch) {
   TraceParams P = *Pin;
   size_t dyn = 0;
   GradKernel kernel = nullptr;
-  Capacity* cache = nullptr;
-  const cudaError_t err = grad_kernel(P, &kernel, &cache, &dyn);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(capacity(kernel, cache, dyn, blocks));
+  return static_cast<int>(grad_grid(P, &kernel, &dyn, blocks, scratch));
 }
 
 // B2 on `blocks` persistent blocks: partials (blocks, nT, 3) of d loss / d
-// materials for the rays of *Pin and the radiance cotangent g (3, n).
-// Returns the cudaError_t.
-int ipt_grad_tile(const TraceParams* Pin, const float* g, float* partials, int blocks,
-                  void* stream) {
+// materials for the rays of *Pin and the radiance cotangent g (3, n);
+// `scratch` holds blocks times the floats ipt_grad_tile_capacity gives
+// (null where that is 0).  Returns the cudaError_t.
+int ipt_grad_tile(const TraceParams* Pin, const float* g, float* partials, float* scratch,
+                  int blocks, void* stream) {
   TraceParams P = *Pin;
   if (P.n <= 0) return 0;
   size_t dyn = 0;
   GradKernel kernel = nullptr;
-  Capacity* cache = nullptr;
-  cudaError_t err = grad_kernel(P, &kernel, &cache, &dyn);
   int cap = 0;
-  if (err == cudaSuccess) err = capacity(kernel, cache, dyn, &cap);
+  long long per_block = 0;
+  const cudaError_t err = grad_grid(P, &kernel, &dyn, &cap, &per_block);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (blocks < 1 || blocks > cap) return static_cast<int>(cudaErrorInvalidValue);
-  kernel<<<blocks, kThreads, dyn, static_cast<cudaStream_t>(stream)>>>(P, g, partials);
+  if (blocks < 1 || blocks > cap || (per_block && scratch == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  kernel<<<blocks, kThreads, dyn, static_cast<cudaStream_t>(stream)>>>(P, g, partials, scratch);
   return static_cast<int>(cudaGetLastError());
 }
 
-// B4: partials (ceil(n / 256), nT, 3) from records (max_bounces * 16, n)
-// and g (3, n).  Returns the cudaError_t.
+// B4's grid for n rays over nT triangles: one block per kThreads rays, cut
+// as acc_grid does where the accumulators are in global memory, and the
+// scratch floats a block needs (0: none).  Returns the cudaError_t.
+int ipt_reverse_tile_blocks(int n, int n_tri, int* blocks, long long* scratch) {
+  return static_cast<int>(acc_grid(!acc_in_smem(n_tri, kWarps), (n + kThreads - 1) / kThreads,
+                                   n_tri, kWarps, blocks, scratch));
+}
+
+// B4 on the grid of ipt_reverse_tile_blocks: partials (blocks, nT, 3) from
+// records (max_bounces * 16, n) and g (3, n), with the scratch buffer of
+// the global accumulators (null where none).  Returns the cudaError_t.
 int ipt_reverse_tile(const float* rec, const float* g, int n, int n_tri, int max_bounces,
-                     int quirks, float inv_pi, float* partials, void* stream) {
+                     int quirks, float inv_pi, float* partials, float* scratch, int blocks,
+                     void* stream) {
   if (n <= 0) return 0;
-  const size_t dyn = acc_floats(n_tri) * sizeof(float);
-  cudaError_t err = allow_smem(reverse_tile_kernel, dyn);
+  int want = 0;
+  long long per_block = 0;
+  cudaError_t err = acc_grid(!acc_in_smem(n_tri, kWarps), (n + kThreads - 1) / kThreads, n_tri,
+                             kWarps, &want, &per_block);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int blocks = (n + kThreads - 1) / kThreads;
-  reverse_tile_kernel<<<blocks, kThreads, dyn, static_cast<cudaStream_t>(stream)>>>(
-      rec, g, n, n_tri, max_bounces, quirks, inv_pi, partials);
+  if (blocks != want || (per_block && scratch == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (per_block) {
+    reverse_tile_kernel<true><<<blocks, kThreads, 0, s>>>(rec, g, n, n_tri, max_bounces, quirks,
+                                                          inv_pi, partials, scratch);
+  } else {
+    const size_t dyn = acc_floats(n_tri) * sizeof(float);
+    err = allow_smem(reverse_tile_kernel<false>, dyn);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    reverse_tile_kernel<false><<<blocks, kThreads, dyn, s>>>(rec, g, n, n_tri, max_bounces,
+                                                             quirks, inv_pi, partials, scratch);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
 // B9's grid for n lanes of a stage of k slots over nT triangles: the
-// blocks that fit on the card at once, at most one per kB9Threads lanes
-// (render_kernel.py persistent_blocks).  Returns the cudaError_t.
-int ipt_stage_reverse_blocks(int n, int n_tri, int k, int* blocks) {
+// blocks that fit on the card at once (cut as acc_grid does with global
+// accumulators), at most one per kB9Threads lanes (render_kernel.py
+// persistent_blocks), and the scratch floats a block needs (0: none).
+// Returns the cudaError_t.
+int ipt_stage_reverse_blocks(int n, int n_tri, int k, int* blocks, long long* scratch) {
   StageReverseKernel kernel = nullptr;
   size_t dyn = 0;
   int cap = 0;
-  const cudaError_t err = stage_reverse_capacity(n_tri, k, &kernel, &dyn, &cap);
+  const cudaError_t err = stage_reverse_capacity(n_tri, k, &kernel, &dyn, &cap, scratch);
   if (err != cudaSuccess) return static_cast<int>(err);
   *blocks = min(cap, (n + kB9Threads - 1) / kB9Threads);
   return 0;
@@ -527,20 +659,23 @@ int ipt_stage_reverse_blocks(int n, int n_tri, int k, int* blocks) {
 
 // B9 on `blocks` persistent blocks (ipt_stage_reverse_blocks): partials
 // (blocks, nT, 3) and the carry suf_out (4, n) from one stage's records
-// (k * 16, n), g (3, n) and the carry suf_in (4, n).  Returns the
+// (k * 16, n), g (3, n) and the carry suf_in (4, n), with the scratch
+// buffer of the global accumulators (null where none).  Returns the
 // cudaError_t.
 int ipt_stage_reverse_tile(const float* rec, const float* g, const float* suf_in, int n,
                            int n_tri, int k, int quirks, float inv_pi, float* partials,
-                           float* suf_out, int blocks, void* stream) {
+                           float* suf_out, float* scratch, int blocks, void* stream) {
   if (n <= 0) return 0;
   StageReverseKernel kernel = nullptr;
   size_t dyn = 0;
   int cap = 0;
-  const cudaError_t err = stage_reverse_capacity(n_tri, k, &kernel, &dyn, &cap);
+  long long per_block = 0;
+  const cudaError_t err = stage_reverse_capacity(n_tri, k, &kernel, &dyn, &cap, &per_block);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (blocks < 1 || blocks > cap) return static_cast<int>(cudaErrorInvalidValue);
+  if (blocks < 1 || blocks > cap || (per_block && scratch == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
   kernel<<<blocks, kB9Threads, dyn, static_cast<cudaStream_t>(stream)>>>(
-      rec, g, suf_in, n, n_tri, k, quirks, inv_pi, partials, suf_out);
+      rec, g, suf_in, n, n_tri, k, quirks, inv_pi, partials, suf_out, scratch);
   return static_cast<int>(cudaGetLastError());
 }
 

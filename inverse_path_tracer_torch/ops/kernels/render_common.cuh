@@ -53,10 +53,33 @@
 // are copied into shared memory by TMA where they fit (stage_tables).
 // Bound: the (ray, triangle) tests swept and the (ray, box) tests, f32 ALU
 // as the dense sweep; a box test is 6 mul, 6 sub and 10 min/max.
+//
+// The BVH traversal (the BVH route, RenderConfig.intersect="bvh" on a scene
+// with a BVH; no Pallas counterpart: the JAX package's route is XLA code,
+// its ops/bvh.py intersect_bvh).  The tables are in the tree's leaf order
+// (ops/kernels/clusters.py kernel_view), so a leaf's triangles are the
+// contiguous plane rows [start, start + n_prims); P.nodes holds one 32-byte
+// row per node: the box padded as the cluster boxes are, then, as int bits,
+// a leaf's first row or an inner node's right-child offset (its left child
+// is the next row), and the leaf's triangle count (0 for an inner node).
+// traverse() pops one node at a time from a per-thread stack of kMaxStack
+// nodes (local memory), tests its box against the closest hit so far, and
+// either tests a leaf's triangles with the sweep's arithmetic or tests both
+// children's boxes and pushes those the ray enters, the farther first:
+// ops/bvh.py intersect_bvh's steps, ray by ray.  A node is culled only
+// where the ray enters its box strictly after the closest hit, and a hit
+// replaces the running one when it is closer or, at an equal t, has a lower
+// global triangle index (P.tri_index), so the result is the dense sweep's
+// in global order, bit for bit.  The host refuses a tree deeper than the
+// stack (ops/bvh.py check_bvh), so the stack cannot overflow; the kernel
+// traps if it would.  The node table stays in global memory, read through
+// L1.  Bound: the (ray, box) tests and the (ray, triangle) tests of this
+// run's rays, f32 ALU as B10's.
 
 #pragma once
 
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <math.h>
 #include <stdint.h>
 
@@ -74,14 +97,19 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kSmemLimit = 48 * 1024;  // shared memory without an opt-in
 constexpr int kMaxSmem = 232448;       // a block's opt-in dynamic shared memory
 constexpr uint32_t kGolden = 0x9E3779B9u;
+constexpr int kMaxStack = 64;  // BVH traversal stack (ops/bvh.py MAX_STACK)
+
+// The flavours of the closest-hit search, a template parameter of every
+// kernel that searches (a bool kClustered converts to the first two).
+enum Sweep : int { kSweepDense = 0, kSweepClustered = 1, kSweepBvh = 2 };
 
 // The register budget of a kernel, __launch_bounds__'s minimum blocks per
 // SM: two blocks of kThreads for the clustered kernels, whose sweep tables
 // (~85 KB of shared memory on the large scene) let two blocks share an SM,
-// which leaves 128 registers a thread; 0 (none) for the dense kernels,
-// which keep ptxas's own choice (a minimum of 1 made ptxas give B1 98
-// registers, and it ran 25% slower on scene 0).
-__host__ __device__ constexpr int min_blocks(bool clustered) { return clustered ? 2 : 0; }
+// which leaves 128 registers a thread; 0 (none) for the dense and BVH
+// kernels, which keep ptxas's own choice (a minimum of 1 made ptxas give B1
+// 98 registers, and it ran 25% slower on scene 0).
+__host__ __device__ constexpr int min_blocks(int sweep) { return sweep == kSweepClustered ? 2 : 0; }
 constexpr int kRecRows = 16;
 constexpr int kCarryRows = 24;
 
@@ -117,6 +145,12 @@ struct TraceParams {
   const float* cam;
   int camera, width, height, spp;
   uint32_t ck0, ck1;
+  // The BVH route (n_nodes > 0; the tables in the tree's leaf order): the
+  // node rows (header comment) and the global triangle index of each plane
+  // row, which breaks ties.
+  const float* nodes;         // (n_nodes, 8)
+  const int32_t* tri_index;   // (n_tri,)
+  int n_nodes;
 };
 
 struct Tables {
@@ -127,7 +161,14 @@ struct Tables {
   const float* cdf;
   const float* cab;
   const float* gab;
+  const float* nodes;
+  const int32_t* tri_index;
 };
+
+// The search flavour of the tables of *P.
+inline int sweep_of(const TraceParams& P) {
+  return P.n_nodes ? kSweepBvh : P.cluster_k ? kSweepClustered : kSweepDense;
+}
 
 // Floats the scene tables take in shared memory, each array padded to 16
 // bytes.
@@ -159,8 +200,12 @@ inline bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 
 // fits in 48 KB.  Clustered: the sweep's tables, copied by TMA, where the
 // total fits in a block's 227 KB and the sources are 16-byte aligned (torch
 // allocations are); a larger scene (above ~3,500 triangles) reads its
-// planes through L1, the same function at a lower speed.
+// planes through L1, the same function at a lower speed.  BVH: none.
 inline size_t smem_tables(TraceParams& P, size_t other) {
+  if (P.n_nodes) {
+    P.use_smem = 0;
+    return 0;
+  }
   const size_t bytes = smem_table_bytes(P);
   if (P.cluster_k) {
     P.use_smem = other + bytes <= static_cast<size_t>(kMaxSmem) && aligned16(P.planes) &&
@@ -198,12 +243,12 @@ __device__ __forceinline__ void bulk_load(float* dst, const float* src, uint32_t
 // Every thread of the block must call it.  Dense: every table, copied by
 // the block's threads.  Clustered: the plane rows and the cluster and group
 // boxes, by one thread's TMA bulk copies on an mbarrier that every thread
-// waits on.
-template <bool kClustered>
+// waits on.  BVH: the global copies.
+template <int kSweep>
 __device__ __forceinline__ Tables stage_tables(const TraceParams& P, float* s) {
-  Tables T{P.planes, P.table, P.vtab, P.etab, P.cdf, P.cab, P.gab};
-  if (!P.use_smem) return T;
-  if constexpr (kClustered) {
+  Tables T{P.planes, P.table, P.vtab, P.etab, P.cdf, P.cab, P.gab, P.nodes, P.tri_index};
+  if (kSweep == kSweepBvh || !P.use_smem) return T;
+  if constexpr (kSweep == kSweepClustered) {
     __shared__ alignas(8) uint64_t bar_storage;
     const uint32_t bar = smem_u32(&bar_storage);
     float* planes = s;
@@ -235,7 +280,7 @@ __device__ __forceinline__ Tables stage_tables(const TraceParams& P, float* s) {
     T.planes = planes;
     T.cab = cab;
     T.gab = gab;
-  } else {
+  } else if constexpr (kSweep == kSweepDense) {
     auto stage = [&](const float* src, int count) {
       for (int k = threadIdx.x; k < count; k += blockDim.x) s[k] = src[k];
       const float* out = s;
@@ -368,13 +413,102 @@ __device__ __forceinline__ bool enters(const float* __restrict__ box, V3 o, V3 i
   return t_max >= fmaxf(t_min, 0.f) && t_min <= t_best;
 }
 
-// Closest hit of the ray o + t*dir: the dense sweep over all triangles, or
-// B10's clustered sweep (header comment) on clustered tables.  kClustered
-// is a template parameter, not a branch on P.cluster_k, so that the dense
-// kernels compile without the clustered loop's registers (with it, B1
-// spilled under its 80-register allocation and ran 5% slower).
+// The slab test of enters() on a box row held in (a, b), also giving the
+// distance at which the ray enters the box.
+__device__ __forceinline__ bool slab(float4 a, float4 b, V3 o, V3 inv, float t_best,
+                                     float& t_min) {
+  const float tx1 = (a.x - o.x) * inv.x, tx2 = (a.w - o.x) * inv.x;
+  const float ty1 = (a.y - o.y) * inv.y, ty2 = (b.x - o.y) * inv.y;
+  const float tz1 = (a.z - o.z) * inv.z, tz2 = (b.y - o.z) * inv.z;
+  t_min = fmaxf(fmaxf(fminf(tx1, tx2), fminf(ty1, ty2)), fminf(tz1, tz2));
+  const float t_max = fminf(fminf(fmaxf(tx1, tx2), fmaxf(ty1, ty2)), fmaxf(tz1, tz2));
+  return t_max >= fmaxf(t_min, 0.f) && t_min <= t_best;
+}
+
+// sweep() over a BVH leaf's rows [lo, hi) with the global tie rule: a hit
+// replaces the running one (t_best, best, best_g) where it is closer or, at
+// an equal t, has a lower global index tri_index[k].  The same arithmetic
+// and pre-test as sweep(), whose `<=` margin keeps the equal-t pairs.
+__device__ __forceinline__ void leaf_sweep(const float* __restrict__ planes,
+                                           const int32_t* __restrict__ tri_index, int lo, int hi,
+                                           float min_dot, float eps, V3 o, V3 dir, float& t_best,
+                                           int& best, int& best_g) {
+  const float eps_lo = eps * kPretestLo;
+  for (int k = lo; k < hi; ++k) {
+    const float4* q = reinterpret_cast<const float4*>(planes + kPlaneStride * k);
+    const float4 f = q[0];
+    const float b0 = dir.x * f.x + dir.y * f.y + dir.z * f.z;
+    const float a0 = o.x * f.x + o.y * f.y + o.z * f.z + f.w;
+    const float s = fabsf(b0);
+    const float a = b0 < 0.f ? a0 : -a0;
+    if (!(s >= min_dot && a >= eps_lo * s && a <= (t_best * s) * kPretestHi)) continue;
+    const float t = a0 / (-b0);
+    if (fabsf(b0) >= min_dot && t >= eps && t <= t_best) {
+      bool inside = true;
+#pragma unroll
+      for (int j = 1; j < 4; ++j) {
+        const float4 e = q[j];
+        const float a = o.x * e.x + o.y * e.y + o.z * e.z + e.w;
+        const float b = dir.x * e.x + dir.y * e.y + dir.z * e.z;
+        inside = inside && (a + t * b <= 0.f);
+      }
+      if (inside) {
+        const int g = tri_index[k];
+        if (t < t_best || g < best_g) {
+          t_best = t;
+          best = k;
+          best_g = g;
+        }
+      }
+    }
+  }
+}
+
+// The BVH traversal (header comment) of the ray o + t*dir.  With kCount,
+// counts[0..3) gain the nodes popped, the (ray, box) tests and the (ray,
+// triangle) tests.
+template <bool kCount>
+__device__ __forceinline__ Hit traverse(const TraceParams& P, const Tables& T, V3 o, V3 dir,
+                                        int* counts) {
+  const V3 inv = v3(inv_component(dir.x), inv_component(dir.y), inv_component(dir.z));
+  float t_best = INFINITY;
+  int best = 0, best_g = INT_MAX;
+  int stack[kMaxStack];
+  int sp = 1;
+  stack[0] = 0;  // the root
+  while (sp > 0) {
+    const int node = stack[--sp];
+    const float4* row = reinterpret_cast<const float4*>(T.nodes + 8 * node);
+    const float4 b = row[1];
+    float t_in;
+    if constexpr (kCount) counts[0] += 1, counts[1] += 1;
+    if (!slab(row[0], b, o, inv, t_best, t_in)) continue;
+    const int link = __float_as_int(b.z), count = __float_as_int(b.w);
+    if (count > 0) {
+      if constexpr (kCount) counts[2] += count;
+      leaf_sweep(T.planes, T.tri_index, link, link + count, P.min_dot, P.epsilon, o, dir, t_best,
+                 best, best_g);
+      continue;
+    }
+    const int left = node + 1, right = node + link;
+    const float4* lr = reinterpret_cast<const float4*>(T.nodes + 8 * left);
+    const float4* rr = reinterpret_cast<const float4*>(T.nodes + 8 * right);
+    float t_l, t_r;
+    const bool h_l = slab(lr[0], lr[1], o, inv, t_best, t_l);
+    const bool h_r = slab(rr[0], rr[1], o, inv, t_best, t_r);
+    if constexpr (kCount) counts[1] += 2;
+    const bool near_left = t_l <= t_r;
+    const bool h_near = near_left ? h_l : h_r, h_far = near_left ? h_r : h_l;
+    if (sp + static_cast<int>(h_near) + static_cast<int>(h_far) > kMaxStack) __trap();
+    if (h_far) stack[sp++] = near_left ? right : left;
+    if (h_near) stack[sp++] = near_left ? left : right;
+  }
+  return Hit{t_best, best};
+}
+
+// intersect() of the dense and clustered flavours.
 template <bool kClustered>
-__device__ __forceinline__ Hit intersect(const TraceParams& P, const Tables& T, V3 o, V3 dir) {
+__device__ __forceinline__ Hit sweep_hit(const TraceParams& P, const Tables& T, V3 o, V3 dir) {
   float t_best = INFINITY;
   int best = 0;
   if constexpr (!kClustered) {
@@ -395,6 +529,21 @@ __device__ __forceinline__ Hit intersect(const TraceParams& P, const Tables& T, 
     }
   }
   return Hit{t_best, best};
+}
+
+// Closest hit of the ray o + t*dir: the dense sweep over all triangles,
+// B10's clustered sweep (header comment) on clustered tables, or the BVH
+// traversal.  kSweep is a template parameter, not a branch on the tables,
+// so that each kernel compiles without the other flavours' registers (with
+// the clustered loop, the dense B1 spilled under its 80-register
+// allocation and ran 5% slower).
+template <int kSweep>
+__device__ __forceinline__ Hit intersect(const TraceParams& P, const Tables& T, V3 o, V3 dir) {
+  if constexpr (kSweep == kSweepBvh) {
+    return traverse<false>(P, T, o, dir, nullptr);
+  } else {
+    return sweep_hit<kSweep == kSweepClustered>(P, T, o, dir);
+  }
 }
 
 __device__ __forceinline__ bool is_hit(Hit h) { return h.t != INFINITY; }
@@ -585,9 +734,9 @@ __device__ __forceinline__ V3 ray_origin(const TraceParams& P, int i) {
 }
 
 // The pending ray's closest hit, from origin o along L.dir.
-template <bool kClustered>
+template <int kSweep>
 __device__ __forceinline__ void sweep_from(const TraceParams& P, const Tables& T, Lane& L, V3 o) {
-  const Hit h = intersect<kClustered>(P, T, o, L.dir);
+  const Hit h = intersect<kSweep>(P, T, o, L.dir);
   L.hit = is_hit(h);
   L.idx = h.idx;
   L.point = hit_point(o, L.dir, h);
@@ -595,10 +744,10 @@ __device__ __forceinline__ void sweep_from(const TraceParams& P, const Tables& T
 
 // The initial lane of ray i: the bounce-0 intersection of a live ray (a
 // dead lane keeps a miss at point 0).
-template <bool kClustered>
+template <int kSweep>
 __device__ __forceinline__ Lane init_lane(const TraceParams& P, const Tables& T, int i) {
   Lane L = fresh_lane(P, i);
-  if (L.alive) sweep_from<kClustered>(P, T, L, ray_origin(P, i));
+  if (L.alive) sweep_from<kSweep>(P, T, L, ray_origin(P, i));
   return L;
 }
 
@@ -633,7 +782,7 @@ __device__ __forceinline__ void draw6(const TraceParams& P, int i, uint32_t h_or
 // keeps its hit point in L.point as the next ray's origin, and the caller
 // runs sweep_from(L, L.point), the same arithmetic, only where it needs the
 // hit (the regenerating kernels sweep every lane of a warp together).
-template <bool kClustered, bool kDefer = false, class Sink>
+template <int kSweep, bool kDefer = false, class Sink>
 __device__ __forceinline__ bool bounce_step(const TraceParams& P, const Tables& T, Lane& L, int b,
                                             const float u[6], Sink& sink, int slot) {
   L.segs += 1.f;
@@ -706,8 +855,8 @@ __device__ __forceinline__ bool bounce_step(const TraceParams& P, const Tables& 
                       (1.f - sq) * v0.z + sq * (1.f - r2) * v1.z + r2 * sq * v2.z);
     const V3 to_light = normalize3(emm - point);
     const float cos_theta = dot3(shade_n, to_light);
-    const Hit sh = intersect<kClustered>(P, T, point, to_light);
-    if constexpr (!kDefer) nxt = intersect<kClustered>(P, T, point, next_dir);
+    const Hit sh = intersect<kSweep>(P, T, point, to_light);
+    if constexpr (!kDefer) nxt = intersect<kSweep>(P, T, point, next_dir);
     bool ok = cos_theta >= 0.f && is_hit(sh);
     const V3 light_n = P.has_vn
         ? smooth_at(hit_point(point, to_light, sh), er, er + 17, er[26])
@@ -722,7 +871,7 @@ __device__ __forceinline__ bool bounce_step(const TraceParams& P, const Tables& 
       l_d_fresh = bsdf_direct * nee;
     }
   } else if constexpr (!kDefer) {
-    nxt = intersect<kClustered>(P, T, point, next_dir);
+    nxt = intersect<kSweep>(P, T, point, next_dir);
   }
   L.l_d = l_d_fresh;
   const V3 c = L.l_e + L.l_d;

@@ -18,7 +18,7 @@
 // the ray's last bounce, so that reverse_tile (render_bwd.cu) needs no
 // replay.  Its radiance and counts are B1's, bit for bit: the record stores
 // touch no arithmetic.  B1 and B3 are one kernel template, render_kernel
-// <kRecords, kClustered>.
+// <kRecords, kSweep>.
 //
 // Design.  B1 and B3: persistent blocks whose lanes take a new ray as soon
 // as their path ends (render_common.cuh warp_rays), one round per bounce,
@@ -65,7 +65,14 @@
 // from a global counter and then copy the dead lanes' carry and zero their
 // records with 16-byte stores (stage_kernel).  B10's
 // standalone kernel, intersect_kernel, runs intersect() for one ray per
-// thread, so that the clustered sweep can be checked and timed alone.
+// thread, so that the clustered sweep, or the BVH traversal, can be
+// checked and timed alone.
+//
+// The BVH route (render_common.cuh traverse): B1 and B3 are also
+// instantiated on it (render_kernel<kRecords, kSweepBvh>), for every
+// search of a path: the segment, the shadow ray and the deferred next hit.
+// B7 and B8 are not: the route is one unstaged wavefront, as in the JAX
+// package, and their launchers refuse BVH tables.
 //
 // Bound.  Per live (ray, bounce) the kernel sweeps nT triangles twice (the
 // shadow ray and the next ray share the hit point as origin) at ~30 f32
@@ -112,11 +119,11 @@ __device__ __forceinline__ void store_out(float* rad, float* stats, int n, int i
 // kernel, by each lane at its path's end (a divergent loop of scattered
 // stores) or by the warps before they hand out rays (coalesced), measured
 // slower on the H100 (PERF.md §6).
-template <bool kRecords, bool kClustered>
-__global__ void __launch_bounds__(kThreads, min_blocks(kClustered))
+template <bool kRecords, int kSweep>
+__global__ void __launch_bounds__(kThreads, min_blocks(kSweep))
     render_kernel(const TraceParams P, float* rad, float* stats, float* rec) {
   extern __shared__ float4 smem4[];
-  const Tables T = stage_tables<kClustered>(P, reinterpret_cast<float*>(smem4));
+  const Tables T = stage_tables<kSweep>(P, reinterpret_cast<float*>(smem4));
   const int n = P.n;
   WarpRays w = warp_rays(n);
   std::conditional_t<kRecords, GlobalRecords, NoRecords> sink;
@@ -131,7 +138,7 @@ __global__ void __launch_bounds__(kThreads, min_blocks(kClustered))
     if (has) {
       float u[6];
       draw6(P, i, h_orig, b, b, u);
-      const bool cont = bounce_step<kClustered, true>(P, T, L, b, u, sink, b);
+      const bool cont = bounce_step<kSweep, true>(P, T, L, b, u, sink, b);
       ++b;
       if (cont && b < P.max_bounces) {
         sweep = true;
@@ -155,7 +162,7 @@ __global__ void __launch_bounds__(kThreads, min_blocks(kClustered))
       }
     }
     if (w.next >= w.end && !__any_sync(kAllLanes, has)) break;
-    if (sweep) sweep_from<kClustered>(P, T, L, L.point);
+    if (sweep) sweep_from<kSweep>(P, T, L, L.point);
   }
 }
 
@@ -266,23 +273,44 @@ __global__ void __launch_bounds__(kThreads, min_blocks(kClustered))
   }
 }
 
-template <bool kClustered>
-__global__ void __launch_bounds__(kThreads, min_blocks(kClustered))
-    intersect_kernel(const TraceParams P, float* t_out, int* idx_out) {
+// B10 (or the BVH traversal) alone, one ray a thread.  On the BVH route
+// with `counts` not null, the traversal also counts its work, summed per
+// warp and added to counts[0..3) (nodes popped, box tests, triangle tests).
+template <int kSweep>
+__global__ void __launch_bounds__(kThreads, min_blocks(kSweep))
+    intersect_kernel(const TraceParams P, float* t_out, int* idx_out,
+                     unsigned long long* counts) {
   extern __shared__ float4 smem4[];
-  const Tables T = stage_tables<kClustered>(P, reinterpret_cast<float*>(smem4));
+  const Tables T = stage_tables<kSweep>(P, reinterpret_cast<float*>(smem4));
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= P.n) return;
   const int n = P.n;
-  const Hit h = intersect<kClustered>(P, T, v3(P.p[i], P.p[n + i], P.p[2 * n + i]),
-                                      v3(P.d[i], P.d[n + i], P.d[2 * n + i]));
+  if constexpr (kSweep == kSweepBvh) {
+    if (counts != nullptr) {  // the same for the whole grid
+      int c[3] = {0, 0, 0};
+      if (i < n) {
+        const Hit h = traverse<true>(P, T, v3(P.p[i], P.p[n + i], P.p[2 * n + i]),
+                                     v3(P.d[i], P.d[n + i], P.d[2 * n + i]), c);
+        t_out[i] = h.t;
+        idx_out[i] = h.idx;
+      }
+#pragma unroll
+      for (int j = 0; j < 3; ++j) {
+        const unsigned sum = __reduce_add_sync(kAllLanes, static_cast<unsigned>(c[j]));
+        if ((threadIdx.x & 31) == 0) atomicAdd(counts + j, static_cast<unsigned long long>(sum));
+      }
+      return;
+    }
+  }
+  if (i >= n) return;
+  const Hit h = intersect<kSweep>(P, T, v3(P.p[i], P.p[n + i], P.p[2 * n + i]),
+                                  v3(P.d[i], P.d[n + i], P.d[2 * n + i]));
   t_out[i] = h.t;
   idx_out[i] = h.idx;
 }
 
 // B1's and B3's blocks that fit on the card at once, per instance
-// ([kRecords][kClustered]) and device; B7's per [kClustered] and device.
-Capacity g_render_capacity[2][2][kMaxDevices] = {};
+// ([kRecords][kSweep]) and device; B7's per [kClustered] and device.
+Capacity g_render_capacity[2][3][kMaxDevices] = {};
 Capacity g_init_capacity[2][kMaxDevices] = {};
 
 cudaError_t init_capacity(TraceParams& P, int* blocks) {
@@ -292,14 +320,22 @@ cudaError_t init_capacity(TraceParams& P, int* blocks) {
                      : capacity(init_kernel<false>, c, dyn, blocks, kInitThreads);
 }
 
+// B1's (kRecords false) or B3's instance for the search flavour `sweep`.
+using RenderKernel = void (*)(const TraceParams, float*, float*, float*);
+
+template <bool kRecords>
+RenderKernel render_instance(int sweep) {
+  if (sweep == kSweepBvh) return render_kernel<kRecords, kSweepBvh>;
+  if (sweep == kSweepClustered) return render_kernel<kRecords, kSweepClustered>;
+  return render_kernel<kRecords, kSweepDense>;
+}
+
 cudaError_t render_capacity(TraceParams& P, bool records, int* blocks) {
   const size_t dyn = smem_tables(P, 0);
-  Capacity* c = g_render_capacity[records][P.cluster_k ? 1 : 0];
-  if (records)
-    return P.cluster_k ? capacity(render_kernel<true, true>, c, dyn, blocks)
-                       : capacity(render_kernel<true, false>, c, dyn, blocks);
-  return P.cluster_k ? capacity(render_kernel<false, true>, c, dyn, blocks)
-                     : capacity(render_kernel<false, false>, c, dyn, blocks);
+  const int sweep = sweep_of(P);
+  Capacity* c = g_render_capacity[records][sweep];
+  return records ? capacity(render_instance<true>(sweep), c, dyn, blocks)
+                 : capacity(render_instance<false>(sweep), c, dyn, blocks);
 }
 
 // B1 (rec null) or B3 on `blocks` persistent blocks, at most the capacity.
@@ -317,16 +353,10 @@ cudaError_t launch_render(const TraceParams* Pin, float* rad, float* stats, floa
     const size_t bytes = static_cast<size_t>(P.max_bounces) * kRecRows * P.n * sizeof(float);
     const cudaError_t e = cudaMemsetAsync(rec, 0, bytes, s);
     if (e != cudaSuccess) return e;
-    if (P.cluster_k) {
-      render_kernel<true, true><<<blocks, kThreads, dyn, s>>>(P, rad, stats, rec);
-    } else {
-      render_kernel<true, false><<<blocks, kThreads, dyn, s>>>(P, rad, stats, rec);
-    }
-  } else if (P.cluster_k) {
-    render_kernel<false, true><<<blocks, kThreads, dyn, s>>>(P, rad, stats, rec);
-  } else {
-    render_kernel<false, false><<<blocks, kThreads, dyn, s>>>(P, rad, stats, rec);
   }
+  const RenderKernel kernel =
+      records ? render_instance<true>(sweep_of(P)) : render_instance<false>(sweep_of(P));
+  kernel<<<blocks, kThreads, dyn, s>>>(P, rad, stats, rec);
   return cudaGetLastError();
 }
 
@@ -396,6 +426,7 @@ int ipt_render_rec(const TraceParams* Pin, float* rad, float* stats, float* rec,
 // cudaError_t.
 int ipt_init_blocks(const TraceParams* Pin, int* blocks) {
   TraceParams P = *Pin;
+  if (P.n_nodes) return static_cast<int>(cudaErrorInvalidValue);  // no staged BVH route
   int cap = 0;
   const cudaError_t err = init_capacity(P, &cap);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -407,6 +438,7 @@ int ipt_init_blocks(const TraceParams* Pin, int* blocks) {
 // (kCarryRows, n) of the rays of *Pin.  Returns the cudaError_t.
 int ipt_init_tile(const TraceParams* Pin, float* carry, int blocks, void* stream) {
   TraceParams P = *Pin;
+  if (P.n_nodes) return static_cast<int>(cudaErrorInvalidValue);
   if (P.n <= 0) return 0;
   int cap = 0;
   const cudaError_t err = init_capacity(P, &cap);  // opts the kernel into its smem
@@ -430,6 +462,7 @@ int ipt_init_tile(const TraceParams* Pin, float* carry, int blocks, void* stream
 int ipt_stage_tile(const TraceParams* Pin, const float* carry_in, float* carry_out, float* rec,
                    int start, int k, const int* live, int* next, void* stream) {
   TraceParams P = *Pin;
+  if (P.n_nodes) return static_cast<int>(cudaErrorInvalidValue);
   if (P.n <= 0) return 0;
   const size_t dyn = smem_tables(P, 0);
   auto go = [&](auto kernel) {
@@ -442,15 +475,24 @@ int ipt_stage_tile(const TraceParams* Pin, const float* carry_in, float* carry_o
   return rec == nullptr ? go(stage_kernel<false, false>) : go(stage_kernel<true, false>);
 }
 
-// B10: t (n,) and the internal triangle index (n,) of the closest hit of
-// each ray of *Pin.
-int ipt_intersect_tile(const TraceParams* Pin, float* t, int* idx, void* stream) {
+// B10, or the BVH traversal on BVH tables: t (n,) and the internal triangle
+// index (n,) of the closest hit of each ray of *Pin; on BVH tables with
+// `counts` (3 zeroed device uint64s) not null, the traversal's work added
+// to them.  Returns the cudaError_t.
+int ipt_intersect_tile(const TraceParams* Pin, float* t, int* idx, unsigned long long* counts,
+                       void* stream) {
   TraceParams P = *Pin;
   if (P.n <= 0) return 0;
   const size_t dyn = smem_tables(P, 0);
   const int b = blocks_for(P.n);
-  return P.cluster_k ? launch(intersect_kernel<true>, b, dyn, stream, P, t, idx)
-                     : launch(intersect_kernel<false>, b, dyn, stream, P, t, idx);
+  switch (sweep_of(P)) {
+    case kSweepBvh:
+      return launch(intersect_kernel<kSweepBvh>, b, dyn, stream, P, t, idx, counts);
+    case kSweepClustered:
+      return launch(intersect_kernel<kSweepClustered>, b, dyn, stream, P, t, idx, counts);
+    default:
+      return launch(intersect_kernel<kSweepDense>, b, dyn, stream, P, t, idx, counts);
+  }
 }
 
 const char* ipt_error_string(int code) {

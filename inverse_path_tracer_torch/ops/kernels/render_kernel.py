@@ -7,7 +7,8 @@
     reverse_tile / reverse_tile_plain        B4, the suffix recursion on B3's
                                              records
     intersect_tile / intersect_tile_plain    B10, the clustered closest-hit
-                                             sweep, launched on its own
+                                             sweep, or the BVH traversal,
+                                             launched on its own
 
 They take the arguments and return the outputs of the JAX package's
 render_tile_pallas, render_tile_pallas_rec, grad_tile_pallas and
@@ -33,15 +34,24 @@ versions work in the internal triangle order: the records' tri rows are
 internal, and grad_tile, grad_tile_plain and reverse_tile(perm=...) map the
 cotangent back to global rows.  Every B1-B9 kernel sweeps through B10
 (render_common.cuh intersect); intersect_tile.launches counts each launch
-that ran the clustered sweep, its own included.
+that ran the clustered sweep, its own included.  On the BVH route
+(cfg.intersect="bvh" on a scene with a BVH; clusters.uses_bvh) the
+internal order is the tree's leaf order, B1, B2, B3 and intersect_tile
+search through the traversal (render_common.cuh traverse) and the plain
+versions through ops/bvh.py intersect_bvh; bvh_traversal.launches counts
+each launch that ran the traversal.  B7 and B8 do not take that route.
 
 Each wrapper launches its CUDA kernel (render_fwd.cu, render_bwd.cu) for
 CUDA tensors (in camera mode: for a scene on the card) and runs its plain
 version for CPU tensors; it never falls back from one to the other on a
 CUDA tensor.  `<wrapper>.launches` counts kernel launches.  B1, B2 and B3
 run persistent blocks whose lanes regenerate (render_common.cuh
-warp_rays); `render_tile.blocks`, `grad_tile.blocks` and
-`render_tile_rec.blocks` hold the grid of their last launch.
+warp_rays); `render_tile.blocks`, `grad_tile.blocks`,
+`render_tile_rec.blocks` and `reverse_tile.blocks` hold the grid of their
+last launch.  The gradient kernels keep one (nT, 3) row of accumulators per
+warp, in shared memory where a block's rows fit and otherwise in a scratch
+buffer in global memory that the wrappers allocate (render_bwd.cu header;
+acc_scratch), so that they take any triangle count.
 """
 
 from __future__ import annotations
@@ -50,15 +60,18 @@ import ctypes
 import dataclasses
 import functools
 import math
+import types
 from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from inverse_path_tracer_torch.ops import rng
 from inverse_path_tracer_torch.ops.bsdf import INV_2PI, INV_PI, bsdf_from_values
+from inverse_path_tracer_torch.ops.bvh import intersect_bvh, node_rows
 from inverse_path_tracer_torch.ops.camera import Camera, camera_inputs
 from inverse_path_tracer_torch.ops.intersect import (
     Intersection,
+    counting_sweeps,
     intersect_clustered,
     intersect_planes,
     plane_rows,
@@ -86,11 +99,8 @@ from inverse_path_tracer_torch.scene.build import SceneData
 
 Keys = Tuple[int, int]
 
-# render_bwd.cu: records of at most 64 bounces per thread, and kWarps (8) *
-# nT * 3 floats of accumulators in at most 227 KB of shared memory; the
-# internal (cluster-padded) triangle count is held to the same limit.
+# render_bwd.cu: records of at most 64 bounces per thread.
 GRAD_MAX_BOUNCES = 64
-GRAD_MAX_TRIANGLES = 2048
 _BLOCK = 256  # threads per block of every kernel
 
 # Staged-wavefront lane carry, (CARRY_ROWS, n) float32 rows (the JAX
@@ -120,6 +130,8 @@ class KernelTables:
     cluster_k: int = 0  # 0 = dense sweep
     group: int = 0  # clusters per group box
     cam: Optional[torch.Tensor] = None  # (3, 3) camera matrix (camera mode's rays)
+    nodes: Optional[torch.Tensor] = None  # (M, 8) BVH node rows (ops/bvh.py node_rows)
+    tri_index: Optional[torch.Tensor] = None  # (nT,) int32 global index of each row
 
     @property
     def padded_tri(self) -> int:
@@ -130,9 +142,15 @@ class KernelTables:
 
 def pack_tables(scene: SceneData, materials: torch.Tensor, cfg=None) -> KernelTables:
     """The kernels' tables of `scene` with `materials`; with cfg, in the
-    clustered order and with the cluster boxes where cfg clusters the scene
-    (clusters.kernel_view), else dense in global order."""
+    clustered order and with the cluster boxes where cfg clusters the scene,
+    or in the BVH's leaf order with its node table on the BVH route
+    (clusters.kernel_view; the tree was checked where it entered the port,
+    ops/bvh.py check_bvh), else dense in global order."""
     view = kernel_view(scene, cfg)
+    nodes = tri_index = None
+    if view.bvh is not None:
+        nodes = node_rows(view.bvh).to(scene.device)
+        tri_index = view.perm.to(torch.int32).contiguous()
     s, materials = view.scene, to_kernel_order(materials, view)
     # flatten(1), not reshape(rows, -1): an emitter-free scene has 0 rows.
     f32 = lambda *xs: torch.cat([x.flatten(1).float() for x in xs], dim=1)
@@ -158,6 +176,8 @@ def pack_tables(scene: SceneData, materials: torch.Tensor, cfg=None) -> KernelTa
         cluster_k=view.cluster_k,
         group=view.group,
         cam=s.cam_m33.float().contiguous(),
+        nodes=nodes,
+        tri_index=tri_index,
     )
 
 
@@ -211,12 +231,6 @@ def _check_launch(cfg, scene, p, d, alive, uniforms, orig, keys, camera) -> int:
     elif keys is None:
         raise ValueError("camera mode needs the fused RNG's keys")
     return n
-
-
-def _check_grad_triangles(n_tri):
-    if n_tri > GRAD_MAX_TRIANGLES:
-        raise ValueError(f"the gradient kernels take at most {GRAD_MAX_TRIANGLES} triangles "
-                         f"(per-warp accumulators in shared memory), got {n_tri}")
 
 
 def _on_card(p, scene, materials=None) -> bool:
@@ -357,12 +371,15 @@ def grad_tile(
     dev = scene.device
     params, tabs = _trace_params(materials, scene, cfg, tables, p, d, alive, uniforms,
                                  _default_orig(p, orig), keys, camera)
-    _check_grad_triangles(tabs.padded_tri)
     with torch.cuda.device(dev):
-        blocks = _blocks(lib, lib.ipt_grad_tile_capacity, params, "render_bwd grad_tile")
+        cap, per_block = ctypes.c_int(0), ctypes.c_longlong(0)
+        _raise_on(lib, lib.ipt_grad_tile_capacity(ctypes.byref(params), ctypes.byref(cap),
+                                                  ctypes.byref(per_block)), "render_bwd grad_tile")
+        blocks = persistent_blocks(params.n, cap.value)
         partials = torch.empty((blocks, scene.n_tri, 3), dtype=torch.float32, device=dev)
-        err = lib.ipt_grad_tile(ctypes.byref(params), g.data_ptr(), partials.data_ptr(), blocks,
-                                torch.cuda.current_stream(dev).cuda_stream)
+        scratch = acc_scratch(blocks, per_block.value, dev)
+        err = lib.ipt_grad_tile(ctypes.byref(params), g.data_ptr(), partials.data_ptr(),
+                                _ptr(scratch), blocks, torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(lib, err, "render_bwd grad_tile")
     grad_tile.launches += 1
     grad_tile.blocks = blocks
@@ -381,15 +398,21 @@ def reverse_tile(n_tri: int, cfg, rec: torch.Tensor, g: torch.Tensor,
         return reverse_tile_plain(n_tri, cfg, rec, g, perm)
     if g.device.type != "cuda":
         raise ValueError(f"reverse_tile runs on CUDA or CPU tensors, got {g.device}")
-    _check_grad_triangles(n_tri)
     lib = _library("render_bwd")
-    partials = _partials(n, n_tri, g.device)
     with torch.cuda.device(g.device):
+        blocks, per_block = ctypes.c_int(0), ctypes.c_longlong(0)
+        _raise_on(lib, lib.ipt_reverse_tile_blocks(n, n_tri, ctypes.byref(blocks),
+                                                   ctypes.byref(per_block)),
+                  "render_bwd reverse_tile")
+        partials = torch.empty((blocks.value, n_tri, 3), dtype=torch.float32, device=g.device)
+        scratch = acc_scratch(blocks.value, per_block.value, g.device)
         err = lib.ipt_reverse_tile(rec.data_ptr(), g.data_ptr(), n, n_tri, cfg.max_bounces,
                                    int(cfg.reference_quirks), INV_PI, partials.data_ptr(),
+                                   _ptr(scratch), blocks.value,
                                    torch.cuda.current_stream(g.device).cuda_stream)
     _raise_on(lib, err, "render_bwd reverse_tile")
     reverse_tile.launches += 1
+    reverse_tile.blocks = blocks.value
     return unperm_rows(partials.sum(dim=0), perm)
 
 
@@ -400,24 +423,34 @@ def intersect_tile(
     d: torch.Tensor,
     *,
     tables: Optional[KernelTables] = None,
+    counts: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """B10 on its own: the closest hit of each ray (3, n) through the
-    kernels' sweep (clustered where cfg clusters the scene).  Returns t (n,)
-    float32 (+inf on a miss) and the internal triangle index (n,) int32 (0
-    on a miss)."""
+    kernels' sweep (clustered where cfg clusters the scene), or through the
+    BVH traversal on the BVH route.  Returns t (n,) float32 (+inf on a miss)
+    and the internal triangle index (n,) int32 (0 on a miss).  On the BVH
+    route `counts`, a (3,) int64 tensor on the rays' device, gains the
+    traversal's nodes popped, (ray, box) tests and (ray, triangle) tests."""
     n = p.shape[1]
     _check(p, {"p": (p, (3, n), torch.float32), "d": (d, (3, n), torch.float32)})
+    if counts is not None:
+        _check(p, {"counts": (counts, (3,), torch.int64)})
     if not _on_card(p, scene):
-        return intersect_tile_plain(scene, cfg, p, d)
+        return intersect_tile_plain(scene, cfg, p, d, counts=counts)
     lib = _library("render_fwd")
-    params, _ = _trace_params(scene.diffuse, scene, cfg, tables, p, d)
+    params, tabs = _trace_params(scene.diffuse, scene, cfg, tables, p, d)
+    if counts is not None and tabs.nodes is None:
+        raise ValueError("counts are the BVH traversal's: pass BVH tables")
     t = torch.empty(n, dtype=torch.float32, device=p.device)
     idx = torch.empty(n, dtype=torch.int32, device=p.device)
     with torch.cuda.device(p.device):
         err = lib.ipt_intersect_tile(ctypes.byref(params), t.data_ptr(), idx.data_ptr(),
-                                     torch.cuda.current_stream(p.device).cuda_stream)
+                                     _ptr(counts), torch.cuda.current_stream(p.device).cuda_stream)
     _raise_on(lib, err, "render_fwd intersect_tile")
-    intersect_tile.launches += 1
+    if tabs.nodes is not None:
+        bvh_traversal.launches += 1
+    else:
+        intersect_tile.launches += 1
     return t, idx
 
 
@@ -428,13 +461,29 @@ render_tile_rec.blocks = 0
 grad_tile.launches = 0
 grad_tile.blocks = 0
 reverse_tile.launches = 0
+reverse_tile.blocks = 0
 intersect_tile.launches = 0
+# Launches that ran the BVH traversal (B1, B2, B3 or intersect_tile on BVH
+# tables), as intersect_tile.launches counts B10's.
+bvh_traversal = types.SimpleNamespace(launches=0)
+
+
+def _refuse_bvh(tabs: KernelTables, what: str) -> None:
+    """Raises where `tabs` are BVH tables: the kernel `what` has no BVH
+    flavour and would sweep their leaf-order rows, breaking exact ties by
+    row instead of by global index."""
+    if tabs.nodes is not None:
+        raise ValueError(f"{what} does not take the BVH route: pass tables and a config off it "
+                         "(B1, B2, B3 and intersect_tile traverse the BVH)")
 
 
 def _count_sweep(tabs: KernelTables) -> None:
-    """One more launch of B10's code, if `tabs` are clustered."""
+    """One more launch of B10's code, if `tabs` are clustered, or of the
+    BVH traversal, on BVH tables."""
     if tabs.cluster_k:
         intersect_tile.launches += 1
+    elif tabs.nodes is not None:
+        bvh_traversal.launches += 1
 
 
 class _TraceParams(ctypes.Structure):
@@ -454,6 +503,7 @@ class _TraceParams(ctypes.Structure):
            ("cam", ctypes.c_void_p)]
         + [(f, ctypes.c_int) for f in ("camera", "width", "height", "spp")]
         + [("ck0", ctypes.c_uint32), ("ck1", ctypes.c_uint32)]
+        + [("nodes", ctypes.c_void_p), ("tri_index", ctypes.c_void_p), ("n_nodes", ctypes.c_int)]
     )
 
 
@@ -480,7 +530,7 @@ def _library(name: str):
         # carry_in carry_out rec start k live next stream
         lib.ipt_stage_tile.argtypes = [params, vp, vp, vp, ci, ci, vp, vp, vp]
         lib.ipt_stage_tile.restype = ci
-        lib.ipt_intersect_tile.argtypes = [params, vp, vp, vp]  # t idx stream
+        lib.ipt_intersect_tile.argtypes = [params, vp, vp, vp, vp]  # t idx counts stream
         lib.ipt_intersect_tile.restype = ci
     elif name == "inverse":
         lib.ipt_inverse_grid_blocks.argtypes = [params, ctypes.POINTER(ci)]
@@ -494,18 +544,22 @@ def _library(name: str):
         lib.ipt_inverse_global.argtypes = [params, vp, vp, vp, vp, vp]
         lib.ipt_inverse_global.restype = ci
     else:
-        lib.ipt_grad_tile_capacity.argtypes = [params, ctypes.POINTER(ci)]
+        pi, pll = ctypes.POINTER(ci), ctypes.POINTER(ctypes.c_longlong)
+        lib.ipt_grad_tile_capacity.argtypes = [params, pi, pll]  # blocks scratch
         lib.ipt_grad_tile_capacity.restype = ci
-        lib.ipt_grad_tile.argtypes = [params, vp, vp, ci, vp]  # g partials blocks stream
+        # g partials scratch blocks stream
+        lib.ipt_grad_tile.argtypes = [params, vp, vp, vp, ci, vp]
         lib.ipt_grad_tile.restype = ci
-        # rec g n n_tri max_bounces quirks inv_pi partials stream
-        lib.ipt_reverse_tile.argtypes = [vp, vp, ci, ci, ci, ci, cf, vp, vp]
+        lib.ipt_reverse_tile_blocks.argtypes = [ci, ci, pi, pll]  # n n_tri blocks scratch
+        lib.ipt_reverse_tile_blocks.restype = ci
+        # rec g n n_tri max_bounces quirks inv_pi partials scratch blocks stream
+        lib.ipt_reverse_tile.argtypes = [vp, vp, ci, ci, ci, ci, cf, vp, vp, ci, vp]
         lib.ipt_reverse_tile.restype = ci
-        # n n_tri k blocks
-        lib.ipt_stage_reverse_blocks.argtypes = [ci, ci, ci, ctypes.POINTER(ci)]
+        # n n_tri k blocks scratch
+        lib.ipt_stage_reverse_blocks.argtypes = [ci, ci, ci, pi, pll]
         lib.ipt_stage_reverse_blocks.restype = ci
-        # rec g suf_in n n_tri k quirks inv_pi partials suf_out blocks stream
-        lib.ipt_stage_reverse_tile.argtypes = [vp, vp, vp, ci, ci, ci, ci, cf, vp, vp, ci, vp]
+        # rec g suf_in n n_tri k quirks inv_pi partials suf_out scratch blocks stream
+        lib.ipt_stage_reverse_tile.argtypes = [vp, vp, vp, ci, ci, ci, ci, cf, vp, vp, vp, ci, vp]
         lib.ipt_stage_reverse_tile.restype = ci
     lib.ipt_error_string.argtypes = [ci]
     lib.ipt_error_string.restype = ctypes.c_char_p
@@ -517,10 +571,17 @@ def _raise_on(lib, err: int, what: str) -> None:
         raise RuntimeError(f"{what} launch failed: {lib.ipt_error_string(err).decode()}")
 
 
-def _partials(n: int, n_tri: int, device) -> torch.Tensor:
-    """One (nT, 3) partial sum per block of B4 (none for n = 0, where
-    nothing is launched and the sum is zero)."""
-    return torch.empty((-(-n // _BLOCK), n_tri, 3), dtype=torch.float32, device=device)
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def acc_scratch(blocks: int, per_block: int, device) -> Optional[torch.Tensor]:
+    """The scratch buffer of a gradient kernel's accumulators in global
+    memory (render_bwd.cu header): blocks * per_block floats, None where the
+    library gives 0 floats per block (they fit in shared memory)."""
+    if per_block == 0:
+        return None
+    return torch.empty(blocks * per_block, dtype=torch.float32, device=device)
 
 
 def persistent_blocks(n: int, capacity: int, block: int = _BLOCK) -> int:
@@ -530,7 +591,7 @@ def persistent_blocks(n: int, capacity: int, block: int = _BLOCK) -> int:
 
 
 def _blocks(lib, capacity_fn, params, what: str) -> int:
-    """The persistent grid of B1, B2 or B3 for the rays of `params`: the blocks
+    """The persistent grid of B1 or B3 for the rays of `params`: the blocks
     that fit on the card at once (the kernel's occupancy; cached per device
     in the library), cut by persistent_blocks."""
     cap = ctypes.c_int(0)
@@ -559,15 +620,14 @@ def _trace_params(materials, scene, cfg, tabs, p, d=None, alive=None, uniforms=N
     dev = scene.device if p is None else p.device
     if tabs.planes.device != dev:
         raise ValueError(f"tables are on {tabs.planes.device}, rays on {dev}")
-    ptr = lambda t: None if t is None else t.data_ptr()
     fused = keys is not None
     k0, k1 = keys if fused else (0, 0)
     ck0, ck1 = rng.key_words(camera.key) if camera is not None else (0, 0)
     ck = tabs.cluster_k
     params = _TraceParams(
-        p=ptr(p), d=ptr(d), alive=ptr(alive), orig=ptr(orig), uniforms=ptr(uniforms),
-        planes=ptr(tabs.planes), table=ptr(tabs.table), vtab=ptr(tabs.vtab),
-        etab=ptr(tabs.etab), cdf=ptr(tabs.cdf), cab=ptr(tabs.cab), gab=ptr(tabs.gab),
+        p=_ptr(p), d=_ptr(d), alive=_ptr(alive), orig=_ptr(orig), uniforms=_ptr(uniforms),
+        planes=_ptr(tabs.planes), table=_ptr(tabs.table), vtab=_ptr(tabs.vtab),
+        etab=_ptr(tabs.etab), cdf=_ptr(tabs.cdf), cab=_ptr(tabs.cab), gab=_ptr(tabs.gab),
         k0=k0, k1=k1,
         n=camera.n if camera is not None else p.shape[1], n_tri=scene.n_tri,
         n_emissive=scene.n_emissive,
@@ -579,8 +639,9 @@ def _trace_params(materials, scene, cfg, tabs, p, d=None, alive=None, uniforms=N
         epsilon=cfg.epsilon, two_pi=TWO_PI, inv_pi=INV_PI, inv_2pi=INV_2PI,
         cos_scale=math.pi / cfg.p_rr, inv_p_rr=1.0 / cfg.p_rr,
         base=camera.base if camera is not None else 0, n_samples=cfg.n_samples,
-        cam=ptr(tabs.cam), camera=int(camera is not None), width=cfg.width,
-        height=cfg.height, spp=cfg.spp, ck0=ck0, ck1=ck1,
+        cam=_ptr(tabs.cam), camera=int(camera is not None), width=cfg.width,
+        height=cfg.height, spp=cfg.spp, ck0=ck0, ck1=ck1, nodes=_ptr(tabs.nodes),
+        tri_index=_ptr(tabs.tri_index), n_nodes=0 if tabs.nodes is None else tabs.nodes.shape[0],
     )
     return params, tabs
 
@@ -589,8 +650,15 @@ def _trace_params(materials, scene, cfg, tabs, p, d=None, alive=None, uniforms=N
 
 
 def sweep(view: KernelView, cfg, o: torch.Tensor, dirs: torch.Tensor) -> Intersection:
-    """The kernels' closest hit (rays (R, 3)) on the view: the clustered
-    sweep on clustered views, else the dense one."""
+    """The kernels' closest hit (rays (R, 3)) on the view: on the BVH
+    route ops/bvh.py intersect_bvh on the scene in global order, its
+    triangle mapped to the view's row; the clustered sweep on clustered
+    views, else the dense one."""
+    if view.bvh is not None:
+        hit = intersect_bvh(view.source, view.bvh, o, dirs, cfg.min_dot, cfg.epsilon)
+        row = torch.empty_like(view.perm)
+        row[view.perm] = torch.arange(view.perm.shape[0], device=view.perm.device)
+        return hit._replace(tri=torch.where(hit.hit, row[hit.tri], torch.zeros_like(hit.tri)))
     planes = plane_rows(view.scene)
     if view.cluster_k:
         return intersect_clustered(planes, view.cab, view.gab, view.cluster_k, view.group, o, dirs,
@@ -807,8 +875,20 @@ def grad_tile_plain(materials, scene, cfg, p=None, d=None, alive=None, g=None, u
     return reverse_tile_plain(scene.n_tri, cfg, rec, g, kernel_view(scene, cfg).perm)
 
 
-def intersect_tile_plain(scene: SceneData, cfg, p: torch.Tensor, d: torch.Tensor):
+def intersect_tile_plain(scene: SceneData, cfg, p: torch.Tensor, d: torch.Tensor,
+                         counts: Optional[torch.Tensor] = None):
     """B10's plain version: ops/intersect.py intersect_clustered on the
-    kernels' view (the dense sweep on scenes cfg does not cluster)."""
-    hit = sweep(kernel_view(scene, cfg), cfg, p.T.contiguous(), d.T.contiguous())
+    kernels' view (the dense sweep on scenes cfg does not cluster; on the
+    BVH route ops/bvh.py intersect_bvh, whose nodes popped, box tests and
+    triangle tests are added to `counts`)."""
+    view = kernel_view(scene, cfg)
+    o, dirs = p.T.contiguous(), d.T.contiguous()
+    if counts is None:
+        hit = sweep(view, cfg, o, dirs)
+    elif view.bvh is None:
+        raise ValueError("counts are the BVH traversal's: pass a config of the BVH route")
+    else:
+        with counting_sweeps() as c:
+            hit = sweep(view, cfg, o, dirs)
+        counts += torch.tensor([c["nodes"], c["node_tests"], c["tri_tests"]], device=counts.device)
     return hit.t, hit.tri.to(torch.int32)

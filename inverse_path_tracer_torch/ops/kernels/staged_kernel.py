@@ -60,17 +60,18 @@ from inverse_path_tracer_torch.ops.kernels.render_kernel import (
     Keys,
     Lanes,
     _check,
-    _check_grad_triangles,
     _check_rays,
     _check_rng,
     _count_sweep,
     _library,
     _on_card,
+    _ptr,
     _raise_on,
     _ray_inputs,
+    _refuse_bvh,
     _trace_params,
+    acc_scratch,
     init_lanes,
-    persistent_blocks,
     run_bounces,
 )
 from inverse_path_tracer_torch.render.diff import REC_ROWS, BounceRecords, suffix_recursion
@@ -97,6 +98,7 @@ def init_tile(
     lib = _library("render_fwd")
     dev = scene.device
     params, tabs = _trace_params(materials, scene, cfg, tables, p, d, alive, camera=camera)
+    _refuse_bvh(tabs, "init_tile")
     carry = torch.empty((CARRY_ROWS, n), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         blocks = ctypes.c_int(0)
@@ -146,6 +148,7 @@ def stage_tile(
     # The kernel reads the lanes from the carry, not from params.p.
     params, tabs = _trace_params(materials, scene, cfg, tables, carry, uniforms=uniforms,
                                  orig=orig, keys=keys)
+    _refuse_bvh(tabs, "stage_tile")
     out = torch.empty_like(carry)
     rec = (torch.empty((k * REC_ROWS, n), dtype=torch.float32, device=carry.device)
            if with_rec else None)
@@ -174,19 +177,20 @@ def stage_reverse_tile(
         return stage_reverse_tile_plain(n_tri, cfg, k, rec, g, suf)
     if g.device.type != "cuda":
         raise ValueError(f"stage_reverse_tile runs on CUDA or CPU tensors, got {g.device}")
-    _check_grad_triangles(n_tri)
     suf_out = torch.empty_like(suf)
     if n == 0:
         return torch.zeros((n_tri, 3), dtype=torch.float32, device=g.device), suf_out
     lib = _library("render_bwd")
     with torch.cuda.device(g.device):
-        blocks = ctypes.c_int(0)
-        _raise_on(lib, lib.ipt_stage_reverse_blocks(n, n_tri, k, ctypes.byref(blocks)),
+        blocks, per_block = ctypes.c_int(0), ctypes.c_longlong(0)
+        _raise_on(lib, lib.ipt_stage_reverse_blocks(n, n_tri, k, ctypes.byref(blocks),
+                                                    ctypes.byref(per_block)),
                   "render_bwd stage_reverse_tile")
         partials = torch.empty((blocks.value, n_tri, 3), dtype=torch.float32, device=g.device)
+        scratch = acc_scratch(blocks.value, per_block.value, g.device)
         err = lib.ipt_stage_reverse_tile(
             rec.data_ptr(), g.data_ptr(), suf.data_ptr(), n, n_tri, k, int(cfg.reference_quirks),
-            INV_PI, partials.data_ptr(), suf_out.data_ptr(), blocks.value,
+            INV_PI, partials.data_ptr(), suf_out.data_ptr(), _ptr(scratch), blocks.value,
             torch.cuda.current_stream(g.device).cuda_stream)
     _raise_on(lib, err, "render_bwd stage_reverse_tile")
     stage_reverse_tile.launches += 1

@@ -41,6 +41,11 @@ _M2 = 0xC2B2AE35
 SLOT_JITTER_X, SLOT_JITTER_Y = 6, 7
 # fold_in data of the inverse pass's camera stream (ASCII "CAM").
 CAMERA_STREAM = 0x43414D
+# fold_in data of the dataset's target renders (ASCII "TGT"): scene i of
+# data/pipeline.py generate_files renders under fold_in(fold_in(key,
+# TARGET_STREAM), i), so that no target shares its key with a render under
+# a small key such as the default 0 (fold_in(0, 0) is 0).
+TARGET_STREAM = 0x544754
 
 
 def key_words(seed: int) -> Tuple[int, int]:

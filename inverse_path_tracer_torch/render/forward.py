@@ -22,7 +22,9 @@ rays of its samples themselves (camera mode, ops/camera.py Camera), and
 the plain versions make the same rays with camera_rays.
 
   * mega: render_range through B1 forward and B2 backward under autograd,
-    loss_and_grad_range through B3 and B4;
+    loss_and_grad_range through B3 and B4; the BVH route
+    (cfg.intersect="bvh" on a scene with a BVH) is always mega, its
+    kernels searching by BVH traversal;
   * staged (ops/kernels/staged_kernel.py): per launch B7 intersects the
     primary rays into a lane carry, then B8 runs stages of
     cfg.stage_bounces bounces; before each stage the carry is stably
@@ -47,7 +49,12 @@ from inverse_path_tracer_torch.ops.camera import (  # noqa: F401 (camera_rays* r
     camera_rays,
     camera_rays_from_jitter,
 )
-from inverse_path_tracer_torch.ops.kernels.clusters import cluster_k_for, kernel_perm, unperm_rows
+from inverse_path_tracer_torch.ops.kernels.clusters import (
+    cluster_k_for,
+    kernel_perm,
+    unperm_rows,
+    uses_bvh,
+)
 from inverse_path_tracer_torch.ops.kernels.render_kernel import (
     CAR_ALIVE,
     CAR_RAD,
@@ -127,7 +134,11 @@ def _use_staged(cfg: RenderConfig, scene: SceneData) -> bool:
     """The bounce-loop organisation (JAX render/forward.py:580-611): "auto"
     is staged exactly where the scene is clustered (cluster_k_for > 0: at
     least CLUSTER_MIN_TP padded triangles), "mega" and "staged" force either (an
-    unknown value is refused by RenderConfig)."""
+    unknown value is refused by RenderConfig).  The BVH route
+    (clusters.uses_bvh) is mega whatever cfg.wavefront says, as the JAX
+    package's is one unstaged wavefront."""
+    if uses_bvh(scene, cfg):
+        return False
     if cfg.wavefront == "auto":
         return cluster_k_for(scene.n_tri, cfg) > 0
     return cfg.wavefront == "staged"

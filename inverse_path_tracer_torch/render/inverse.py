@@ -245,7 +245,10 @@ def trace_transport_range(
     flat scene); B6's global-grid sink takes larger ones.
 
     Returns TransportGrids (float32) and the RenderStats (segments, shadow
-    rays) of the trace, counted per lane as the forward kernel counts them."""
+    rays) of the trace, counted per lane as the forward kernel counts them.
+    The extraction always sweeps: cfg.intersect is not read, as in the JAX
+    package."""
+    cfg = cfg.with_(intersect="auto")
     dev, scene, _, ext = _prepare(scene.diffuse, scene, cfg, count, rays, uniforms, device)
     target_flat = target_image01.to(device=dev, dtype=torch.float32).reshape(-1, 3).contiguous()
     if target_flat.shape[0] != cfg.width * cfg.height:

@@ -66,8 +66,9 @@ class SceneData:
     # t, [n, -c.n] for j=0 and [out_{j-1}, d_{j-1}] for the edge planes.
     plane_mat: torch.Tensor
     # The optional BVH over the triangles in global order (ops/bvh.py
-    # attach_bvh, load_scene(with_bvh=True)), for ops/bvh.py intersect_bvh.
-    # The renders do not read it: the kernels sweep every triangle.
+    # attach_bvh, load_scene(with_bvh=True)), for ops/bvh.py intersect_bvh
+    # and the BVH route (RenderConfig.intersect="bvh"); the other renders
+    # sweep every triangle.
     bvh: Optional["BVHData"] = None
 
     @property

@@ -8,9 +8,10 @@
     bit, since it repeats that sweep's triangle test.
   * Trees of other leaf sizes: the traversal tests every slot of a leaf.
   * Ties: coincident triangles give the lowest triangle index, as the sweep.
-  * A scene with a BVH renders as without it, its gradient too (the kernels'
-    permuted view drops the BVH); SceneData.to and scene_from_numpy carry
-    it; load_scene(with_bvh=True) attaches it.
+  * A scene with a BVH renders as without it under intersect "auto", its
+    gradient too (the kernels' permuted view drops the BVH); SceneData.to
+    and scene_from_numpy carry it; load_scene(with_bvh=True) attaches it.
+    The BVH route (intersect="bvh") is tests/test_torch_bvh_route.py's.
 """
 
 import jax.numpy as jnp
@@ -170,8 +171,8 @@ def test_ties_keep_the_lowest_triangle_index():
 
 
 def test_a_scene_with_a_bvh_renders_as_without_it():
-    """The renders do not read the BVH; the clustered view permutes the
-    triangles and drops it."""
+    """With intersect "auto" the renders do not read the BVH; the clustered
+    view permutes the triangles and drops it."""
     plain = large_scene()
     scene = attach_bvh(plain)
     cfg = RenderConfig(width=8, height=8, spp=2, max_bounces=4, tile_size=64)

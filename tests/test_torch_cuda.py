@@ -791,16 +791,16 @@ B9_FIXED_INPUTS_SHA256 = "fde46707e3daf9af590a0f93d6acd663036a82d3e3a62c0bb17038
 B9_FIXED_OUTPUTS_SHA256 = "6c10a0f33c4739538963550c9b0bff84d5877cd045fe026660bf14a023325041"
 
 
-def b9_fixed_records(card, n_tri):
-    """Records of a 4-slot stage for 5017 lanes made with numpy from a
-    seed (path lengths 0 to 4, the last slot an escape for ~30% of them),
-    with g and a random (suf, esc) carry."""
+def b9_fixed_records(card, n_tri, n=5000 + 17):
+    """Records of a 4-slot stage for n lanes made with numpy from a seed
+    (path lengths 0 to 4, the last slot an escape for ~30% of them), with g
+    and a random (suf, esc) carry."""
     import numpy as np
 
     from inverse_path_tracer_torch.render.diff import REC_ROWS
 
     r = np.random.default_rng(23)
-    n, k = 5000 + 17, 4
+    k = 4
     lengths = r.integers(0, k + 1, size=n)
     rec = np.zeros((k, REC_ROWS, n), dtype=np.float32)
     for s in range(k):
@@ -984,3 +984,153 @@ def test_world1_nccl_sharded_render(card):
         assert int(st.shadow_rays) == int(st_w.shadow_rays)
     finally:
         shutdown_distributed()
+
+
+@pytest.fixture(scope="module")
+def bvh_big():
+    """assets.bvh_scene (20,498 triangles, its BVH attached) on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from inverse_path_tracer_torch import bvh_scene
+
+    return bvh_scene(torch.device("cuda", 0))
+
+
+@pytest.mark.parametrize("kind", ["large", "bvh_scene"])
+def test_bvh_traversal_kernel_matches_intersect_bvh(card, bvh_big, kind):
+    """The traversal kernel (intersect_tile on the route's tables) against
+    the plain intersect_bvh on the same rays: t, triangle (internal: the
+    leaf order) and the work counts equal; its triangle in global order that
+    of B10's clustered sweep or, at an exact tie, a lower global index."""
+    from inverse_path_tracer_torch import large_scene
+    from inverse_path_tracer_torch.ops.bvh import attach_bvh
+    from inverse_path_tracer_torch.ops.kernels.render_kernel import (
+        bvh_traversal,
+        intersect_tile,
+        intersect_tile_plain,
+        pack_tables,
+    )
+
+    scene = attach_bvh(large_scene(card)) if kind == "large" else bvh_big
+    cfg = RenderConfig(width=128, height=64, spp=4, intersect="bvh")
+    n = 1 << 14
+    g = torch.Generator(device="cpu").manual_seed(11)
+    p_box = (torch.rand((n, 3), generator=g) * 3.6 - 1.8 + torch.tensor([0.0, 0.0, 4.0])).to(card)
+    d_box = torch.nn.functional.normalize(torch.randn((n, 3), generator=g), dim=1).to(card)
+    p_cam, d_cam = camera_rays(scene, cfg, 2, torch.arange(n, device=card))
+    tabs = pack_tables(scene, scene.diffuse, cfg)
+    tabs_c = pack_tables(scene, scene.diffuse, cfg.with_(intersect="auto"))
+    assert tabs.nodes is not None and tabs_c.cluster_k > 0
+    for p, d in ((p_box, d_box), (p_cam, d_cam)):
+        pt, dt = p.T.contiguous(), d.T.contiguous()
+        c_k = torch.zeros(3, dtype=torch.int64, device=card)
+        c_p = torch.zeros(3, dtype=torch.int64, device=card)
+        before = bvh_traversal.launches
+        t, i = intersect_tile(scene, cfg, pt, dt, tables=tabs, counts=c_k)
+        assert bvh_traversal.launches == before + 1
+        t_p, i_p = intersect_tile_plain(scene, cfg, pt, dt, counts=c_p)
+        assert torch.equal(t, t_p) and torch.equal(i, i_p) and torch.equal(c_k, c_p)
+        t2, i2 = intersect_tile(scene, cfg, pt, dt, tables=tabs)
+        assert torch.equal(t, t2) and torch.equal(i, i2)
+        t_c, i_c = intersect_tile(scene, cfg.with_(intersect="auto"), pt, dt, tables=tabs_c)
+        hit = torch.isfinite(t)
+        g_b, g_c = tabs.perm[i.long()], tabs_c.perm[i_c.long()]
+        assert torch.equal(t, t_c) and int(hit.sum()) > n // 4
+        tie = hit & (g_b != g_c)
+        assert bool((g_b[tie] < g_c[tie]).all())
+
+
+def test_bvh_route_on_the_card(card, bvh_big):
+    """The route (B1, B2, B3, B4 on the traversal) against the clustered
+    mega route on the 20,498-triangle scene: radiance of at least 97% of
+    samples within rtol 1e-4 / atol 1e-5, counts equal, gradients under the
+    vertex-normal bound; the route's launches counted, no staged kernel."""
+    from inverse_path_tracer_torch import loss_and_grad_range
+    from inverse_path_tracer_torch.ops.kernels.render_kernel import bvh_traversal
+    from inverse_path_tracer_torch.ops.kernels.staged_kernel import init_tile
+
+    scene = bvh_big
+    cfg = RenderConfig(width=32, height=32, spp=4, max_bounces=8)
+    w = torch.rand((cfg.n_samples, 3), generator=torch.Generator().manual_seed(6)).to(card)
+    out = {}
+    for what, c in (("bvh", cfg.with_(intersect="bvh")), ("swept", cfg.with_(wavefront="mega"))):
+        b0, s0 = bvh_traversal.launches, init_tile.launches
+        m = scene.diffuse.clone().requires_grad_()
+        vals, st = render_samples(m, scene, 3, c, device=card)
+        (vals * w).sum().backward()
+        _, g_lg, _ = loss_and_grad_range(scene.diffuse, scene, 3, c, 0, c.n_samples,
+                                         lambda v, lo: (v * w[lo:lo + v.shape[0]]).sum(),
+                                         device=card)
+        assert (bvh_traversal.launches > b0) is (what == "bvh") and init_tile.launches == s0
+        out[what] = (vals.detach(), int(st.segments), int(st.shadow_rays), m.grad, g_lg)
+    (vb, sb, hb, gb, lb), (vc, sc, hc, gc, lc) = out["bvh"], out["swept"]
+    assert (sb, hb) == (sc, hc)
+    assert float(torch.isclose(vb, vc, rtol=RTOL, atol=ATOL).all(dim=1).float().mean()) >= 0.97
+    assert_vn_grad_close(gb, gc)
+    assert_vn_grad_close(lb, lc)
+    torch.testing.assert_close(lb, gb, rtol=1e-5, atol=0)
+
+
+def test_gradient_kernels_past_2048_triangles(card, bvh_big):
+    """B2 (on the route and clustered), B4 on the route's B3 records and B9
+    with their accumulators in global memory (20,498 triangles) against
+    their plain versions, and bit-equal across two calls, at launches past
+    the grid of 2 blocks an SM (131,072 lanes for B2 and B4, whose grid is
+    then cut and B4's blocks stride; 65,536 for B9)."""
+    from inverse_path_tracer_torch.ops.kernels.render_kernel import pack_tables
+    from inverse_path_tracer_torch.ops.kernels.staged_kernel import (
+        stage_reverse_tile,
+        stage_reverse_tile_plain,
+    )
+
+    scene = bvh_big
+    nt = scene.n_tri
+    cfg = RenderConfig(width=128, height=128, spp=8, max_bounces=4)
+    n = cfg.n_samples
+    g = torch.rand((3, n), generator=torch.Generator().manual_seed(2)).to(card)
+    route = cfg.with_(intersect="bvh")
+    for c in (route, cfg.with_(wavefront="mega")):
+        args = tile_args(scene, c, card, "fused")
+        tabs = pack_tables(scene, scene.diffuse, c)
+        d1 = grad_tile(scene.diffuse, scene, c, g=g, tables=tabs, **args)
+        d2 = grad_tile(scene.diffuse, scene, c, g=g, tables=tabs, **args)
+        assert torch.equal(d1, d2)
+        assert_vn_grad_close(d1, grad_tile_plain(scene.diffuse, scene, c, g=g, **args))
+    args = tile_args(scene, route, card, "fused")
+    tabs = pack_tables(scene, scene.diffuse, route)
+    _, _, rec = render_tile_rec(scene.diffuse, scene, route, tables=tabs, **args)
+    d4 = reverse_tile(nt, route, rec, g, tabs.perm)
+    assert torch.equal(d4, reverse_tile(nt, route, rec, g, tabs.perm))
+    assert_grad_close(d4, reverse_tile_plain(nt, route, rec, g, tabs.perm))
+    assert bool((d4 != 0).any())
+    rec9, g9, suf9 = b9_fixed_records(card, nt, 1 << 16)
+    k = rec9.shape[0] // 16
+    dm, so = stage_reverse_tile(nt, cfg, k, rec9, g9, suf9)
+    dm2, so2 = stage_reverse_tile(nt, cfg, k, rec9, g9, suf9)
+    assert torch.equal(dm, dm2) and torch.equal(so, so2)
+    dm_p, so_p = stage_reverse_tile_plain(nt, cfg, k, rec9, g9, suf9)
+    assert_grad_close(dm, dm_p)
+    torch.testing.assert_close(so, so_p, rtol=1e-6, atol=0)
+
+
+def test_kernels_without_a_bvh_flavour_refuse_bvh_tables(card, scene0):
+    """B5, B6 (both sinks) and B7 have no BVH traversal: on the BVH route's
+    tables they raise rather than sweep the leaf-order rows."""
+    from inverse_path_tracer_torch.ops.bvh import attach_bvh
+    from inverse_path_tracer_torch.ops.kernels.inverse_kernel import (
+        inverse_tile,
+        inverse_tile_global,
+        inverse_tile_rec,
+    )
+    from inverse_path_tracer_torch.ops.kernels.staged_kernel import init_tile
+
+    scene = attach_bvh(scene0)
+    cfg = RenderConfig(width=8, height=8, spp=1, max_bounces=2, intersect="bvh")
+    args = tile_args(scene, cfg, card, "fused")
+    pix = torch.rand((3, cfg.n_samples), generator=torch.Generator().manual_seed(3)).to(card)
+    for fn, kw in ((inverse_tile, dict(pix=pix)), (inverse_tile_global, dict(pix=pix)),
+                   (inverse_tile_rec, {})):
+        with pytest.raises(ValueError, match="BVH route"):
+            fn(scene, cfg, **args, **kw)
+    with pytest.raises(ValueError, match="BVH route"):
+        init_tile(scene.diffuse, scene, cfg, p=args["p"], d=args["d"], alive=args["alive"])
