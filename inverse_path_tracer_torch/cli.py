@@ -365,7 +365,8 @@ def build_parser() -> argparse.ArgumentParser:
     pr.add_argument("scene")
     pr.add_argument("out")
     pr.add_argument("--profile", default=None,
-                    help="write a torch.profiler trace to this directory")
+                    help="write a torch.profiler trace to this directory; it holds the "
+                         "program's ipt.* spans, each one boolean check without --profile")
     _add_render_args(pr)
     pr.set_defaults(fn=cmd_render)
 

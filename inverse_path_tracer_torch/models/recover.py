@@ -32,6 +32,7 @@ from inverse_path_tracer_torch.parallel.shard import batched_step_sharded, make_
 from inverse_path_tracer_torch.render.forward import render_samples, resolve_device
 from inverse_path_tracer_torch.scene.build import SceneData
 from inverse_path_tracer_torch.utils.checkpoint import load_checkpoint, save_checkpoint
+from inverse_path_tracer_torch.utils.profiling import span, spanned
 
 
 def recover_loss(
@@ -47,8 +48,9 @@ def recover_loss(
     (device, and rays/uniforms with rng="external")."""
     mats = torch.sigmoid(theta)
     vals, _ = render_samples(mats, scene, key, cfg, **kw)
-    img = tonemap_mean(vals, cfg.spp).reshape(cfg.height, cfg.width, 3)
-    return (img - target01.to(img.device)).abs().mean()
+    with span("ipt.recover.loss"):
+        img = tonemap_mean(vals, cfg.spp).reshape(cfg.height, cfg.width, 3)
+        return (img - target01.to(img.device)).abs().mean()
 
 
 def make_optimizer(theta: torch.Tensor, lr: float) -> torch.optim.Adam:
@@ -71,15 +73,20 @@ def keyed_loss(theta, scene, key, cfg, target01, n_keys: int = 1,
                                      **extra(k), **kw) for k in range(n_keys)]).mean()
 
 
+@spanned("ipt.recover.step")
 def recover_step(theta, opt, scene, key, cfg, target01, n_keys: int = 1, **kw) -> float:
     """One optimizer step on theta; returns the loss before the step."""
-    opt.zero_grad(set_to_none=True)
+    with span("ipt.recover.optim"):
+        opt.zero_grad(set_to_none=True)
     loss = keyed_loss(theta, scene, key, cfg, target01, n_keys, **kw)
-    loss.backward()
-    opt.step()
+    with span("ipt.recover.backward"):
+        loss.backward()
+    with span("ipt.recover.optim"):
+        opt.step()
     return float(loss.detach())
 
 
+@spanned("ipt.recover.step")
 def batched_step(theta, opt, scene, keys, cfg, targets01, n_keys: int = 1,
                  scene_chunk: int = 0,
                  inputs: Optional[Callable[[int, int], dict]] = None, **kw) -> torch.Tensor:
@@ -93,15 +100,18 @@ def batched_step(theta, opt, scene, keys, cfg, targets01, n_keys: int = 1,
     step; theta.grad keeps the step's gradient."""
     s = theta.shape[0]
     c = scene_chunk if 0 < scene_chunk < s else s
-    opt.zero_grad(set_to_none=True)
+    with span("ipt.recover.optim"):
+        opt.zero_grad(set_to_none=True)
     losses = []
     for a in range(0, s, c):
         part = [keyed_loss(theta[j], scene, keys[j], cfg, targets01[j], n_keys,
                            None if inputs is None else functools.partial(inputs, j), **kw)
                 for j in range(a, min(a + c, s))]
-        torch.stack(part).sum().backward()
+        with span("ipt.recover.backward"):
+            torch.stack(part).sum().backward()
         losses += [loss.detach() for loss in part]
-    opt.step()
+    with span("ipt.recover.optim"):
+        opt.step()
     return torch.stack(losses)
 
 

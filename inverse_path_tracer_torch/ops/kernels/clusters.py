@@ -30,6 +30,7 @@ from typing import TYPE_CHECKING, NamedTuple, Optional
 import torch
 
 from inverse_path_tracer_torch.scene.build import SceneData
+from inverse_path_tracer_torch.utils.profiling import span
 
 if TYPE_CHECKING:
     from inverse_path_tracer_torch.ops.bvh import BVHData
@@ -140,13 +141,15 @@ def kernel_perm(scene: SceneData, cfg) -> Optional[torch.Tensor]:
     """The internal -> global triangle order of the kernels (on the
     scene's device): the BVH's leaf order on the BVH route, else the
     clustered order, or None where the scene keeps global order (dense
-    sweep, or cfg.tri_order == "file")."""
+    sweep, or cfg.tri_order == "file").  The Morton order, sorted on the
+    host, runs under the span ipt.prep.perm."""
     if uses_bvh(scene, cfg):
         return scene.bvh.tri_order.to(scene.device, torch.int64)
     ck = cluster_k_for(scene.n_tri, cfg)
     if ck == 0 or cfg.tri_order != "morton":
         return None
-    return morton_order(scene.vertices, hot=ck).to(scene.device)
+    with span("ipt.prep.perm"):
+        return morton_order(scene.vertices, hot=ck).to(scene.device)
 
 
 def unperm_rows(d: torch.Tensor, perm: Optional[torch.Tensor]) -> torch.Tensor:

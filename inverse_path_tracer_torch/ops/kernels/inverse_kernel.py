@@ -57,7 +57,8 @@ turns a grid into render/inverse.py's TransportGrids.
 
 Each wrapper launches its CUDA kernel (inverse.cu) for CUDA tensors and
 runs its plain version for CPU tensors; it never falls back from one to the
-other on a CUDA tensor.  `<wrapper>.launches` counts kernel launches.
+other on a CUDA tensor.  `<wrapper>.launches` counts kernel launches; each
+call runs under the span ipt.launch.<wrapper> (utils/profiling.py).
 """
 
 from __future__ import annotations
@@ -95,6 +96,7 @@ from inverse_path_tracer_torch.ops.sampling import (
 )
 from inverse_path_tracer_torch.ops.vec import dot3, normalize3
 from inverse_path_tracer_torch.scene.build import SceneData
+from inverse_path_tracer_torch.utils.profiling import spanned
 
 N_QUANT = 9  # w, w*f0, w*f0*pix(3), w*f0*light(3), n
 REC_INV_ROWS = 8  # dst, src, hit, w, nee_ok, nee_w, e_idx, 0
@@ -149,6 +151,7 @@ def _plain_pixels(cfg, camera, pix, image) -> torch.Tensor:
     return image[pixel_index(cfg, sample_index(camera, image.device))].T.contiguous()
 
 
+@spanned("ipt.launch.inverse_tile")
 def inverse_tile(
     scene: SceneData,
     cfg,
@@ -197,6 +200,7 @@ def inverse_tile(
     return unperm_grid(partials.sum(dim=0, dtype=torch.float64).float(), tabs.perm), stats
 
 
+@spanned("ipt.launch.inverse_tile_rec")
 def inverse_tile_rec(
     scene: SceneData,
     cfg,
@@ -233,6 +237,7 @@ def inverse_tile_rec(
     return rec, stats
 
 
+@spanned("ipt.launch.inverse_tile_global")
 def inverse_tile_global(
     scene: SceneData,
     cfg,

@@ -44,7 +44,8 @@ each launch that ran the traversal.  B7 and B8 do not take that route.
 Each wrapper launches its CUDA kernel (render_fwd.cu, render_bwd.cu) for
 CUDA tensors (in camera mode: for a scene on the card) and runs its plain
 version for CPU tensors; it never falls back from one to the other on a
-CUDA tensor.  `<wrapper>.launches` counts kernel launches.  B1, B2 and B3
+CUDA tensor.  `<wrapper>.launches` counts kernel launches; each call runs
+under the span ipt.launch.<wrapper> (utils/profiling.py).  B1, B2 and B3
 run persistent blocks whose lanes regenerate (render_common.cuh
 warp_rays); `render_tile.blocks`, `grad_tile.blocks`,
 `render_tile_rec.blocks` and `reverse_tile.blocks` hold the grid of their
@@ -96,6 +97,7 @@ from inverse_path_tracer_torch.render.diff import (
     backward_from_records,
 )
 from inverse_path_tracer_torch.scene.build import SceneData
+from inverse_path_tracer_torch.utils.profiling import spanned
 
 Keys = Tuple[int, int]
 
@@ -140,6 +142,7 @@ class KernelTables:
         return -(-n // self.cluster_k) * self.cluster_k if self.cluster_k else n
 
 
+@spanned("ipt.prep.tables")
 def pack_tables(scene: SceneData, materials: torch.Tensor, cfg=None) -> KernelTables:
     """The kernels' tables of `scene` with `materials`; with cfg, in the
     clustered order and with the cluster boxes where cfg clusters the scene,
@@ -262,6 +265,7 @@ def _ray_inputs(scene, cfg, p, d, alive, orig, camera):
     return a["p"], a["d"], a["alive"], a["orig"]
 
 
+@spanned("ipt.launch.render_tile")
 def render_tile(
     materials: torch.Tensor,
     scene: SceneData,
@@ -299,6 +303,7 @@ def render_tile(
     return rad, stats
 
 
+@spanned("ipt.launch.render_tile_rec")
 def render_tile_rec(
     materials: torch.Tensor,
     scene: SceneData,
@@ -337,6 +342,7 @@ def render_tile_rec(
     return rad, stats, rec
 
 
+@spanned("ipt.launch.grad_tile")
 def grad_tile(
     materials: torch.Tensor,
     scene: SceneData,
@@ -387,6 +393,7 @@ def grad_tile(
     return unperm_rows(partials.sum(dim=0), tabs.perm)
 
 
+@spanned("ipt.launch.reverse_tile")
 def reverse_tile(n_tri: int, cfg, rec: torch.Tensor, g: torch.Tensor,
                  perm: Optional[torch.Tensor] = None) -> torch.Tensor:
     """B4: the material cotangent (nT, 3) from B3's records and g (3, n);
@@ -416,6 +423,7 @@ def reverse_tile(n_tri: int, cfg, rec: torch.Tensor, g: torch.Tensor,
     return unperm_rows(partials.sum(dim=0), perm)
 
 
+@spanned("ipt.launch.intersect_tile")
 def intersect_tile(
     scene: SceneData,
     cfg,

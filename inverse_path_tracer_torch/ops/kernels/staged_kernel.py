@@ -36,7 +36,8 @@ in the internal triangle order; the caller maps the cotangent back once
 Each wrapper launches its CUDA kernel (render_fwd.cu: B7, B8;
 render_bwd.cu: B9) for CUDA tensors and runs its plain version for CPU
 tensors; it never falls back from one to the other on a CUDA tensor.
-`<wrapper>.launches` counts kernel launches.  B7 and B9 run persistent
+`<wrapper>.launches` counts kernel launches; each call runs under the span
+ipt.launch.<wrapper> (utils/profiling.py).  B7 and B9 run persistent
 blocks, as many as fit on the card at once: B7's warps walk fixed ranges
 of 32-lane chunks after their block staged the tables (render_fwd.cu
 init_kernel), B9's likewise over a stage's records (render_bwd.cu
@@ -76,8 +77,10 @@ from inverse_path_tracer_torch.ops.kernels.render_kernel import (
 )
 from inverse_path_tracer_torch.render.diff import REC_ROWS, BounceRecords, suffix_recursion
 from inverse_path_tracer_torch.scene.build import SceneData
+from inverse_path_tracer_torch.utils.profiling import spanned
 
 
+@spanned("ipt.launch.init_tile")
 def init_tile(
     materials: torch.Tensor,
     scene: SceneData,
@@ -113,6 +116,7 @@ def init_tile(
     return carry
 
 
+@spanned("ipt.launch.stage_tile")
 def stage_tile(
     materials: torch.Tensor,
     scene: SceneData,
@@ -164,6 +168,7 @@ def stage_tile(
     return (out, rec) if with_rec else out
 
 
+@spanned("ipt.launch.stage_reverse_tile")
 def stage_reverse_tile(
     n_tri: int, cfg, k: int, rec: torch.Tensor, g: torch.Tensor, suf: torch.Tensor
 ) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -80,6 +80,7 @@ from inverse_path_tracer_torch.ops.kernels.staged_kernel import (
 from inverse_path_tracer_torch.ops.tonemap import tonemap_mean, tonemap_to_uint8
 from inverse_path_tracer_torch.scene.build import SceneData
 from inverse_path_tracer_torch.utils.png import write_png
+from inverse_path_tracer_torch.utils.profiling import span, spanned
 
 
 class RenderStats(NamedTuple):
@@ -174,6 +175,7 @@ def _binned_order(carry: torch.Tensor, lo: torch.Tensor, inv_ext: torch.Tensor,
     return torch.sort(key, stable=True).indices
 
 
+@spanned("ipt.prep.bins")
 def _scene_bins(scene: SceneData, cfg: RenderConfig):
     """(lo, inv_ext) of the scene's box for _binned_order on clustered
     scenes, None elsewhere (alive-first order)."""
@@ -215,14 +217,15 @@ def _staged_launch(kern, materials, scene, cfg, a, base: int, bins, with_rec: bo
         u = torch.cat([u, u.new_zeros(((n_stages * k - cfg.max_bounces) * 8, n))])
     stages = []
     for s in range(n_stages):
-        order = (_binned_order(carry, *bins, cfg.bin_cells) if bins is not None
-                 else _alive_first_order(carry[CAR_ALIVE]))
-        carry = carry[:, order].contiguous()
-        orig = orig[:, order].contiguous()
-        local = orig[0].long() - base
-        u_s = None if u is None else u[s * k * 8 : (s + 1) * k * 8][:, local].contiguous()
-        # The live lanes come first; B8 takes their count on the device.
-        live = (carry[CAR_ALIVE] > 0).sum(dtype=torch.int32).reshape(1)
+        with span("ipt.staged.reorder"):
+            order = (_binned_order(carry, *bins, cfg.bin_cells) if bins is not None
+                     else _alive_first_order(carry[CAR_ALIVE]))
+            carry = carry[:, order].contiguous()
+            orig = orig[:, order].contiguous()
+            local = orig[0].long() - base
+            u_s = None if u is None else u[s * k * 8 : (s + 1) * k * 8][:, local].contiguous()
+            # The live lanes come first; B8 takes their count on the device.
+            live = (carry[CAR_ALIVE] > 0).sum(dtype=torch.int32).reshape(1)
         out = kern.stage(materials, scene, cfg, carry, orig, s * k, k, uniforms=u_s,
                          keys=a["keys"], with_rec=with_rec, live=live)
         if with_rec:
@@ -244,9 +247,12 @@ def _staged_reverse(kern, n_tri: int, cfg, g: torch.Tensor, stages) -> torch.Ten
     suf = torch.zeros((4, g.shape[1]), dtype=torch.float32, device=g.device)
     d_mats = torch.zeros((n_tri, 3), dtype=torch.float32, device=g.device)
     for st in reversed(stages):
-        dm, suf_out = kern.stage_reverse(n_tri, cfg, k, st.rec, g[:, st.local].contiguous(), suf)
-        suf = torch.empty_like(suf_out)
-        suf[:, st.order] = suf_out
+        with span("ipt.staged.reorder"):
+            g_st = g[:, st.local].contiguous()
+        dm, suf_out = kern.stage_reverse(n_tri, cfg, k, st.rec, g_st, suf)
+        with span("ipt.staged.reorder"):
+            suf = torch.empty_like(suf_out)
+            suf[:, st.order] = suf_out
         d_mats = d_mats + dm
     return d_mats
 
@@ -304,6 +310,7 @@ def _launches(scene, cfg, key, start, count, ext: Optional[_External],
                            orig=idx.to(torch.int32)[None, :].contiguous(), keys=None)
 
 
+@spanned("ipt.render.grad")
 def _grad_launches(materials, scene, key, cfg, start, count, g_vals, ext) -> torch.Tensor:
     kern = _kernels(cfg, scene, materials)
     n_tri = scene.n_tri
@@ -330,6 +337,7 @@ class _RenderRange(torch.autograd.Function):
     then B7, B8 with records and B9."""
 
     @staticmethod
+    @spanned("ipt.render.range")
     def forward(ctx, materials, scene, key, cfg, start, count, ext):
         kern = _kernels(cfg, scene, materials)
         staged = _use_staged(cfg, scene)
@@ -408,6 +416,7 @@ def grad_range(
     return _grad_launches(materials.detach(), scene, key, cfg, start, count, g_vals, ext)
 
 
+@spanned("ipt.render.range")
 def loss_and_grad_range(
     materials: torch.Tensor,
     scene: SceneData,

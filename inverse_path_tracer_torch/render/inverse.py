@@ -72,6 +72,7 @@ from inverse_path_tracer_torch.ops.sampling import (
 from inverse_path_tracer_torch.ops.vec import dot3, normalize3
 from inverse_path_tracer_torch.render.forward import RenderStats, _launches, _prepare
 from inverse_path_tracer_torch.scene.build import SceneData
+from inverse_path_tracer_torch.utils.profiling import span, spanned
 
 # Columns of the wavefront path's grid: w, w*f(2), w*f0*pix(3),
 # w*f1*pix(3), w*f0*light(3), w*f1*light(3), n.
@@ -223,6 +224,7 @@ def _wavefront_launch(scene, cfg, a, target_flat, grid) -> torch.Tensor:
     return counts
 
 
+@spanned("ipt.extract.range")
 def trace_transport_range(
     scene: SceneData,
     target_image01: torch.Tensor,
@@ -256,12 +258,14 @@ def trace_transport_range(
                          f"{cfg.height}x{cfg.width}")
     nt = scene.n_tri
     if cfg.backend == "plain":
-        route, grid = "wavefront", _zero_grids(nt, dev)
+        route = "wavefront"
     else:
         tables = pack_tables(scene, scene.diffuse, cfg) if dev.type == "cuda" else None
         perm = kernel_perm(scene, cfg)
         route = "grid" if inverse_grid_fits(scene) else "global"
-        grid = torch.zeros((nt + 1, nt, N_QUANT), dtype=torch.float64, device=dev)
+    with span("ipt.prep.grid"):
+        grid = (_zero_grids(nt, dev) if route == "wavefront" else
+                torch.zeros((nt + 1, nt, N_QUANT), dtype=torch.float64, device=dev))
     totals = torch.zeros(2, dtype=torch.float64, device=dev)
     camera_key = rng.fold_in(key, rng.CAMERA_STREAM)
     for _lo, _hi, a in _launches(scene, cfg, key, start, count, ext, camera_key=camera_key):
@@ -278,13 +282,15 @@ def trace_transport_range(
         else:
             _, stats = inverse_tile_global(scene, cfg, tables=tables, acc=grid, **pixels, **a)
         totals += stats.sum(dim=1, dtype=torch.float64)
-    if route == "global":  # the kernels' order -> global, once per range
-        grid = unperm_grid(grid, perm)
-    grids = _grids_from_cols(grid) if route == "wavefront" else grids_from_acc(grid)
+    with span("ipt.extract.finish"):
+        if route == "global":  # the kernels' order -> global, once per range
+            grid = unperm_grid(grid, perm)
+        grids = _grids_from_cols(grid) if route == "wavefront" else grids_from_acc(grid)
     counts = totals.to(torch.int64)
     return grids, RenderStats(segments=counts[0], shadow_rays=counts[1])
 
 
+@spanned("ipt.extract.compress")
 def compress_grids(grids: TransportGrids, n_tri: int
                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """DataWrapper::compress (inv_scene.h:87-115): returns

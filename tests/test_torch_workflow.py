@@ -8,7 +8,7 @@
     packages draw their samples from different RNGs), and the JAX test's
     gates on the port's outputs.
   * recover, recover-batch, make-dataset, graph-viz and render --profile
-    write what they promise; evaluate also reads the JAX package's
+    write what they promise (the trace holds the ipt.* spans); evaluate also reads the JAX package's
     checkpoint of artifacts/exp100.
   * Without --cpu and without a card, every command raises before it writes.
   * recover --shard --coordinator in two processes (the JAX package's
@@ -31,7 +31,7 @@ from inverse_path_tracer_tpu import cli as jcli
 
 from inverse_path_tracer_torch import ASSET_ROOT, cli, load_scene
 from inverse_path_tracer_torch.utils.plyviz import read_ply_counts
-from inverse_path_tracer_torch.utils.profiling import StageTimer, profile_trace
+from inverse_path_tracer_torch.utils.profiling import profile_trace, span
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CFG_ARGS = ["--width", "24", "--height", "24", "--spp", "4", "--bounces", "4",
@@ -151,7 +151,9 @@ def test_render_profile_command(workdir, monkeypatch):
     traces = os.listdir("trace")
     assert len(traces) == 1 and traces[0].endswith(".json")
     with open(os.path.join("trace", traces[0])) as f:
-        assert json.load(f)["traceEvents"]
+        events = json.load(f)["traceEvents"]
+    got = {e.get("name") for e in events}
+    assert {"ipt.render.range", "ipt.launch.render_tile"} <= got  # the program's spans
 
 
 ROOT = ["--asset-root", ASSET_ROOT]
@@ -245,12 +247,15 @@ def test_shard_without_a_coordinator_is_one_rank(workdir, monkeypatch):
 
 
 def test_profiling_utils(tmp_path):
-    t = StageTimer()
-    with t.stage("a", sync=torch.ones(8).sum()):
+    # span: without a profiler one shared no-op context, no event recorded
+    assert span("ipt.test.a") is span("ipt.test.b")
+    with span("ipt.test.a"):
         torch.ones(8).sum()
-    with t.stage("a"):
-        pass
-    assert set(t.stages) == {"a"} and t.stages["a"] >= 0
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        with span("ipt.test.a"):
+            torch.ones(8).sum()
+    names = [e.name for e in prof.events()]
+    assert names.count("ipt.test.a") == 1 and "ipt.test.b" not in names
     with profile_trace(None):  # the no-op path
         pass
     assert not os.listdir(tmp_path)
