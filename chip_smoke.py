@@ -8,9 +8,9 @@ Phases, each failing loudly (any failure exits nonzero):
   2. build every CUDA kernel from the sources here (render_fwd.cu: B1 and
      B3, the template render_kernel<kRecords, kSweep>, B7, B8 and B10's
      own launch; render_bwd.cu: B2, B4 and B9; inverse.cu: B5 and B6's two
-     sinks; every kernel sweeps through B10 in render_common.cuh, and B1,
-     B2, B3 and B10's launch also search by the BVH traversal there, the
-     flavour kSweep = 2), one nvcc per source, in parallel; ptxas's report,
+     sinks; reorder.cu: the staged re-sort; every kernel sweeps through B10
+     in render_common.cuh, and B1, B2, B3 and B10's launch also search by
+     the BVH traversal there, the flavour kSweep = 2), one nvcc per source, in parallel; ptxas's report,
      with no spill allowed in any kernel;
   3. each kernel against its plain PyTorch version on the card, on the
      scene-0 fixture at 64x64/4 spp/8 bounces: external uniforms with quirks
@@ -201,7 +201,13 @@ Phases, each failing loudly (any failure exits nonzero):
      (accumulators in global memory) against their plain versions and twice
      bit-equal; the FD gate; forward, fwd+bwd and loss_and_grad_range at
      512x512/64 spp/16 bounces on both routes, a profile of the route
-     (bvh_route_phase).
+     (bvh_route_phase);
+ 28. (run after phase 21) the staged re-sort (reorder.cu, reorder_tile) at
+     the large render's first 2^20-lane launch: at each of its 4 stages,
+     binned and alive first, order, carry, orig and live bit-equal to its
+     plain version (the PyTorch sort and gathers), each stage timed beside
+     its byte bound and the plain chain; a 500x500/100 spp render of the
+     scene counts 96 launches (reorder_phase).
 
 The kernels' JSON object, then the card's name and power limit, then, last,
 {"ok": true, "device": {...}}.  Needs CUDA; exits nonzero without it.
@@ -234,6 +240,8 @@ EDGE_PLANE_OPS = 5 + 6 + 2
 # f32 operations of a (ray, box) slab test (render_common.cuh enters): 6
 # subtractions, 6 multiplies and 10 min/max.
 BOX_OPS = 6 + 6 + 10
+# Bytes of a lane's carry (render_kernel.py CARRY_ROWS float32 rows).
+CARRY_ROWS_BYTES = 24 * 4
 # A block's opt-in dynamic shared memory on the H100 (render_common.cuh
 # kMaxSmem).
 SMEM_OPT_IN = 232448
@@ -2295,6 +2303,95 @@ def large_kernel_timing(device, launches, check_err, large_target):
     return kernels
 
 
+def reorder_phase(device):
+    """Phase 28: the staged wavefront's re-sort (reorder.cu, reorder_tile)
+    at the first 2^20-lane launch of the large vertex-normal render (camera
+    mode, fused RNG, as the main path runs it): at each of its 4 stages,
+    binned and alive first, the kernel's order, carry, orig and live equal
+    its plain version's (the parent's chain of PyTorch ops: the key, the
+    stable sort, the gathers, the live count) bit for bit, with B8 between
+    the stages on the kernel's outputs; each stage timed beside its byte
+    bound and the plain chain.  Then one 500x500/100 spp render of the scene
+    counts 96 reorder_tile launches (24 launches of 4 stages).  Returns the
+    kernel's row."""
+    import torch
+
+    from inverse_path_tracer_torch import RenderConfig, large_scene, render_samples
+    from inverse_path_tracer_torch.ops.kernels.render_kernel import pack_tables
+    from inverse_path_tracer_torch.ops.kernels.reorder_kernel import (
+        ReorderScratch,
+        reorder_tile,
+        reorder_tile_plain,
+    )
+    from inverse_path_tracer_torch.ops.kernels.staged_kernel import init_tile, stage_tile
+    from inverse_path_tracer_torch.render.forward import _scene_bins
+
+    t_phase = time.perf_counter()
+    cfg = RenderConfig(**MAIN)
+    k = cfg.stage_bounces
+    n_stages = -(-cfg.max_bounces // k)
+    scene = large_scene(device)
+    mats = scene.diffuse
+    n = min(cfg.tile_size, cfg.n_samples)
+    a = camera_launch(n, 0)
+    tabs = pack_tables(scene, mats, cfg)
+    bins, cells = _scene_bins(scene, cfg), cfg.bin_cells
+    carry = init_tile(mats, scene, cfg, camera=a["camera"], tables=tabs)
+    orig = torch.arange(n, dtype=torch.int32, device=device)[None]
+    scratch = ReorderScratch()
+    inputs, live = [], []
+    for s in range(n_stages):
+        inputs.append((carry, orig.clone()))
+        for b in (None, bins):
+            got = reorder_tile(carry, orig, b, cells, True, scratch=scratch)
+            want = reorder_tile_plain(carry, orig, b, cells, True)
+            if not all(torch.equal(x, y) for x, y in zip(got, want)):
+                raise AssertionError(f"reorder_tile ({'binned' if b else 'alive first'}) differs "
+                                     f"from its plain version at stage {s}")
+        carry, orig, lv, _ = got  # binned, as the main path
+        live.append(int(lv))
+        carry = stage_tile(mats, scene, cfg, carry, orig, s * k, k, keys=a["keys"], tables=tabs,
+                           live=lv)
+    bound_ms = n * 2 * (CARRY_ROWS_BYTES + 4) / PEAK_BYTES * 1e3  # carry and orig in and out
+    ms, plain_ms = {}, {}
+    timing = ReorderScratch()
+    for s, (c, o) in enumerate(inputs):
+        for label, b in (("binned", bins), ("alive first", None)):
+            fn = lambda: reorder_tile(c, o, b, cells, False, scratch=timing)  # noqa: E731
+            fn_p = lambda: reorder_tile_plain(c, o, b, cells, False)  # noqa: E731
+            fn()  # warm-up
+            fn_p()
+            ms[s, label], plain_ms[s, label] = cuda_ms(fn, 20), cuda_ms(fn_p, 5)
+    for s in range(n_stages):
+        log(f"reorder_tile at the large launch (24, {n}), stage {s} ({live[s]} live lanes): "
+            + ", ".join(f"{label} {ms[s, label]:.4f} ms (plain chain {plain_ms[s, label]:.4f} ms)"
+                        for label in ("binned", "alive first"))
+            + f", bound {bound_ms:.4f} ms (bytes), {100 * bound_ms / ms[s, 'binned']:.1f}% of it")
+    golden = RenderConfig(**GOLDEN)
+    expected = -(-golden.n_samples // golden.tile_size) * n_stages  # 24 x 4 = 96
+    before = reorder_tile.launches
+    render_samples(mats, scene, 0, golden, device=device)
+    torch.cuda.synchronize()
+    launches = reorder_tile.launches - before
+    if launches != expected:
+        raise AssertionError(f"a {shape(golden)} render ran {launches} reorder_tile launches, "
+                             f"not {expected}")
+    mean = lambda d: sum(v for (_, label), v in d.items() if label == "binned") / n_stages
+    log(f"reorder_tile: bit-equal to the plain chain at all {n_stages} stages, binned and alive "
+        f"first; {launches} launches a {shape(golden)} render; stages 0-{n_stages - 1} binned "
+        f"mean {mean(ms):.4f} ms, plain chain {mean(plain_ms):.4f} ms "
+        f"(phase 28: {time.perf_counter() - t_phase:.1f} s)")
+    return {"name": "reorder_tile", "route": "cuda",
+            "source": "inverse_path_tracer_torch/ops/kernels/reorder.cu",
+            "replaces": "none: the JAX package sorts between stages with XLA "
+                        "(inverse_path_tracer_tpu/render/forward.py:620, :635)",
+            "launches": launches, "max_abs_err": 0.0, "ms": mean(ms), "plain_ms": mean(plain_ms),
+            "bound_ms": bound_ms, "bound_by": "bytes",
+            # The plain version is the chain of PyTorch calls it replaced;
+            # no single call sorts and gathers.
+            "library_ms": None}
+
+
 def batch_scenes(n, device):
     """Scene 0's geometry and the (n, nT, 3) labels of scenes/0..n-1.txt,
     which must share scene 0's vertices (they differ in the cube's Kd)."""
@@ -3522,6 +3619,7 @@ def main() -> int:
     fd_gate(device, large_vn, large_vn.diffuse, label="large scene (staged)")
     large_target = large_vn_extraction(device, large_vn)
     kernels += large_kernel_timing(device, launches, check_err, large_target)
+    kernels.append(reorder_phase(device))
     batched_recovery(device)
     cli_commands(device)
     bvh_phase(device)

@@ -31,7 +31,7 @@ NVCC_FLAGS = (
 )
 
 SOURCES = {"render_fwd": "render_fwd.cu", "render_bwd": "render_bwd.cu",
-           "inverse": "inverse.cu"}
+           "inverse": "inverse.cu", "reorder": "reorder.cu"}
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 build_log: Dict[str, str] = {}  # kernel name -> nvcc output of this process's build

@@ -551,6 +551,13 @@ def _library(name: str):
         # pix grid stats next_ray stream
         lib.ipt_inverse_global.argtypes = [params, vp, vp, vp, vp, vp]
         lib.ipt_inverse_global.restype = ci
+    elif name == "reorder":
+        pll = ctypes.POINTER(ctypes.c_longlong)
+        lib.ipt_reorder_sizes.argtypes = [ci, ci, ci, pll, pll]  # n binned cells table counts
+        lib.ipt_reorder_sizes.restype = ci
+        # carry_in orig_in n lo inv_ext cells keys table counts carry_out orig_out order live stream
+        lib.ipt_reorder_tile.argtypes = [vp, vp, ci, vp, vp, ci, vp, vp, vp, vp, vp, vp, vp, vp]
+        lib.ipt_reorder_tile.restype = ci
     else:
         pi, pll = ctypes.POINTER(ci), ctypes.POINTER(ctypes.c_longlong)
         lib.ipt_grad_tile_capacity.argtypes = [params, pi, pll]  # blocks scratch

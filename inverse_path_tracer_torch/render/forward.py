@@ -28,8 +28,9 @@ the plain versions make the same rays with camera_rays.
   * staged (ops/kernels/staged_kernel.py): per launch B7 intersects the
     primary rays into a lane carry, then B8 runs stages of
     cfg.stage_bounces bounces; before each stage the carry is stably
-    re-sorted, live lanes first (and, on clustered scenes, binned by ray
-    direction and origin), so that trailing blocks hold dead lanes only.
+    re-sorted (ops/kernels/reorder_kernel.py reorder_tile), live lanes
+    first (and, on clustered scenes, binned by ray direction and origin),
+    so that trailing blocks hold dead lanes only.
     The gradient reruns the stages with records and chains B9 backwards
     through the stage orders.  Lane arithmetic does not depend on the lane
     order, so a staged render equals a mega one sample for sample.
@@ -56,7 +57,6 @@ from inverse_path_tracer_torch.ops.kernels.clusters import (
     uses_bvh,
 )
 from inverse_path_tracer_torch.ops.kernels.render_kernel import (
-    CAR_ALIVE,
     CAR_RAD,
     CAR_STATS,
     grad_tile,
@@ -68,6 +68,13 @@ from inverse_path_tracer_torch.ops.kernels.render_kernel import (
     render_tile_rec_plain,
     reverse_tile,
     reverse_tile_plain,
+)
+from inverse_path_tracer_torch.ops.kernels.reorder_kernel import (  # noqa: F401 (re-exported)
+    ReorderScratch,
+    _alive_first_order,
+    _binned_order,
+    reorder_tile,
+    reorder_tile_plain,
 )
 from inverse_path_tracer_torch.ops.kernels.staged_kernel import (
     init_tile,
@@ -101,9 +108,10 @@ def resolve_device(device=None) -> torch.device:
 
 class _Kernels(NamedTuple):
     """The per-launch functions of one range: the forward (B1), the forward
-    with records (B3), the fused backward (B2), the reverse on records (B4)
-    and the staged kernels (B7, B8, B9), or their plain versions; `perm`
-    maps the kernels' internal triangle rows back to global ones."""
+    with records (B3), the fused backward (B2), the reverse on records (B4),
+    the staged kernels (B7, B8, B9) and the re-sort between stages, or
+    their plain versions; `perm` maps the kernels' internal triangle rows
+    back to global ones."""
 
     fwd: Callable
     fwd_rec: Callable
@@ -112,23 +120,26 @@ class _Kernels(NamedTuple):
     init: Callable
     stage: Callable
     stage_reverse: Callable
+    reorder: Callable
     perm: Optional[torch.Tensor]
 
 
 def _kernels(cfg: RenderConfig, scene: SceneData, materials: torch.Tensor) -> _Kernels:
     """cfg.backend="plain" takes the plain versions on any device; otherwise
     the wrappers (the kernels on the card, the plain versions on the CPU),
-    with the kernel's tables packed once per range, not once per launch."""
+    with the kernel's tables packed once per range, not once per launch,
+    and one re-sort scratch for the range's stages and launches."""
     perm = kernel_perm(scene, cfg)
     if cfg.backend == "plain":
         return _Kernels(render_tile_plain, render_tile_rec_plain, grad_tile_plain,
                         reverse_tile_plain, init_tile_plain, stage_tile_plain,
-                        stage_reverse_tile_plain, perm)
+                        stage_reverse_tile_plain, reorder_tile_plain, perm)
     tables = pack_tables(scene, materials, cfg) if scene.device.type == "cuda" else None
     with_tables = lambda fn: functools.partial(fn, tables=tables)
     return _Kernels(with_tables(render_tile), with_tables(render_tile_rec),
                     with_tables(grad_tile), reverse_tile, with_tables(init_tile),
-                    with_tables(stage_tile), stage_reverse_tile, perm)
+                    with_tables(stage_tile), stage_reverse_tile,
+                    functools.partial(reorder_tile, scratch=ReorderScratch()), perm)
 
 
 def _use_staged(cfg: RenderConfig, scene: SceneData) -> bool:
@@ -151,34 +162,10 @@ def _stage_plan(cfg: RenderConfig) -> Tuple[int, int]:
     return k, -(-cfg.max_bounces // k)
 
 
-def _alive_first_order(alive: torch.Tensor) -> torch.Tensor:
-    """Stable partition of the lanes, alive (> 0) first: new[j] =
-    old[order[j]] (JAX render/forward.py:620)."""
-    return torch.sort((alive <= 0).to(torch.int32), stable=True).indices
-
-
-def _binned_order(carry: torch.Tensor, lo: torch.Tensor, inv_ext: torch.Tensor,
-                  cells: int) -> torch.Tensor:
-    """Alive-first and ray-binned stable order of the carry's lanes (JAX
-    render/forward.py:635): key ((dead * 8 + direction octant) * cells^3 +
-    origin cell), the cell of the next origin in a cells^3 grid over the
-    scene's box.  Alive lanes still come strictly first; within them, rays
-    of one direction octant and region share warps, so that their cluster
-    box tests agree."""
-    d, p = carry[0:3], carry[3:6]
-    dead = (carry[CAR_ALIVE] <= 0).to(torch.int64)
-    octant = (d[0] > 0).long() + 2 * (d[1] > 0).long() + 4 * (d[2] > 0).long()
-    cidx = torch.clamp(((p - lo[:, None]) * inv_ext[:, None] * cells).to(torch.int32), 0,
-                       cells - 1).long()
-    cell = cidx[0] + cells * (cidx[1] + cells * cidx[2])
-    key = (dead * 8 + octant) * cells**3 + cell
-    return torch.sort(key, stable=True).indices
-
-
 @spanned("ipt.prep.bins")
 def _scene_bins(scene: SceneData, cfg: RenderConfig):
-    """(lo, inv_ext) of the scene's box for _binned_order on clustered
-    scenes, None elsewhere (alive-first order)."""
+    """(lo, inv_ext) of the scene's box for the binned re-sort on
+    clustered scenes, None elsewhere (alive-first order)."""
     if cluster_k_for(scene.n_tri, cfg) == 0:
         return None
     v = scene.vertices.reshape(-1, 3)
@@ -195,13 +182,13 @@ class _StageRecords(NamedTuple):
 
 def _staged_launch(kern, materials, scene, cfg, a, base: int, bins, with_rec: bool):
     """The staged forward of one launch (JAX render/forward.py:682): B7,
-    then per stage the stable re-sort and B8, external uniforms (padded to
-    whole stages) gathered by each lane's sample.  `base` is the launch's
-    first global sample index.  In camera mode B7 makes the primary rays,
-    and one arange gives the lanes' global indices, which B8's hash and the
-    re-sorts carry.  Returns (radiance (3, n) in sample order, per-lane
-    counts (2, n) in the last stage's order, the stages' records when
-    with_rec)."""
+    then per stage the stable re-sort (kern.reorder) and B8, external
+    uniforms (padded to whole stages) gathered by each lane's sample.
+    `base` is the launch's first global sample index.  In camera mode B7
+    makes the primary rays, and one arange gives the lanes' global indices,
+    which B8's hash and the re-sorts carry.  Returns (radiance (3, n) in
+    sample order, per-lane counts (2, n) in the last stage's order, the
+    stages' records when with_rec)."""
     k, n_stages = _stage_plan(cfg)
     if "camera" in a:
         n = a["camera"].n
@@ -218,14 +205,10 @@ def _staged_launch(kern, materials, scene, cfg, a, base: int, bins, with_rec: bo
     stages = []
     for s in range(n_stages):
         with span("ipt.staged.reorder"):
-            order = (_binned_order(carry, *bins, cfg.bin_cells) if bins is not None
-                     else _alive_first_order(carry[CAR_ALIVE]))
-            carry = carry[:, order].contiguous()
-            orig = orig[:, order].contiguous()
-            local = orig[0].long() - base
-            u_s = None if u is None else u[s * k * 8 : (s + 1) * k * 8][:, local].contiguous()
             # The live lanes come first; B8 takes their count on the device.
-            live = (carry[CAR_ALIVE] > 0).sum(dtype=torch.int32).reshape(1)
+            carry, orig, live, order = kern.reorder(carry, orig, bins, cfg.bin_cells, with_rec)
+            local = orig[0].long() - base if with_rec or u is not None else None
+            u_s = None if u is None else u[s * k * 8 : (s + 1) * k * 8][:, local].contiguous()
         out = kern.stage(materials, scene, cfg, carry, orig, s * k, k, uniforms=u_s,
                          keys=a["keys"], with_rec=with_rec, live=live)
         if with_rec:

@@ -1134,3 +1134,40 @@ def test_kernels_without_a_bvh_flavour_refuse_bvh_tables(card, scene0):
             fn(scene, cfg, **args, **kw)
     with pytest.raises(ValueError, match="BVH route"):
         init_tile(scene.diffuse, scene, cfg, p=args["p"], d=args["d"], alive=args["alive"])
+
+
+@pytest.mark.parametrize("cells", [None, 1, 2, 3, 8])
+def test_reorder_kernel_matches_plain(card, cells):
+    """reorder_tile's counting sort against its plain version (the sort,
+    the gathers, the live count) bit for bit: ragged lane counts, alive
+    first and binned, the per-bucket counts in shared memory (up to 7
+    cells) and in device memory (8 cells, 8192 buckets), with and without
+    the order, one scratch reused by a larger and a smaller launch and by
+    a call fed its own outputs."""
+    from inverse_path_tracer_torch.ops.kernels.reorder_kernel import (
+        ReorderScratch,
+        reorder_tile,
+        reorder_tile_plain,
+    )
+
+    g = torch.Generator().manual_seed(cells or 0)
+    bins = None if cells is None else (torch.full((3,), -1.0, device=card),
+                                       torch.full((3,), 0.5, device=card))
+    scratch = ReorderScratch()
+    for n, with_rec in ((5000, True), (70001, False), (4097, True)):
+        carry = torch.randn((24, n), generator=g)
+        carry[3:6] = torch.rand((3, n), generator=g) * 3 - 1.5
+        carry[17] = (torch.rand(n, generator=g) < 0.6).float()
+        orig = torch.randperm(n, generator=g).to(torch.int32)[None]
+        c, o = carry.to(card), orig.to(card)
+        before = reorder_tile.launches
+        got = reorder_tile(c, o, bins, cells or 2, with_rec, scratch=scratch)
+        want = reorder_tile_plain(c, o, bins, cells or 2, with_rec)
+        assert reorder_tile.launches == before + 1
+        for a, b in zip(got[:3], want[:3]):
+            assert a.dtype == b.dtype and torch.equal(a, b)
+        assert torch.equal(got[3], want[3]) if with_rec else got[3] is None
+        want2 = reorder_tile_plain(want[0], want[1], bins, cells or 2, True)
+        got2 = reorder_tile(got[0], got[1], bins, cells or 2, True, scratch=scratch)
+        for a, b in zip(got2, want2):
+            assert torch.equal(a, b)

@@ -31,7 +31,7 @@ def test_new_modules_are_checked():
     files = port_files()
     for rel in ("ops/bvh.py", "utils/native.py", "parallel/shard.py", "parallel/multihost.py",
                 "experiments/common.py", "experiments/gate.py", "experiments/recover100.py",
-                "experiments/full_pipeline.py"):
+                "experiments/full_pipeline.py", "ops/kernels/reorder_kernel.py"):
         assert os.path.join(PORT, rel) in files, rel
 
 
@@ -62,7 +62,8 @@ def test_importing_the_port_loads_no_jax():
             "inverse_path_tracer_torch.models.gcn, inverse_path_tracer_torch.data.pipeline, "
             "inverse_path_tracer_torch.utils.metrics, inverse_path_tracer_torch.assets, "
             "inverse_path_tracer_torch.ops.kernels.clusters, "
-            "inverse_path_tracer_torch.ops.kernels.staged_kernel, inverse_path_tracer_torch.cli, "
+            "inverse_path_tracer_torch.ops.kernels.staged_kernel, "
+            "inverse_path_tracer_torch.ops.kernels.reorder_kernel, inverse_path_tracer_torch.cli, "
             "inverse_path_tracer_torch.utils.plyviz, inverse_path_tracer_torch.utils.profiling, "
             "inverse_path_tracer_torch.ops.bvh, inverse_path_tracer_torch.utils.native, "
             "inverse_path_tracer_torch.parallel.shard, inverse_path_tracer_torch.parallel.multihost, "

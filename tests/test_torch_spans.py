@@ -5,9 +5,9 @@ on the CPU, through the plain versions.
     scene, batched_step and extract_graph emit their spans with the
     documented nesting: ipt.launch.* inside ipt.render.* or
     ipt.extract.range, ipt.staged.reorder and ipt.prep.bins inside
-    ipt.render.range, ipt.prep.perm inside ipt.prep.tables (pack_tables,
-    which the card's routes call once per range) and inside the plain
-    versions' launches, the recovery's loss, backward and optimizer spans
+    ipt.render.range, ipt.launch.reorder_tile inside ipt.staged.reorder,
+    ipt.prep.perm inside ipt.prep.tables (pack_tables, which the card's
+    routes call once per range) and inside the plain versions' launches, the recovery's loss, backward and optimizer spans
     inside ipt.recover.step.
   * With no profiler, record_function is never entered: it is patched to
     raise, and every path runs.
@@ -75,13 +75,15 @@ def test_render_spans_and_nesting(scene, small_clusters):
     (vals, _), spans = traced(lambda: render_samples(scene.diffuse, scene, 3, STAGED, **CPU))
     assert names(spans) == {"ipt.render.range", "ipt.prep.perm", "ipt.prep.bins",
                             "ipt.staged.reorder", "ipt.launch.init_tile",
-                            "ipt.launch.stage_tile"}
+                            "ipt.launch.stage_tile", "ipt.launch.reorder_tile"}
     n = lambda name: sum(s[0] == name for s in spans)
     launches = -(-STAGED.n_samples // STAGED.tile_size)
     assert n("ipt.render.range") == 1 and n("ipt.launch.init_tile") == launches
-    assert n("ipt.staged.reorder") == n("ipt.launch.stage_tile") == 2 * launches
+    assert (n("ipt.staged.reorder") == n("ipt.launch.stage_tile") == n("ipt.launch.reorder_tile")
+            == 2 * launches)
     for child in ("ipt.launch.", "ipt.staged.reorder", "ipt.prep.bins"):
         inside(spans, child, ["ipt.render.range"])
+    inside(spans, "ipt.launch.reorder_tile", ["ipt.staged.reorder"])
     # the range's own permutation, and the plain versions' views in each launch
     inside(spans, "ipt.prep.perm", ["ipt.render.range", "ipt.launch."])
 

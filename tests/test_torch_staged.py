@@ -11,6 +11,14 @@ port's own mega path.
     holds junk in the Pallas carry, so point/hit/idx are compared where
     both keep the lane alive; B9 rtol 1e-5 (B4's tolerance).
   * The stage orders equal JAX's and are stable partitions.
+  * The re-sort kernel's algorithm (reorder.cu), mirrored in numpy: tile
+    histograms, their bucket-major, tile-minor exclusive prefix (by rows,
+    then the totals before each bucket) and the stable rank of each lane in
+    its warp's steps give torch.sort(key, stable=True) and the live count,
+    for ragged lane counts, tiles of 32, 1024 and 2048 lanes, 2, 128 and
+    432 buckets, all, no and every other lane dead; reorder_tile on CPU
+    tensors returns the parent's chain (the sort, the gathers, the live
+    count) bit for bit and refuses wrong dtypes and shapes.
   * Staged equals mega bit for bit, counts equal, on the flat large scene
     and scene 0 clustered, in both RNG modes; on the vertex-normal large
     scene at least 97% of lanes bit-equal (JAX's knife-edge bound).
@@ -52,6 +60,11 @@ from inverse_path_tracer_torch.ops.kernels.inverse_kernel import (
     inverse_tile_rec_plain,
 )
 from inverse_path_tracer_torch.ops.kernels.render_kernel import CARRY_ROWS
+from inverse_path_tracer_torch.ops.kernels.reorder_kernel import (
+    _bin_keys,
+    reorder_tile,
+    reorder_tile_plain,
+)
 from inverse_path_tracer_torch.ops.kernels.staged_kernel import (
     init_tile,
     init_tile_plain,
@@ -205,6 +218,114 @@ def test_stage_orders_match_jax():
         o = orders[0][0].numpy()
         alive_idx = [j for j in o if alive[j] > 0]
         assert alive_idx == sorted(alive_idx)  # stable
+
+
+def counting_sort_mirror(key, buckets, live_buckets, threads, items):
+    """reorder.cu's three kernels in numpy, tile by tile and warp step by
+    warp step: (order, live), new column j holding old column order[j]."""
+    n, tile, warps = len(key), threads * items, threads // 32
+    blocks = -(-n // tile)
+    chunk = lambda a, b: key[min(a, n) : min(b, n)]
+    # key_kernel: each tile's histogram, column `block` of the table.
+    table = np.stack([np.bincount(chunk(t * tile, (t + 1) * tile), minlength=buckets)
+                      for t in range(blocks)], axis=1)
+    # scan_kernel: each bucket's row to its exclusive prefix over the tiles,
+    # and its total; with the totals of the buckets before it (rank_kernel),
+    # the exclusive prefix of the table in bucket-major, tile-minor order.
+    totals = table.sum(axis=1)
+    first_column = np.cumsum(totals) - totals
+    prefix = first_column[:, None] + np.cumsum(table, axis=1) - table
+    flat = table.reshape(-1)
+    np.testing.assert_array_equal(prefix.reshape(-1), np.cumsum(flat) - flat)
+    live = int(first_column[live_buckets])
+    # rank_kernel: warp w holds lanes [tile0 + w*32*items, + 32*items); a
+    # lane's position in its tile's bucket order, then its new column.
+    order = np.full(n, -1, np.int64)
+    for t in range(blocks):
+        w0 = [t * tile + w * 32 * items for w in range(warps)]
+        counts = np.stack([np.bincount(chunk(a, a + 32 * items), minlength=buckets)
+                           for a in w0])
+        tile_counts = counts.sum(axis=0)
+        local = np.cumsum(tile_counts) - tile_counts
+        base = local[None, :] + np.cumsum(counts, axis=0) - counts
+        delta = prefix[:, t] - local
+        for w, a in enumerate(w0):
+            for it in range(items):
+                step = chunk(a + 32 * it, a + 32 * (it + 1))
+                for lane, b in enumerate(step):
+                    pos = base[w, b] + np.count_nonzero(step[:lane] == b)
+                    order[pos + delta[b]] = a + 32 * it + lane
+                base[w] += np.bincount(step, minlength=buckets)
+    return order, live
+
+
+def reorder_carry(n, dead, seed):
+    """A carry of n lanes with directions of every octant, points in and
+    around the box [-1, 1]^3 (lo -1, inv_ext 0.5), and the dead pattern."""
+    g = np.random.default_rng(seed)
+    carry = g.normal(size=(CARRY_ROWS, n)).astype(np.float32)
+    carry[3:6] = g.uniform(-1.5, 1.5, size=(3, n)).astype(np.float32)
+    carry[17] = {"all": np.zeros(n), "none": np.ones(n),
+                 "alternate": np.arange(n) % 2}[dead].astype(np.float32)
+    orig = g.permutation(n).astype(np.int32)[None, :]
+    bins = (torch.full((3,), -1.0), torch.full((3,), 0.5))
+    return torch.from_numpy(carry), torch.from_numpy(orig), bins
+
+
+@pytest.mark.parametrize("dead", ["all", "none", "alternate"])
+@pytest.mark.parametrize("cells", [None, 2, 3])  # 2, 128 and 432 buckets
+@pytest.mark.parametrize("threads,items", [(32, 1), (256, 4), (256, 8)])
+def test_counting_sort_mirror_equals_stable_sort(threads, items, cells, dead):
+    tile = threads * items
+    n = 2 * tile + 45  # ragged: the last tile holds 45 lanes
+    carry, orig, bins = reorder_carry(n, dead, seed=tile + (cells or 0))
+    if cells is None:
+        key, buckets, live_buckets = (carry[17] <= 0).to(torch.int64), 2, 1
+    else:
+        key = _bin_keys(carry, *bins, cells)
+        buckets, live_buckets = 16 * cells**3, 8 * cells**3
+    assert int(key.min()) >= 0 and int(key.max()) < buckets
+    order, live = counting_sort_mirror(key.numpy(), buckets, live_buckets, threads, items)
+    want = torch.sort(key, stable=True).indices
+    np.testing.assert_array_equal(order, want.numpy())
+    assert live == int((carry[17] > 0).sum()) == {"all": 0, "none": n, "alternate": n // 2}[dead]
+    got = reorder_tile_plain(carry, orig, None if cells is None else bins, cells or 1, True)
+    assert torch.equal(got[0], carry[:, torch.from_numpy(order)])
+    assert torch.equal(got[1], orig[:, torch.from_numpy(order)])
+    assert int(got[2]) == live and torch.equal(got[3], want)
+
+
+def parent_reorder(carry, orig, bins, cells):
+    """The parent's re-sort between stages, as render/forward.py ran it."""
+    order = (tfwd._binned_order(carry, *bins, cells) if bins is not None
+             else tfwd._alive_first_order(carry[17]))
+    carry, orig = carry[:, order].contiguous(), orig[:, order].contiguous()
+    return carry, orig, (carry[17] > 0).sum(dtype=torch.int32).reshape(1), order
+
+
+@pytest.mark.parametrize("with_rec", [False, True])
+@pytest.mark.parametrize("cells", [None, 1, 2, 3])
+def test_reorder_tile_on_cpu_is_the_parent_chain(cells, with_rec):
+    carry, orig, bins = reorder_carry(777, "alternate", seed=cells or 0)
+    carry[17, 300:] = 1.0
+    b = None if cells is None else bins
+    got = reorder_tile(carry, orig, b, cells or 2, with_rec)
+    want = parent_reorder(carry, orig, b, cells or 2)
+    for g, w in zip(got[:3], want[:3]):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+    assert torch.equal(got[3], want[3]) if with_rec else got[3] is None
+
+
+def test_reorder_tile_refuses_bad_inputs():
+    carry, orig, bins = reorder_carry(64, "none", seed=1)
+    bad = [((carry.double(), orig, bins, 2), "carry"), ((carry[:23], orig, bins, 2), "carry"),
+           ((carry, orig.long(), bins, 2), "orig"), ((carry, orig[:, :63], bins, 2), "orig"),
+           ((carry, orig, (bins[0][:2], bins[1]), 2), "lo"),
+           ((carry, orig, (bins[0], bins[1].double()), 2), "inv_ext"),
+           ((carry, orig, bins, 0), "cells"), ((carry[:, ::2], orig[:, :32], bins, 2), "contig")]
+    for args, what in bad:
+        with pytest.raises(ValueError, match=what):
+            reorder_tile(*args)
 
 
 def external_inputs(count, bounces, seed):
