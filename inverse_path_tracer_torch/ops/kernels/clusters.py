@@ -226,13 +226,16 @@ def kernel_view(scene: SceneData, cfg) -> KernelView:
     """The kernels' view of `scene` under cfg (cfg None: dense, global).
     On the BVH route the tree must order the scene's triangles (its
     structure was checked where it entered the port: ops/bvh.py
-    check_bvh)."""
+    check_bvh), and the gather into its leaf order runs under the span
+    ipt.prep.bvh."""
     if uses_bvh(scene, cfg):
         if scene.bvh.tri_order.shape[0] != scene.n_tri:
             raise ValueError(f"the BVH orders {scene.bvh.tri_order.shape[0]} triangles, the "
                              f"scene has {scene.n_tri}")
-        perm = kernel_perm(scene, cfg)
-        return KernelView(permute_scene(scene, perm), perm, 0, None, bvh=scene.bvh, source=scene)
+        with span("ipt.prep.bvh"):
+            perm = kernel_perm(scene, cfg)
+            return KernelView(permute_scene(scene, perm), perm, 0, None, bvh=scene.bvh,
+                              source=scene)
     ck = 0 if cfg is None else cluster_k_for(scene.n_tri, cfg)
     if ck == 0:
         return KernelView(scene, None, 0, None)

@@ -97,7 +97,7 @@ from inverse_path_tracer_torch.render.diff import (
     backward_from_records,
 )
 from inverse_path_tracer_torch.scene.build import SceneData
-from inverse_path_tracer_torch.utils.profiling import spanned
+from inverse_path_tracer_torch.utils.profiling import span, spanned
 
 Keys = Tuple[int, int]
 
@@ -148,12 +148,15 @@ def pack_tables(scene: SceneData, materials: torch.Tensor, cfg=None) -> KernelTa
     clustered order and with the cluster boxes where cfg clusters the scene,
     or in the BVH's leaf order with its node table on the BVH route
     (clusters.kernel_view; the tree was checked where it entered the port,
-    ops/bvh.py check_bvh), else dense in global order."""
+    ops/bvh.py check_bvh), else dense in global order.  The BVH route's
+    own work, the leaf-order view, the node table and tri_index, runs
+    under the span ipt.prep.bvh."""
     view = kernel_view(scene, cfg)
     nodes = tri_index = None
     if view.bvh is not None:
-        nodes = node_rows(view.bvh).to(scene.device)
-        tri_index = view.perm.to(torch.int32).contiguous()
+        with span("ipt.prep.bvh"):
+            nodes = node_rows(view.bvh).to(scene.device)
+            tri_index = view.perm.to(torch.int32).contiguous()
     s, materials = view.scene, to_kernel_order(materials, view)
     # flatten(1), not reshape(rows, -1): an emitter-free scene has 0 rows.
     f32 = lambda *xs: torch.cat([x.flatten(1).float() for x in xs], dim=1)
