@@ -137,7 +137,14 @@ Phases, each failing loudly (any failure exits nonzero):
      same kernels fed the plain camera_rays' rays; B10 as B1 on that launch
      with clustered tables at the auto
      width and at JAX's 768 against dense tables, with the (ray, group) and
-     (ray, cluster) box tests and the shares that entered; clustered B2, B3
+     (ray, cluster) box tests and the shares that entered; for B7 (also
+     at the launch from sample 11 * 2^20, where the camera rays meet the
+     sphere, timed), each B8 stage, B1 and B6 at the large extraction's
+     first launch, the pairs that the plain version's per-lane loop needs
+     and B10 sweeps on its rays (intersect_tile's counts: group box tests
+     equal, cluster box tests and pairs no fewer), and the pair loop's
+     lane-slots of each, with each one's SIMT efficiency (the pairs needed
+     over its slots); clustered B2, B3
      and B4 (on B3's records) on that launch and clustered B6 (both sinks)
      on the first launch of the
      large extraction, timed; ptxas's registers and spills of the clustered
@@ -2047,6 +2054,65 @@ def clustered_ptxas():
             for kernel, regs, st, ld, _ in ptxas_report(text) if clustered(kernel)]
 
 
+@contextlib.contextmanager
+def captured_sweeps():
+    """The rays of every clustered sweep that the plain versions run inside
+    the block (render_kernel.py sweep calls ops/intersect.py
+    intersect_clustered once a sweep step, on the lanes that sweep): yields
+    the list of (origins, directions) (R, 3) of each call, in order."""
+    from inverse_path_tracer_torch.ops.kernels import render_kernel
+
+    calls, real = [], render_kernel.intersect_clustered
+
+    def spy(planes, cab, gab, cluster_k, group, p, d, *args):
+        calls.append((p, d))
+        return real(planes, cab, gab, cluster_k, group, p, d, *args)
+
+    render_kernel.intersect_clustered = spy
+    try:
+        yield calls
+    finally:
+        render_kernel.intersect_clustered = real
+
+
+def kernel_sweep_work(scene, cfg, tabs, calls):
+    """B10's work on the rays of `calls` (captured_sweeps), each call one
+    launch of intersect_tile with `counts`, its warps 32 of the call's rays
+    in a row: {group_tests, tests, pairs, slots} (render_common.cuh
+    SweepWork)."""
+    import torch
+
+    from inverse_path_tracer_torch.ops.kernels.render_kernel import intersect_tile
+
+    counts = torch.zeros(4, dtype=torch.int64, device=tabs.planes.device)
+    for p, d in calls:
+        if p.shape[0]:
+            intersect_tile(scene, cfg, p.T.contiguous(), d.T.contiguous(), tables=tabs,
+                           counts=counts)
+    return dict(zip(("group_tests", "tests", "pairs", "slots"), counts.tolist()))
+
+
+def sweep_work_line(what, c, k):
+    """The sweep work of one launch of the plain version, the per-lane loop
+    (counting_sweeps' dict c: the least work of the sweep), and of B10 on
+    its rays (kernel_sweep_work's k): pairs, box tests, and the pair loop's
+    lane-slots of the per-lane loop and of the kernel, with their SIMT
+    efficiency (the pairs the sweep needs, the loop's, over the slots
+    issued); raises where the kernel's group box tests differ from the
+    loop's or its cluster box tests or pairs are fewer."""
+    if k["group_tests"] != c["group_tests"] or k["tests"] < c["tests"] or k["pairs"] < c["pairs"]:
+        raise AssertionError(f"{what}: B10's work {k} against the per-lane loop's {c}")
+    return (f"{what}: {c['pairs']:.0f} (ray, triangle) pairs, B10 {k['pairs']} "
+            f"({k['pairs'] / max(c['pairs'], 1):.4f}x), (ray, group) box tests "
+            f"{c['group_tests']} of which {c['group_entered']} entered "
+            f"({100 * c['group_entered'] / max(c['group_tests'], 1):.2f}%), (ray, cluster) box "
+            f"tests {c['tests']} of which {c['entered']} entered "
+            f"({100 * c['entered'] / max(c['tests'], 1):.2f}%), B10 {k['tests']}; pair "
+            f"lane-slots: per-lane loop {c['loop_slots']} (efficiency "
+            f"{c['pairs'] / max(c['loop_slots'], 1):.4f}), B10 {k['slots']} "
+            f"({c['pairs'] / max(k['slots'], 1):.4f})")
+
+
 def large_kernel_timing(device, launches, check_err, large_target):
     """Phase 21: B7, B8 (stages 0 to 3) and B9 at the first 2^20-ray launch
     of the large render (the vertex-normal scene, fused RNG), each against
@@ -2056,7 +2122,9 @@ def large_kernel_timing(device, launches, check_err, large_target):
     at the auto width and at JAX's 768 and with dense tables, with the box
     tests and the shares that entered; clustered B2 and B3 on that launch
     and clustered B6 (both sinks) on the first launch of the large
-    extraction (phase 20, `large_target` its target), timed; ptxas's
+    extraction (phase 20, `large_target` its target), timed; the pair
+    loop's lane-slots of a per-lane loop and of B10 on the rays of B7, of
+    each B8 stage, of B1 and of B6 there (sweep_work_line); ptxas's
     registers and spills of the clustered kernels."""
     import torch
 
@@ -2065,6 +2133,7 @@ def large_kernel_timing(device, launches, check_err, large_target):
     from inverse_path_tracer_torch.ops.kernels.inverse_kernel import (
         inverse_tile_global,
         inverse_tile_rec,
+        inverse_tile_rec_plain,
     )
     from inverse_path_tracer_torch.ops.kernels.render_kernel import (
         CAR_ALIVE,
@@ -2104,8 +2173,18 @@ def large_kernel_timing(device, launches, check_err, large_target):
     nt = scene.n_tri
 
     carry0 = init_tile(mats, scene, cfg, camera=a["camera"], tables=tabs)
-    with counting_sweeps() as c_init:
+    with counting_sweeps() as c_init, captured_sweeps() as rays_init:
         carry0_p = init_tile_plain(mats, scene, cfg, camera=a["camera"])
+    work = {"B7": sweep_work_line("B7", c_init, kernel_sweep_work(scene, cfg, tabs, rays_init))}
+    # B7 where the camera rays meet the sphere: the launch from sample 11 n,
+    # 69% down the image (sample 16 * 2^20 of the 500x500/100 spp render).
+    a_sph = camera_launch(n, 0, base=11 * n)
+    with counting_sweeps() as c_init_sph, captured_sweeps() as rays_sph:
+        init_tile_plain(mats, scene, cfg, camera=a_sph["camera"])
+    work["B7 on the sphere"] = sweep_work_line(f"B7 from sample {11 * n}", c_init_sph,
+                                               kernel_sweep_work(scene, cfg, tabs, rays_sph))
+    del rays_sph
+    del rays_init
     carry0_r = init_tile(mats, scene, cfg, rays["p"], rays["d"], rays["alive"], tables=tabs)
     carry0_2 = init_tile(mats, scene, cfg, camera=a["camera"], tables=tabs)
     b7_blocks = init_tile.blocks
@@ -2121,9 +2200,12 @@ def large_kernel_timing(device, launches, check_err, large_target):
         inputs[s] = (carry, orig, live)
         out = stage_tile(mats, scene, cfg, carry, orig, s * k, k, keys=keys, tables=tabs,
                          live=live)
-        with counting_sweeps() as c:
+        with counting_sweeps() as c, captured_sweeps() as rays_s:
             out_p = stage_tile_plain(mats, scene, cfg, carry, orig, s * k, k, keys=keys)
         counts[s] = dict(c)
+        work[f"B8 stage {s}"] = sweep_work_line(f"B8 stage {s}", c,
+                                                kernel_sweep_work(scene, cfg, tabs, rays_s))
+        del rays_s
         agree[f"stage_tile {s}"] = lanes_equal(out, out_p, True)
         carry = out
     c0, o0, live0 = inputs[0]
@@ -2142,8 +2224,11 @@ def large_kernel_timing(device, launches, check_err, large_target):
     rbr, sbr = render_tile(mats, scene, cfg, tables=tabs, **rays)
     rj, sj = render_tile(mats, scene, jax_width, tables=tabs768, **a)
     rd, sd = render_tile(mats, scene, cfg, tables=dense, **a)
-    with counting_sweeps() as c_b1:
+    with counting_sweeps() as c_b1, captured_sweeps() as rays_b1:
         rp, sp = render_tile_plain(mats, scene, cfg, **a)
+    work["B1 clustered"] = sweep_work_line("B1 clustered", c_b1,
+                                           kernel_sweep_work(scene, cfg, tabs, rays_b1))
+    del rays_b1
     with counting_sweeps() as c_768:
         render_tile_plain(mats, scene, jax_width, **a)
     torch.cuda.synchronize()
@@ -2175,6 +2260,9 @@ def large_kernel_timing(device, launches, check_err, large_target):
     timed = {
         "init_tile": (lambda: init_tile(mats, scene, cfg, camera=a["camera"], tables=tabs),
                       lambda: init_tile_plain(mats, scene, cfg, camera=a["camera"])),
+        "init_tile from 11n": (
+            lambda: init_tile(mats, scene, cfg, camera=a_sph["camera"], tables=tabs),
+            lambda: init_tile_plain(mats, scene, cfg, camera=a_sph["camera"])),
         "stage_tile": (stage(0), stage_plain(0)),
         **{f"stage_tile {s}": (stage(s), stage_plain(s) if s == 2 else None)
            for s in range(1, n_stages)},
@@ -2192,10 +2280,10 @@ def large_kernel_timing(device, launches, check_err, large_target):
     plain_ms = {key: cuda_ms(fn, 1) for key, (_, fn) in timed.items() if fn is not None}
 
     # Bounds, from this launch's data.  Operations: what the clustered
-    # sweeps of the plain version did, the same tests as the kernel's (the
-    # hot cluster for every ray it sweeps, a group or cluster box where the
-    # ray reached it, the clusters that the ray enters before its closest
-    # hit): the (ray, triangle) pairs at FACE_PLANE_OPS each and the (ray,
+    # sweeps of the plain version did, the per-lane loop's tests, the least
+    # that the sweep needs (the hot cluster for every ray it sweeps, a group
+    # or cluster box where the ray reached it, the clusters that the ray
+    # enters before its closest hit so far): the (ray, triangle) pairs at FACE_PLANE_OPS each and the (ray,
     # box) tests at BOX_OPS each, over the f32 peak (a floor, as in phase
     # 10); the dense B1 sweeps every triangle.  B9: RECURSION_OPS per
     # reached slot.  Bytes: each input read once, each output written once:
@@ -2216,6 +2304,7 @@ def large_kernel_timing(device, launches, check_err, large_target):
     ray_bytes = f_bytes(n * (3 + 2) * 4)
     bounds = {
         "init_tile": bound(f_ops(c_init), f_bytes(n * 24 * 4)),
+        "init_tile from 11n": bound(f_ops(c_init_sph), f_bytes(n * 24 * 4)),
         "stage_tile": bound(f_ops(counts[0]), f_bytes(n * (48 + 1) * 4)),
         **{f"stage_tile {s}": bound(f_ops(counts[s]), f_bytes(n * (48 + 1) * 4))
            for s in range(1, n_stages)},
@@ -2226,13 +2315,12 @@ def large_kernel_timing(device, launches, check_err, large_target):
         "cluster_sweep at 768": bound(f_ops(c_768), ray_bytes),
         "dense B1": bound(dense_pairs * FACE_PLANE_OPS / PEAK_F32_OPS * 1e3, ray_bytes),
     }
-    for what, c in (("B1 clustered", c_b1), ("B1 at 768", c_768), ("B7", c_init),
-                    *((f"B8 stage {s}", counts[s]) for s in range(n_stages))):
-        log(f"large launch (3, {n}) sweep work, {what}: {c['pairs']:.0f} (ray, triangle) pairs, "
-            f"(ray, group) box tests {c['group_tests']} of which {c['group_entered']} entered "
-            f"({100 * c['group_entered'] / max(c['group_tests'], 1):.2f}%), (ray, cluster) box "
-            f"tests {c['tests']} of which {c['entered']} entered "
-            f"({100 * c['entered'] / max(c['tests'], 1):.2f}%)")
+    for line in work.values():
+        log(f"large launch (3, {n}) sweep work, {line}")
+    c = c_768
+    log(f"large launch (3, {n}) sweep work, B1 at 768: {c['pairs']:.0f} (ray, triangle) pairs, "
+        f"(ray, group) box tests {c['group_tests']} of which {c['group_entered']} entered, "
+        f"(ray, cluster) box tests {c['tests']} of which {c['entered']} entered")
     b9_sectors = reverse_sector_bytes(rec0, k, k)
     log(f"large launch (3, {n}): dense sweeps {dense_pairs:.0f} pairs; B9 reached slots "
         f"{n_reached:.0f}, its loads fetch {b9_sectors} bytes in 32-byte sectors "
@@ -2251,6 +2339,11 @@ def large_kernel_timing(device, launches, check_err, large_target):
     golden_cfg = RenderConfig(**GOLDEN)
     a6, px6, _, _ = first_extraction_launch(scene, golden_cfg, large_target)
     tab6 = pack_tables(scene, mats, golden_cfg)
+    with counting_sweeps() as c6, captured_sweeps() as rays6:
+        inverse_tile_rec_plain(scene, golden_cfg, **a6)
+    log(f"large extraction's first launch (3, {a6['camera'].n}) sweep work, "
+        + sweep_work_line("B6", c6, kernel_sweep_work(scene, golden_cfg, tab6, rays6)))
+    del rays6
     acc6 = torch.zeros((nt + 1, nt, 9), dtype=torch.float64, device=device)
     _, _, rec_b3 = render_tile_rec(mats, scene, cfg, tables=tabs, **a)
     b4_sectors = reverse_sector_bytes(rec_b3, cfg.max_bounces, 1)

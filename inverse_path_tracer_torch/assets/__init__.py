@@ -1,6 +1,7 @@
 """The port's scene assets: the scene-0 fixture (CornellBox/, shapes/, made
-by make_fixture.py), large_scene(), the large-scene workload, and
-bvh_scene(), the BVH route's scene."""
+by make_fixture.py), large_scene(), the large-scene workload,
+bvh_scene(), the BVH route's scene, and doubled_scene(), a scene whose
+hits tie exactly."""
 
 from __future__ import annotations
 
@@ -53,3 +54,23 @@ def bvh_scene(device=None, use_native: bool = False):
     scene = _box_and_sphere(BVH_SPHERE_RINGS, BVH_SPHERE_SEGMENTS, True)
     scene = scene.replace(bvh=build_bvh(scene, use_native=use_native))
     return scene if device is None else scene.to(device)
+
+
+def doubled_scene(scene):
+    """`scene` with every triangle twice, the copy of triangle i at n_tri +
+    i: each hit ties exactly with its copy's (the same plane rows give the
+    same t, bit for bit), so the closest-hit search's tie rule, the lowest
+    internal index, decides it.  The emitters are the first copies.  With
+    RenderConfig(tri_order="file") the copies lie in other clusters and
+    groups of the clustered sweep than the first copies; in the Morton
+    order they are mostly neighbours."""
+    import torch
+
+    from inverse_path_tracer_torch.ops.kernels.clusters import _TRI_FIELDS
+
+    n = scene.n_tri
+    twice = {name: torch.cat([getattr(scene, name)] * 2) for name in _TRI_FIELDS}
+    planes = scene.plane_mat.reshape(4, n, 4)
+    return scene.replace(
+        **twice, specular_idx=torch.cat([scene.specular_idx, scene.specular_idx + n]),
+        plane_mat=torch.cat([planes, planes], dim=1).reshape(4, 8 * n).contiguous(), bvh=None)

@@ -143,23 +143,30 @@ def intersect_clustered(
     min_dot: float = 1e-4,
     epsilon: float = 1e-2,
 ) -> Intersection:
-    """The clustered sweep of B10 (render_common.cuh intersect): cluster 0
-    swept for every ray; then, group by group, the clusters of a group's
-    box that the ray enters no later than its closest hit so far, each
-    swept where the ray enters its own box no later than the closest hit so
-    far; a cluster's hit replaces the running one only when strictly
-    closer, so ties keep the lowest index.  Equal to intersect_planes on
-    the same planes, bit for bit, because every triangle of a cluster lies
-    inside its padded box and every cluster box inside its group's box."""
+    """The clustered sweep of B10 as a per-lane loop: cluster 0 swept for
+    every ray; then, group by group, the clusters of a group's box that the
+    ray enters no later than its closest hit so far, each swept where the
+    ray enters its own box no later than its closest hit so far; a
+    cluster's hit replaces the running one only when strictly closer, so
+    ties keep the lowest index.  Equal to intersect_planes on the same
+    planes, bit for bit, because every triangle of a cluster lies inside its
+    padded box and every cluster box inside its group's box.  Its tests and pairs are the
+    least that a sweep in this order needs; render_common.cuh cluster_hit
+    shares them over a warp's lanes and may cull later, so it tests and
+    sweeps as many or more (intersect_tile's `counts`)."""
     n_tri, n_rays = planes.shape[0], p.shape[0]
     t_best = torch.full((n_rays,), float("inf"), dtype=torch.float32, device=p.device)
     best = torch.zeros(n_rays, dtype=torch.int64, device=p.device)
     inv_d = inv_dir(d)
+    counting = _counts is not None
+    if counting:  # the clusters that each warp's rays (32 in a row) sweep
+        swept = torch.zeros((-(-n_rays // 32), cab.shape[0]), dtype=torch.bool, device=p.device)
 
     def sweep_cluster(c, rows):
         lo, hi = c * cluster_k, min((c + 1) * cluster_k, n_tri)
-        if _counts is not None:
+        if counting:
             _counts["pairs"] += rows.numel() * (hi - lo)
+            swept[rows // 32, c] = True
         if rows.numel() == 0:
             return
         t_c, i_c = _min_over(planes[lo:hi], p[rows], d[rows], min_dot, epsilon)
@@ -171,18 +178,23 @@ def intersect_clustered(
         got = rows[enters_box(box, p[rows], inv_d[rows], t_best[rows])]
         return got, rows.numel(), got.numel()
 
-    sweep_cluster(0, torch.arange(n_rays, device=p.device))
+    every = torch.arange(n_rays, device=p.device)
+    sweep_cluster(0, every)
     for g in range(gab.shape[0]):
-        rows_g, tested, entered = entering(gab[g], torch.arange(n_rays, device=p.device))
-        if _counts is not None:
+        rows_g, tested, entered = entering(gab[g], every)
+        if counting:
             _counts["group_tests"] += tested
             _counts["group_entered"] += entered
         for c in range(1 + g * group, min(1 + (g + 1) * group, cab.shape[0])):
             rows, tested, entered = entering(cab[c], rows_g)
-            if _counts is not None:
+            if counting:
                 _counts["tests"] += tested
                 _counts["entered"] += entered
             sweep_cluster(c, rows)
+    if counting:
+        rows_of = (n_tri - torch.arange(cab.shape[0], device=p.device) * cluster_k).clamp(
+            max=cluster_k)
+        _counts["loop_slots"] += 32 * int((swept.long() * rows_of).sum())
     return _resolve(t_best, best, p, d)
 
 
@@ -190,13 +202,16 @@ def intersect_clustered(
 def counting_sweeps():
     """Counts, inside the block, the clustered sweeps' (ray, group) box
     tests and how many of them entered, the (ray, cluster) box tests of
-    clusters 1.. inside entered groups and how many of them entered, and
-    the (ray, triangle) pairs swept; and ops/bvh.py intersect_bvh's nodes
-    popped, (ray, node box) tests and (ray, triangle) tests: yields the
-    dict of running totals."""
+    clusters 1.. inside entered groups and how many of them entered, the
+    (ray, triangle) pairs swept, and the lane-slots that the per-lane loop
+    issues on a card (`loop_slots`, B10's schedule before its
+    warp-cooperative sweep: 32 for each row of each cluster that any ray of
+    a warp, 32 rays of a call in a row, sweeps); and ops/bvh.py
+    intersect_bvh's nodes popped, (ray, node box) tests and (ray, triangle)
+    tests: yields the dict of running totals."""
     global _counts
     _counts = {"group_tests": 0, "group_entered": 0, "tests": 0, "entered": 0, "pairs": 0,
-               "nodes": 0, "node_tests": 0, "tri_tests": 0}
+               "loop_slots": 0, "nodes": 0, "node_tests": 0, "tri_tests": 0}
     try:
         yield _counts
     finally:

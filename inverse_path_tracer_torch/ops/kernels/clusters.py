@@ -42,9 +42,12 @@ if TYPE_CHECKING:
 CLUSTER_MIN_TP = 128
 CLUSTER_K = 0
 # The auto width on the H100 (cluster_k_for) and the clusters per group box
-# (clusters.group_boxes, the first level of the kernels' two-level box test).
+# (clusters.group_boxes, the first level of the kernels' two-level box test),
+# at most MAX_CLUSTER_GROUP for the kernels (render_common.cuh
+# kMaxClusterGroup, which sizes the clustered sweep's queue).
 CLUSTER_AUTO_K = 16
 CLUSTER_GROUP = 8
+MAX_CLUSTER_GROUP = 8
 
 # Fields of SceneData indexed by triangle.
 _TRI_FIELDS = ("vertices", "vertex_normals", "face_normal", "center", "area", "edge_out",

@@ -5,7 +5,7 @@
 // inverse_global_kernel and inverse_rec_kernel, replaces
 // inverse_tile_pallas_rec (:338).  Both Pallas kernels run one body,
 // _kernel_inv (:59), whose rec_mode flag picks where the edges go; here one
-// segment of the bounce loop (inverse_segment) takes a sink.  Per ray and
+// segment of the bounce loop (segment_lanes) takes a sink.  Per ray and
 // bounce (:135-249):
 //   - the indirect edge dst -> src with weight w and f0 = 1, recorded
 //     before the roulette test, so a path's last vertex still adds an edge;
@@ -19,7 +19,7 @@
 // render_common.cuh) every triangle index of a record or of the grid is
 // internal; the wrappers and the records reduction map them back.  p_spec
 // must be 0 (the wrappers check), so the path is always diffuse and slot 0
-// is never read.  The loop is not the forward's bounce_step
+// is never read.  The loop is not the forward's bounce_lanes
 // (render_common.cuh): the slot map, the scalar weight and the edge order
 // differ; it shares its helpers (the primary ray too, which camera mode
 // makes in the kernel under the extraction's camera key), and -fmad=false,
@@ -167,22 +167,33 @@ __device__ __forceinline__ InvLane start_lane(const TraceParams& P, int i, V3* o
   return L;
 }
 
-// Segment L.b of lane L (the body of _kernel_inv's bounce loop, :135-249):
-// its edges to sink.edge, its record to sink.record.  Returns true where
-// the path goes on to bounce L.b + 1 (L then holds that bounce's weight,
-// node and index) along *next_dir from L.point, which the caller sweeps.
-template <bool kClustered, class Sink>
-__device__ __forceinline__ bool inverse_segment(const TraceParams& P, const Tables& T, InvLane& L,
-                                                const Sink& sink, V3* next_dir_out) {
+// Segment L.b of lane L (the body of _kernel_inv's bounce loop, :135-249),
+// in two parts on either side of the shadow ray's sweep (segment_lanes runs
+// them): its edges to sink.edge, its record to sink.record.  What a segment
+// carries across the sweep:
+struct Segment {
+  V3 shade_n, next_dir, to_light;
+  float w_next, cos_theta;
+  int e;
+  bool cont;
+  bool shadow;  // a shadow ray from point along to_light (emitter e) is to be swept
+};
+
+// The part of the segment before the shadow ray's sweep: the escape,
+// which ends the path (returns false), or the indirect edge, the roulette
+// draw, the next direction and the shadow ray, into s (returns true).
+template <class Sink>
+__device__ __forceinline__ bool segment_begin(const TraceParams& P, const Tables& T, InvLane& L,
+                                              const Sink& sink, Segment& s) {
   const int b = L.b;
   float u[7];
 #pragma unroll
-  for (int s = 0; s < 7; ++s) {
+  for (int k = 0; k < 7; ++k) {
     if (P.fused) {
-      const uint32_t ctr = static_cast<uint32_t>(b * 8 + s);
-      u[s] = unit_from_bits(fmix32((L.h_orig + ctr * kGolden) ^ P.k1));
+      const uint32_t ctr = static_cast<uint32_t>(b * 8 + k);
+      u[k] = unit_from_bits(fmix32((L.h_orig + ctr * kGolden) ^ P.k1));
     } else {
-      u[s] = P.uniforms[static_cast<size_t>(b * 8 + s) * P.n + L.i];
+      u[k] = P.uniforms[static_cast<size_t>(b * 8 + k) * P.n + L.i];
     }
   }
   L.segs += 1.f;
@@ -195,25 +206,23 @@ __device__ __forceinline__ bool inverse_segment(const TraceParams& P, const Tabl
   }
   const int src = L.cur.idx;
   const V3 face_n = ld3(T.table + kTableStride * src + 7);
-  const V3 shade_n = P.has_vn
+  s.shade_n = P.has_vn
       ? smooth_at(point, T.vtab + kVtabStride * src, T.vtab + kVtabStride * src + 9,
                   T.vtab[kVtabStride * src + 18])
       : face_n;
   // The indirect edge, before the roulette test (inv_path_trace.cu:128).
   sink.edge(true, dst, src, w, w, false, zero3());
 
-  const bool cont = u[4] < P.p_rr;
+  s.cont = u[4] < P.p_rr;
   const float phi = P.two_pi * u[5];
   const float cos_t = sqrtf(u[6]);
   const float sin_t = sqrtf(fmaxf(1.f - cos_t * cos_t, 0.f));
-  const V3 next_dir = normalize3(rotate_z_to(face_n, v3(sin_t * cosf(phi), sin_t * sinf(phi), cos_t)));
-  const float cosine = dot3(next_dir, shade_n);
-  const float w_next = w * cosine * P.cos_scale;  // / pdf (1/pi) / p_rr
+  s.next_dir = normalize3(rotate_z_to(face_n, v3(sin_t * cosf(phi), sin_t * sinf(phi), cos_t)));
+  const float cosine = dot3(s.next_dir, s.shade_n);
+  s.w_next = w * cosine * P.cos_scale;  // / pdf (1/pi) / p_rr
 
-  bool ok = false;
-  float nee_w = 0.f;
-  int e_tri = 0;
-  if (P.n_emissive > 0) {
+  s.shadow = P.n_emissive > 0;
+  if (s.shadow) {
     L.shadows += 1.f;
     int e = P.n_emissive - 1;  // u past cdf[-1] clamps to the last emitter
     for (int k = 0; k < P.n_emissive; ++k) {
@@ -222,58 +231,109 @@ __device__ __forceinline__ bool inverse_segment(const TraceParams& P, const Tabl
         break;
       }
     }
+    s.e = e;
     const float* er = T.etab + P.etab_stride * e;
-    e_tri = static_cast<int>(er[15]);
     const float sq = sqrtf(u[2]);
     const float r2 = u[3];
     const V3 v0 = ld3(er), v1 = ld3(er + 3), v2 = ld3(er + 6);
     const V3 emm = v3((1.f - sq) * v0.x + sq * (1.f - r2) * v1.x + r2 * sq * v2.x,
                       (1.f - sq) * v0.y + sq * (1.f - r2) * v1.y + r2 * sq * v2.y,
                       (1.f - sq) * v0.z + sq * (1.f - r2) * v1.z + r2 * sq * v2.z);
-    const V3 to_light = normalize3(emm - point);
-    const float cos_theta = dot3(shade_n, to_light);
-    const Hit sh = intersect<kClustered>(P, T, point, to_light);
-    ok = cos_theta >= 0.f && is_hit(sh);
-    const V3 light_n = P.has_vn
-        ? smooth_at(hit_point(point, to_light, sh), er, er + 17, er[26])
-        : ld3(er + 12);
-    const float cos_theta_p = -dot3(light_n, to_light);
-    ok = ok && cos_theta_p >= 0.f && sh.idx == e_tri;
-    if (ok) nee_w = w * cos_theta * cos_theta_p / (sh.t * sh.t) / er[16];
-    sink.edge(ok, src, e_tri, nee_w, nee_w * P.inv_pi, true, ld3(er + 9));
+    s.to_light = normalize3(emm - point);
+    s.cos_theta = dot3(s.shade_n, s.to_light);
   }
-  sink.record(b, dst, src, true, w, ok, nee_w, e_tri);
-  // The next ray is swept only where the path goes on to another bounce.
-  if (!cont || b + 1 == P.max_bounces) return false;
-  L.w = w_next;
-  L.dst = src;
-  L.b = b + 1;
-  *next_dir_out = next_dir;
   return true;
 }
 
-// The closest hit of lane L's pending segment, along dir from o.
-template <bool kClustered>
-__device__ __forceinline__ void sweep_segment(const TraceParams& P, const Tables& T, InvLane& L,
-                                              V3 o, V3 dir) {
-  L.cur = intersect<kClustered>(P, T, o, dir);
-  L.point = hit_point(o, dir, L.cur);
+// The rest of the segment, given the shadow ray's hit sh (read where
+// s.shadow).  Returns true where the path goes on to bounce L.b + 1 (L
+// then holds that bounce's weight, node and index) along *next_dir_out
+// from L.point, which the caller sweeps.
+template <class Sink>
+__device__ __forceinline__ bool segment_end(const TraceParams& P, const Tables& T, InvLane& L,
+                                            const Sink& sink, const Segment& s, Hit sh,
+                                            V3* next_dir_out) {
+  const int src = L.cur.idx;
+  bool ok = false;
+  float nee_w = 0.f;
+  int e_tri = 0;
+  if (s.shadow) {
+    const float* er = T.etab + P.etab_stride * s.e;
+    e_tri = static_cast<int>(er[15]);
+    ok = s.cos_theta >= 0.f && is_hit(sh);
+    const V3 light_n = P.has_vn
+        ? smooth_at(hit_point(L.point, s.to_light, sh), er, er + 17, er[26])
+        : ld3(er + 12);
+    const float cos_theta_p = -dot3(light_n, s.to_light);
+    ok = ok && cos_theta_p >= 0.f && sh.idx == e_tri;
+    if (ok) nee_w = L.w * s.cos_theta * cos_theta_p / (sh.t * sh.t) / er[16];
+    sink.edge(ok, src, e_tri, nee_w, nee_w * P.inv_pi, true, ld3(er + 9));
+  }
+  sink.record(L.b, L.dst, src, true, L.w, ok, nee_w, e_tri);
+  // The next ray is swept only where the path goes on to another bounce.
+  if (!s.cont || L.b + 1 == P.max_bounces) return false;
+  L.w = s.w_next;
+  L.dst = src;
+  L.b += 1;
+  *next_dir_out = s.next_dir;
+  return true;
 }
 
-// The whole path of ray i, one thread to the ray (B6's records sink).
-// Returns the bounces it entered; the counts go to stats.
+// The segment of the lanes where `live`; every lane of the warp calls it
+// together.  On clustered tables the shadow rays are swept together
+// (render_common.cuh intersect_lanes); elsewhere each lane runs its
+// segment alone, as bounce_lanes does.  Returns segment_end's answer where
+// `live`, else false.
 template <bool kClustered, class Sink>
-__device__ __forceinline__ int trace_inverse(const TraceParams& P, const Tables& T, int i,
-                                             const Sink& sink, float* stats) {
-  if (!lane_alive(P, i)) {
-    stats[i] = stats[P.n + i] = 0.f;
-    return 0;
+__device__ __forceinline__ bool segment_lanes(const TraceParams& P, const Tables& T, InvLane& L,
+                                              bool live, const Sink& sink, V3* next_dir_out) {
+  Segment s{};
+  if constexpr (!kClustered) {  // the lanes need not meet
+    if (!live || !segment_begin(P, T, L, sink, s)) return false;
+    return segment_end(P, T, L, sink, s,
+                       intersect_lanes<kClustered>(P, T, L.point, s.to_light, s.shadow),
+                       next_dir_out);
+  } else {
+    const bool lit = live && segment_begin(P, T, L, sink, s);
+    __syncwarp();
+    const Hit sh = intersect_lanes<kClustered>(P, T, L.point, s.to_light, lit && s.shadow);
+    return lit && segment_end(P, T, L, sink, s, sh, next_dir_out);
   }
-  V3 o, dir;
-  InvLane L = start_lane(P, i, &o, &dir);
-  sweep_segment<kClustered>(P, T, L, o, dir);
-  while (inverse_segment<kClustered>(P, T, L, sink, &dir))
-    sweep_segment<kClustered>(P, T, L, L.point, dir);
+}
+
+// The closest hit of the pending segment of the lanes where `active`,
+// along dir from o; every lane of the warp calls it together.
+template <bool kClustered>
+__device__ __forceinline__ void sweep_segments(const TraceParams& P, const Tables& T, InvLane& L,
+                                               V3 o, V3 dir, bool active) {
+  const Hit h = intersect_lanes<kClustered>(P, T, o, dir, active);
+  if (active) {
+    L.cur = h;
+    L.point = hit_point(o, dir, h);
+  }
+}
+
+// The whole path of ray i where `in` (B6's records sink): every lane of the
+// warp calls it, and the segments of its lanes go in step, so that their
+// sweeps run together.  Returns the bounces the path entered (0 where it
+// has none); the counts go to stats.
+template <bool kClustered, class Sink>
+__device__ __forceinline__ int trace_inverse(const TraceParams& P, const Tables& T, int i, bool in,
+                                             const Sink& sink, float* stats) {
+  const bool live = in && lane_alive(P, i);
+  if (in && !live) stats[i] = stats[P.n + i] = 0.f;
+  V3 o = zero3(), dir = zero3();
+  InvLane L{};
+  if (live) L = start_lane(P, i, &o, &dir);
+  __syncwarp();
+  sweep_segments<kClustered>(P, T, L, o, dir, live);
+  bool go = live;
+  while (__any_sync(kAllLanes, go)) {
+    go = segment_lanes<kClustered>(P, T, L, go, sink, &dir);
+    __syncwarp();
+    sweep_segments<kClustered>(P, T, L, L.point, dir, go);
+  }
+  if (!live) return 0;
   stats[i] = L.segs;
   stats[P.n + i] = L.shadows;
   return L.b + 1;
@@ -310,12 +370,11 @@ __device__ __forceinline__ void trace_persistent(const TraceParams& P, const Tab
   int pool = 0, pool_left = 0;  // the warp's unstarted rays [pool, pool + pool_left)
   bool has = false;             // the lane traces a ray
   bool more = true;             // the launch may still have rays for it
-  InvLane L;
+  InvLane L{};
   for (;;) {
     V3 o = zero3(), dir = zero3();
-    bool sweep = false;
+    bool sweep = segment_lanes<kClustered>(P, T, L, has, sink, &dir);
     if (has) {
-      sweep = inverse_segment<kClustered>(P, T, L, sink, &dir);
       if (sweep) {
         o = L.point;
       } else {
@@ -355,7 +414,7 @@ __device__ __forceinline__ void trace_persistent(const TraceParams& P, const Tab
       }
     }
     if (!__any_sync(kAll, has || more)) break;
-    if (sweep) sweep_segment<kClustered>(P, T, L, o, dir);
+    sweep_segments<kClustered>(P, T, L, o, dir, sweep);
   }
 }
 
@@ -395,9 +454,9 @@ __global__ void __launch_bounds__(kThreads, min_blocks(kClustered))
   extern __shared__ float4 smem4[];
   const Tables T = stage_tables<kClustered>(P, reinterpret_cast<float*>(smem4));
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= P.n) return;
   const RecordSink sink{rec, P.n, i};
-  sink.zero_from(trace_inverse<kClustered>(P, T, i, sink, stats), P.max_bounces);
+  const int reached = trace_inverse<kClustered>(P, T, i, i < P.n, sink, stats);
+  if (i < P.n) sink.zero_from(reached, P.max_bounces);
 }
 
 // B5's dynamic shared memory: the padded grid, then the tables.

@@ -275,9 +275,10 @@ __device__ __forceinline__ void recurse_ended(const LocalRecords<kCap>& recs, bo
 // (n, the grid, the path lengths), and every sum has a fixed order, so the
 // gradient is the same in every run on one card.  kSweep is the search
 // flavour (the BVH route's traversal included); kGlobalAcc keeps the
-// accumulators in `scratch` (header comment).
+// accumulators in `scratch` (header comment).  The BVH instance runs at two
+// blocks an SM, as the clustered ones: held to three, ptxas spilled it.
 template <int kCap, bool kGlobalAcc, int kSweep>
-__global__ void __launch_bounds__(kThreads, min_blocks(kSweep))
+__global__ void __launch_bounds__(kThreads, kSweep == kSweepDense ? 0 : 2)
     grad_tile_kernel(const TraceParams P, const float* g, float* partials, float* scratch) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
@@ -289,18 +290,20 @@ __global__ void __launch_bounds__(kThreads, min_blocks(kSweep))
   float* warp_acc = acc + static_cast<size_t>(threadIdx.x >> 5) * P.n_tri * 3;
   WarpRays w = warp_rays(P.n);
   LocalRecords<kCap> recs;
-  Lane L;
+  Lane L{};
   V3 gi = zero3();
   uint32_t h_orig = 0;
   int i = 0, b = 0;  // the lane's ray, the bounce it enters next
   bool has = false;  // the lane traces a ray
   for (int round = 0;; ++round) {
     bool sweep = false, done = false, escaped = false;
+    float u[6];
     if (has) {
-      float u[6];
       draw6(P, i, h_orig, b, b, u);
       escaped = !L.hit;
-      const bool cont = bounce_step<kSweep, true>(P, T, L, b, u, recs, round & (kCap - 1));
+    }
+    const bool cont = bounce_lanes<kSweep>(P, T, L, has, b, u, recs, round & (kCap - 1));
+    if (has) {
       ++b;
       sweep = cont && b < P.max_bounces;
       done = !sweep;
@@ -320,7 +323,7 @@ __global__ void __launch_bounds__(kThreads, min_blocks(kSweep))
       }
     }
     if (w.next >= w.end && !__any_sync(kAllLanes, has)) break;
-    if (sweep) sweep_from<kSweep>(P, T, L, L.point);
+    sweep_lanes<kSweep>(P, T, L, L.point, sweep);
   }
   __syncthreads();
   write_partial(acc, P.n_tri, partials);

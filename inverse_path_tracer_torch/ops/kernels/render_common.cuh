@@ -2,8 +2,8 @@
 // render_bwd.cu (B2, B4, B9) and inverse.cu (B5, B6): the vector helpers,
 // the counter-hash RNG, the closest-hit sweep with its clustered form
 // (B10), the shading helpers and the bounce loop of one ray as a lane state
-// (Lane), an init step (init_lane) and a bounce step (bounce_step), and the
-// persistent schedules: regenerating lanes (warp_rays: B1, B2, B3) and
+// (Lane), a sweep step (sweep_lanes) and a bounce step (bounce_lanes), and
+// the persistent schedules: regenerating lanes (warp_rays: B1, B2, B3) and
 // fixed chunk ranges (warp_chunks: B7, B9).
 //
 // The regenerating loops of B1, B2 and B3 (warp_rays below) and the stage
@@ -42,15 +42,34 @@
 // contiguous runs of cluster_k triangles are spatially compact clusters
 // (ops/kernels/clusters.py; 16 by default on this card), and runs of
 // cluster_group clusters 1.. have a group box, the union of theirs.
-// intersect() sweeps cluster 0 (the largest triangles) for every ray; then
-// it tests each group's box and, where this thread's ray enters it no later
-// than its closest hit so far, the boxes of the group's clusters, sweeping
-// a cluster where the ray enters its margin-padded box no later than its
-// closest hit: a per-ray skip where the TPU kernel skips a cluster for a
-// whole ray block.  Clusters go in ascending order and a hit replaces the
-// running one only when strictly closer, so the result is the dense
-// sweep's, ties to the lowest internal index.  The plane rows and the boxes
-// are copied into shared memory by TMA where they fit (stage_tables).
+// cluster_hit() sweeps cluster 0 (the largest triangles) for every ray;
+// then, 32 groups at a time, each lane tests the groups' boxes against its
+// ray's closest hit at the start of the 32, and the warp shares out the
+// rest, one item a lane: the (ray, group) items that entered, whose taker
+// tests the group's cluster boxes against the same t (t_cull) and queues
+// the (ray, cluster) items that entered in the warp's queue in shared
+// memory, and the queued items, whose taker sweeps the cluster's rows for
+// the owner ray (its origin, direction and closest hit read with
+// shuffles).  A lane thus works on its neighbours' rays instead of idling
+// while they sweep clusters it does not enter, the cost of a per-lane loop
+// on incoherent rays.  Where a warp's rays are coherent and meet nearer
+// clusters first, a per-lane loop culls more (B7 on the sphere); culling
+// against the owner's running hit, or handing each ray's groups out one a
+// pass with the queue swept between, measured no faster or slower on the
+// cells' rays (PERF.md §6, PR 20).  A box skipped is a per-ray skip where
+// the TPU kernel skips a cluster for a whole ray block.  An owner keeps the least (t, internal index) over its
+// items (a 64-bit atomicMin in shared memory), so the result is the dense
+// sweep's, ties to the lowest internal index, in whatever order the items
+// run: a box test is inclusive against a closest hit that is never below
+// the final one.  A last cluster of fewer than cluster_k rows is swept by
+// each ray itself, where it enters its box: queued, its items would take
+// whole passes of cluster_k rows.  The lanes that call together share the
+// work (__activemask()).  The kernels call it from every lane of a
+// converged warp, a lane without a ray with `active` false, so that it
+// takes its neighbours' items (intersect_lanes: the next and the shadow
+// rays of B1, B2, B3 and B8, B7's rays, B10 alone, and both sweeps of B5's
+// and B6's segments).  The plane rows and the boxes are copied into shared
+// memory by TMA where they fit (stage_tables).
 // Bound: the (ray, triangle) tests swept and the (ray, box) tests, f32 ALU
 // as the dense sweep; a box test is 6 mul, 6 sub and 10 min/max.
 //
@@ -185,6 +204,12 @@ inline long long table_floats(int n_tri, int has_vn, int n_emissive, int etab_st
 // reads once per (ray, triangle) or (ray, box) test.  The material,
 // vertex-normal and emitter tables are read once per hit and stay in
 // global memory.
+// The clustered sweep's static shared memory in a block of `warps` warps:
+// a warp's SweepScratch (kSweepScratchBytes, below) and stage_tables' TMA
+// barrier, 16 bytes with its alignment.
+constexpr size_t kSweepScratchBytes = 1408;
+constexpr size_t cluster_static_smem(int warps) { return warps * kSweepScratchBytes + 16; }
+
 inline size_t smem_table_bytes(const TraceParams& P) {
   if (!P.cluster_k)
     return static_cast<size_t>(table_floats(P.n_tri, P.has_vn, P.n_emissive, P.etab_stride)) * 4;
@@ -198,18 +223,20 @@ inline bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 
 // besides the tables, and returns the table bytes it then adds (0: the
 // block reads the tables through L1).  Dense: every table, where the total
 // fits in 48 KB.  Clustered: the sweep's tables, copied by TMA, where the
-// total fits in a block's 227 KB and the sources are 16-byte aligned (torch
-// allocations are); a larger scene (above ~3,500 triangles) reads its
-// planes through L1, the same function at a lower speed.  BVH: none.
-inline size_t smem_tables(TraceParams& P, size_t other) {
+// total with the sweep's static shared memory (blocks of `warps` warps)
+// fits in a block's 227 KB and the sources are 16-byte aligned (torch
+// allocations are); a larger scene (above ~3,300 triangles at 8 warps,
+// ~3,150 at 16) reads its planes through L1, the same function at a lower
+// speed.  BVH: none.
+inline size_t smem_tables(TraceParams& P, size_t other, int warps = kWarps) {
   if (P.n_nodes) {
     P.use_smem = 0;
     return 0;
   }
   const size_t bytes = smem_table_bytes(P);
   if (P.cluster_k) {
-    P.use_smem = other + bytes <= static_cast<size_t>(kMaxSmem) && aligned16(P.planes) &&
-                 aligned16(P.cab) && aligned16(P.gab);
+    P.use_smem = other + bytes + cluster_static_smem(warps) <= static_cast<size_t>(kMaxSmem) &&
+                 aligned16(P.planes) && aligned16(P.cab) && aligned16(P.gab);
   } else {
     P.use_smem = other + bytes <= static_cast<size_t>(kSmemLimit);
   }
@@ -344,6 +371,8 @@ constexpr float kPretestHi = 1.001f;
 
 // Sweeps triangles [lo, hi) for the ray o + t*dir, updating the closest
 // hit (t_best, best); strict `<` keeps the lowest index on exact ties.
+// kTies (the clustered sweep's items, which run in no fixed order) also
+// takes a hit at t_best itself where its index is below best.
 //
 // Most pairs are rejected, so a divide-free pre-test keeps the exact IEEE
 // divide t = a0 / -b0 off their path.  With s = |b0| and a = a0 signed so
@@ -359,7 +388,9 @@ constexpr float kPretestHi = 1.001f;
 // (render_kernel.py _trace_params), since a run-time switch around the
 // pre-test took back most of its gain.  Survivors then take the exact test,
 // so the result is bit for bit that of the exact test alone.  Tested by a
-// float32 mirror in tests/test_torch_cluster.py.
+// float32 mirror in tests/test_torch_cluster.py.  The pre-test's `<=`
+// margin keeps the equal-t pairs that kTies may take.
+template <bool kTies = false>
 __device__ __forceinline__ void sweep(const float* __restrict__ planes, int lo, int hi,
                                       float min_dot, float eps, V3 o, V3 dir, float& t_best,
                                       int& best) {
@@ -373,7 +404,7 @@ __device__ __forceinline__ void sweep(const float* __restrict__ planes, int lo, 
     const float a = b0 < 0.f ? a0 : -a0;
     if (!(s >= min_dot && a >= eps_lo * s && a <= (t_best * s) * kPretestHi)) continue;
     const float t = a0 / (-b0);
-    if (fabsf(b0) >= min_dot && t >= eps && t < t_best) {
+    if (fabsf(b0) >= min_dot && t >= eps && (kTies ? t <= t_best : t < t_best)) {
       bool inside = true;
 #pragma unroll
       for (int j = 1; j < 4; ++j) {
@@ -382,7 +413,7 @@ __device__ __forceinline__ void sweep(const float* __restrict__ planes, int lo, 
         const float b = dir.x * e.x + dir.y * e.y + dir.z * e.z;
         inside = inside && (a + t * b <= 0.f);
       }
-      if (inside) {
+      if (inside && (!kTies || t < t_best || k < best)) {
         t_best = t;
         best = k;
       }
@@ -506,43 +537,237 @@ __device__ __forceinline__ Hit traverse(const TraceParams& P, const Tables& T, V
   return Hit{t_best, best};
 }
 
-// intersect() of the dense and clustered flavours.
-template <bool kClustered>
-__device__ __forceinline__ Hit sweep_hit(const TraceParams& P, const Tables& T, V3 o, V3 dir) {
+// --- B10's warp-cooperative schedule (header comment) ------------------
+
+// The position of the k-th (from 0) set bit of m, which has more than k.
+__device__ __forceinline__ int nth_bit(unsigned m, int k) {
+  int pos = 0;
+#pragma unroll
+  for (int w = 16; w > 0; w >>= 1) {
+    const int c = __popc(m & ((1u << w) - 1u));
+    if (k >= c) {
+      k -= c;
+      m >>= w;
+      pos += w;
+    }
+  }
+  return pos;
+}
+
+// m without its k lowest set bits.
+__device__ __forceinline__ unsigned drop_bits(unsigned m, int k) {
+  if (k <= 0) return m;
+  if (k >= __popc(m)) return 0u;
+  return m & ~((1u << nth_bit(m, k)) - 1u);
+}
+
+__device__ __forceinline__ V3 shfl3(unsigned lanes, V3 v, int src) {
+  return v3(__shfl_sync(lanes, v.x, src), __shfl_sync(lanes, v.y, src),
+            __shfl_sync(lanes, v.z, src));
+}
+
+// Each lane of `lanes` holds `count` (< 64) items, laid out in lane order:
+// this lane's exclusive prefix (the items of the lanes below it), from one
+// ballot per bit of the counts, so that it holds for any set of lanes.
+__device__ __forceinline__ int items_before(unsigned lanes, unsigned below, int count) {
+  int pre = 0;
+#pragma unroll
+  for (int b = 0; b < 6; ++b) pre += __popc(__ballot_sync(lanes, (count >> b) & 1) & below) << b;
+  return pre;
+}
+
+// The holder lane of item s of that layout (`pre` this lane's prefix) and,
+// in *r, the item's rank among the holder's; `want` false (the lane takes
+// no item): this lane, 0.  Every lane of `lanes` calls it; s < 32.
+__device__ __forceinline__ int item_holder(unsigned lanes, int count, int pre, bool want, int s,
+                                           int* r) {
+  const unsigned starts = __reduce_or_sync(lanes, count > 0 && pre < 32 ? 1u << pre : 0u);
+  const unsigned holders = __ballot_sync(lanes, count > 0);
+  *r = 0;
+  if (!want) return threadIdx.x & 31;
+  const unsigned upto = starts & ((2u << s) - 1u);  // the holders starting at or before s
+  *r = s - (31 - __clz(upto));
+  return nth_bit(holders, __popc(upto) - 1);
+}
+
+// A warp's shared scratch of the sweep, a part for each lane: its running
+// closest hit as one word, (t bits, index) (every t a sweep accepts is at
+// least eps > 0 and +inf is a miss, so the words order as (t, index) do),
+// and its segment of the queue of (ray, cluster) items, (cluster << 5) |
+// the ray's lane.  Item j of the queue of a call's lanes lies in the
+// segment of the lane of rank j % width, at depth j / width, so that lanes
+// of one warp in two calls at once (lane-divergent callers) use disjoint
+// parts.  A round of group boxes queues at most kMaxClusterGroup items a
+// lane onto fewer than `width`, so a segment holds kSegment.
+constexpr int kMaxClusterGroup = 8;
+constexpr int kSegment = kMaxClusterGroup + 1;
+struct SweepScratch {
+  unsigned long long box[32];
+  uint32_t queue[32 * kSegment];
+};
+static_assert(sizeof(SweepScratch) == kSweepScratchBytes, "cluster_static_smem counts the scratch");
+
+// The scratch of the warps of a block of kBlockWarps warps.
+template <int kBlockWarps>
+__device__ __forceinline__ SweepScratch* sweep_scratch() {
+  __shared__ SweepScratch scratch[kBlockWarps];
+  return scratch;
+}
+
+__device__ __forceinline__ unsigned long long hit_word(float t, int idx) {
+  return (static_cast<unsigned long long>(__float_as_uint(t)) << 32) | static_cast<uint32_t>(idx);
+}
+
+// The work of the clustered sweep, per lane (intersect_kernel's counts):
+// (ray, group) box tests, (ray, cluster) box tests, (ray, triangle) pairs,
+// and the lane-slots of the pair loop's passes, 32 a row of a pass (masked
+// lanes included), counted on the pass's lowest lane.
+struct SweepWork {
+  int group_tests, cluster_tests, pairs, slots;
+};
+
+// B10 (header comment): the closest hit of the ray o + t*dir on clustered
+// tables, swept by the lanes of the warp that call it together
+// (__activemask(); every warp intrinsic below takes that mask), in a block
+// of kBlockWarps warps.  A lane that calls it with `active` false has no ray
+// (its Hit is a miss) and takes its neighbours' items.  Per round of 32
+// groups: while the queue holds fewer items than there are lanes and
+// (ray, group) items are left, each lane takes one, in lane order, and
+// queues the clusters of the group whose boxes the owner ray enters no
+// later than t_cull; else each lane takes a queued (ray, cluster) item and
+// sweeps its rows.  With kCount, *work gains the lane's SweepWork.
+template <bool kCount, int kBlockWarps = kWarps>
+__device__ __forceinline__ Hit cluster_hit(const TraceParams& P, const Tables& T, V3 o, V3 dir,
+                                           bool active, SweepWork* work) {
+  const unsigned lanes = __activemask();
+  const int lane = threadIdx.x & 31;
+  const unsigned below = (1u << lane) - 1u;
+  const int rank = __popc(lanes & below), width = __popc(lanes);
+  SweepScratch& S = sweep_scratch<kBlockWarps>()[threadIdx.x >> 5];
+  const V3 inv = v3(inv_component(dir.x), inv_component(dir.y), inv_component(dir.z));
+  const int ck = P.cluster_k;
   float t_best = INFINITY;
   int best = 0;
-  if constexpr (!kClustered) {
-    sweep(T.planes, 0, P.n_tri, P.min_dot, P.epsilon, o, dir, t_best, best);
-  } else {
-    const V3 inv = v3(inv_component(dir.x), inv_component(dir.y), inv_component(dir.z));
-    sweep(T.planes, 0, min(P.cluster_k, P.n_tri), P.min_dot, P.epsilon, o, dir, t_best, best);
-    for (int g = 0; g < P.n_groups; ++g) {
-      if (!enters(T.gab + 8 * g, o, inv, t_best)) continue;
-      const int c_lo = 1 + g * P.cluster_group;
-      const int c_hi = min(c_lo + P.cluster_group, P.n_clusters);
-      for (int c = c_lo; c < c_hi; ++c) {
-        if (!enters(T.cab + 8 * c, o, inv, t_best)) continue;
-        const int lo = c * P.cluster_k;
-        sweep(T.planes, lo, min(lo + P.cluster_k, P.n_tri), P.min_dot, P.epsilon, o, dir, t_best,
-              best);
+  const int rows0 = min(ck, P.n_tri);
+  if (active) sweep(T.planes, 0, rows0, P.min_dot, P.epsilon, o, dir, t_best, best);
+  if constexpr (kCount) {
+    if (active) work->pairs += rows0;
+    if (rank == 0) work->slots += 32 * rows0;
+  }
+  // The last cluster, swept by each ray itself where it has fewer rows.
+  const int last = P.n_clusters - 1;
+  const int tail_rows = P.n_tri - last * ck;
+  const int tail_group = tail_rows < ck && last > 0 ? (last - 1) / P.cluster_group : -1;
+  for (int g0 = 0; g0 < P.n_groups; g0 += 32) {
+    const float t_cull = t_best;
+    const int gn = min(32, P.n_groups - g0);
+    unsigned gm = 0;  // groups g0 + j whose box the ray enters, not yet handed out
+    for (int j = 0; active && j < gn; ++j) {
+      if (enters(T.gab + 8 * (g0 + j), o, inv, t_cull)) gm |= 1u << j;
+    }
+    if constexpr (kCount) work->group_tests += active ? gn : 0;
+    const bool tail = tail_group >= g0 && tail_group < g0 + gn && ((gm >> (tail_group - g0)) & 1u);
+    int queued = 0;  // the warp's queued items
+    for (;;) {
+      const int g_items = __reduce_add_sync(lanes, __popc(gm));
+      if (queued >= width || (g_items == 0 && queued > 0)) {
+        // Each lane takes a queued (ray, cluster) item, the top `width`
+        // (all but at the end: one a lane), and sweeps the cluster's rows.
+        const int base = max(queued - width, 0);
+        const int depth = base / width + (rank < base % width);
+        const bool has = rank < queued;
+        const uint32_t item = has ? S.queue[lane * kSegment + depth] : 0u;
+        const int owner = has ? static_cast<int>(item & 31u) : lane;
+        const V3 so = shfl3(lanes, o, owner), sd = shfl3(lanes, dir, owner);
+        float t = __shfl_sync(lanes, t_best, owner);
+        int idx = __shfl_sync(lanes, best, owner);
+        S.box[lane] = hit_word(t_best, best);
+        __syncwarp(lanes);
+        if (has) {
+          const int lo = static_cast<int>(item >> 5) * ck;
+          const int before = idx;
+          sweep<true>(T.planes, lo, lo + ck, P.min_dot, P.epsilon, so, sd, t, idx);
+          if (idx != before) atomicMin(S.box + owner, hit_word(t, idx));
+        }
+        if constexpr (kCount) {
+          if (has) work->pairs += ck;
+          if (rank == 0) work->slots += 32 * ck;
+        }
+        __syncwarp(lanes);
+        const unsigned long long w = S.box[lane];
+        t_best = __uint_as_float(static_cast<uint32_t>(w >> 32));
+        best = static_cast<int>(static_cast<uint32_t>(w));
+        queued = max(queued - width, 0);
+      } else if (g_items > 0) {
+        // Each lane takes a (ray, group) item: the group's cluster boxes.
+        const int count = __popc(gm);
+        const int pre = items_before(lanes, below, count);
+        const bool take = rank < g_items;
+        int r;
+        const int src = item_holder(lanes, count, pre, take, rank, &r);
+        const unsigned src_gm = __shfl_sync(lanes, gm, src);
+        const V3 so = shfl3(lanes, o, src), si = shfl3(lanes, inv, src);
+        const float st = __shfl_sync(lanes, t_cull, src);
+        unsigned m = 0;  // bit j: cluster c_lo + j
+        int c_lo = 0;
+        if (take) {
+          const int g = g0 + nth_bit(src_gm, r);
+          c_lo = 1 + g * P.cluster_group;
+          const int c_hi = min(c_lo + P.cluster_group, g == tail_group ? last : P.n_clusters);
+          for (int c = c_lo; c < c_hi; ++c) {
+            if (enters(T.cab + 8 * c, so, si, st)) m |= 1u << (c - c_lo);
+          }
+          if constexpr (kCount) work->cluster_tests += c_hi - c_lo;
+        }
+        const int n_m = __popc(m);
+        const int at = queued + items_before(lanes, below, n_m);
+        int depth = at / width, r_to = at - depth * width;
+        for (; m != 0u; m &= m - 1u) {
+          S.queue[nth_bit(lanes, r_to) * kSegment + depth] =
+              (static_cast<uint32_t>(c_lo + __ffs(m) - 1) << 5) | src;
+          if (++r_to == width) r_to = 0, ++depth;
+        }
+        queued += __reduce_add_sync(lanes, n_m);
+        gm = drop_bits(gm, width - pre);  // the items handed out
+        __syncwarp(lanes);
+      } else {
+        break;
+      }
+    }
+    if (tail_group >= g0 && tail_group < g0 + gn) {
+      const bool in = tail && enters(T.cab + 8 * last, o, inv, t_cull);
+      if (in) sweep<true>(T.planes, last * ck, P.n_tri, P.min_dot, P.epsilon, o, dir, t_best, best);
+      if constexpr (kCount) {
+        work->cluster_tests += tail;
+        if (in) work->pairs += tail_rows;
+        if (__any_sync(lanes, in) && rank == 0) work->slots += 32 * tail_rows;
       }
     }
   }
   return Hit{t_best, best};
 }
 
-// Closest hit of the ray o + t*dir: the dense sweep over all triangles,
-// B10's clustered sweep (header comment) on clustered tables, or the BVH
-// traversal.  kSweep is a template parameter, not a branch on the tables,
-// so that each kernel compiles without the other flavours' registers (with
-// the clustered loop, the dense B1 spilled under its 80-register
-// allocation and ran 5% slower).
-template <int kSweep>
-__device__ __forceinline__ Hit intersect(const TraceParams& P, const Tables& T, V3 o, V3 dir) {
-  if constexpr (kSweep == kSweepBvh) {
-    return traverse<false>(P, T, o, dir, nullptr);
+// Closest hit of the ray o + t*dir of the lanes where `active`, called by
+// every lane of a converged warp of a block of kBlockWarps warps (a miss
+// elsewhere): the dense sweep over all triangles, B10's clustered sweep
+// (header comment) on clustered tables, whose lanes with nothing to sweep
+// take part of the others' work, or the BVH traversal.  kSweep is a
+// template parameter, not a branch on the tables, so that each kernel
+// compiles without the other flavours' registers (with the clustered loop,
+// the dense B1 spilled under its 80-register allocation and ran 5% slower).
+template <int kSweep, int kBlockWarps = kWarps>
+__device__ __forceinline__ Hit intersect_lanes(const TraceParams& P, const Tables& T, V3 o, V3 dir,
+                                               bool active) {
+  if constexpr (kSweep == kSweepClustered) {
+    return cluster_hit<false, kBlockWarps>(P, T, o, dir, active, nullptr);
   } else {
-    return sweep_hit<kSweep == kSweepClustered>(P, T, o, dir);
+    float t_best = INFINITY;
+    int best = 0;
+    if (active) {
+      if constexpr (kSweep == kSweepBvh) return traverse<false>(P, T, o, dir, nullptr);
+      else sweep(T.planes, 0, P.n_tri, P.min_dot, P.epsilon, o, dir, t_best, best);
+    }
+    return Hit{t_best, best};
   }
 }
 
@@ -591,7 +816,8 @@ __device__ __forceinline__ float spec_coeff(float inv_2pi, float shin, V3 n, V3 
   return (shin + 2.f) * inv_2pi * powed;
 }
 
-// Record sinks of bounce_step.  put() receives bounce b's record fields.
+// Record sinks of bounce_begin and bounce_end.  put() receives bounce b's
+// record fields.
 struct NoRecords {
   __device__ __forceinline__ void put(int, V3, V3, V3, V3, float, int, bool, bool) {}
 };
@@ -733,22 +959,18 @@ __device__ __forceinline__ V3 ray_origin(const TraceParams& P, int i) {
   return P.camera ? zero3() : v3(P.p[i], P.p[P.n + i], P.p[2 * P.n + i]);
 }
 
-// The pending ray's closest hit, from origin o along L.dir.
+// The pending ray's closest hit, from origin o along L.dir, of the lanes
+// where `active`; every lane of the warp calls it together
+// (intersect_lanes).
 template <int kSweep>
-__device__ __forceinline__ void sweep_from(const TraceParams& P, const Tables& T, Lane& L, V3 o) {
-  const Hit h = intersect<kSweep>(P, T, o, L.dir);
-  L.hit = is_hit(h);
-  L.idx = h.idx;
-  L.point = hit_point(o, L.dir, h);
-}
-
-// The initial lane of ray i: the bounce-0 intersection of a live ray (a
-// dead lane keeps a miss at point 0).
-template <int kSweep>
-__device__ __forceinline__ Lane init_lane(const TraceParams& P, const Tables& T, int i) {
-  Lane L = fresh_lane(P, i);
-  if (L.alive) sweep_from<kSweep>(P, T, L, ray_origin(P, i));
-  return L;
+__device__ __forceinline__ void sweep_lanes(const TraceParams& P, const Tables& T, Lane& L, V3 o,
+                                            bool active) {
+  const Hit h = intersect_lanes<kSweep>(P, T, o, L.dir, active);
+  if (active) {
+    L.hit = is_hit(h);
+    L.idx = h.idx;
+    L.point = hit_point(o, L.dir, h);
+  }
 }
 
 // The per-sample half of the fused RNG's hash.
@@ -775,16 +997,28 @@ __device__ __forceinline__ void draw6(const TraceParams& P, int i, uint32_t h_or
 
 // One bounce of a live lane at global bounce b (B1's bounce, JAX
 // _make_bounce, render_kernel.py:602), its record handed to sink slot
-// `slot`.  The lane dies on escape (f = 0, nee = 0, c = the stale l_e +
-// l_d with quirks, else 0) and where roulette ends the path (f = 0, coeff
-// = 0); a dead lane keeps the rest of its state.  Returns L.alive.
-// kDefer leaves the next ray's sweep to the caller: a lane that goes on
-// keeps its hit point in L.point as the next ray's origin, and the caller
-// runs sweep_from(L, L.point), the same arithmetic, only where it needs the
-// hit (the regenerating kernels sweep every lane of a warp together).
-template <int kSweep, bool kDefer = false, class Sink>
-__device__ __forceinline__ bool bounce_step(const TraceParams& P, const Tables& T, Lane& L, int b,
-                                            const float u[6], Sink& sink, int slot) {
+// `slot`, in two parts on either side of the shadow ray's sweep
+// (bounce_lanes runs them).  The lane dies on escape (f = 0, nee = 0, c =
+// the stale l_e + l_d with quirks, else 0) and where roulette ends the path
+// (f = 0, coeff = 0); a dead lane keeps the rest of its state.  A lane that
+// goes on keeps its hit point in L.point as the next ray's origin, and the
+// caller sweeps the next ray (sweep_lanes) where it needs the hit.  What a
+// bounce carries across the shadow ray's sweep:
+struct Bounce {
+  V3 shade_n, next_dir, to_light;
+  float cos_t, cosine, cos_theta;
+  int e;
+  bool cont, is_spec;
+  bool shadow;  // a shadow ray from point along to_light (emitter e) is to be swept
+};
+
+// The part of the bounce before the shadow ray's sweep: the escape, which
+// ends the lane (returns false), or the shading, the roulette draw, the next
+// direction and the shadow ray, into s (returns true).
+template <class Sink>
+__device__ __forceinline__ bool bounce_begin(const TraceParams& P, const Tables& T, Lane& L,
+                                             int b, const float u[6], Sink& sink, int slot,
+                                             Bounce& s) {
   L.segs += 1.f;
   if (!L.hit) {
     // Escape.  Q2: the loop body still adds the stale L_d (and L_e).
@@ -798,14 +1032,13 @@ __device__ __forceinline__ bool bounce_step(const TraceParams& P, const Tables& 
     return false;
   }
   const int idx = L.idx;
-  const V3 point = L.point, dir = L.dir, pm = L.pm;
+  const V3 point = L.point;
   const float* row = T.table + kTableStride * idx;
   const V3 emission = ld3(row);
   const V3 spec = ld3(row + 3);
   const float shin = row[6];
   const V3 face_n = ld3(row + 7);
-  const V3 kd = ld3(row + 10);
-  const V3 shade_n = P.has_vn
+  s.shade_n = P.has_vn
       ? smooth_at(point, T.vtab + kVtabStride * idx, T.vtab + kVtabStride * idx + 9,
                   T.vtab[kVtabStride * idx + 18])
       : face_n;
@@ -817,27 +1050,23 @@ __device__ __forceinline__ bool bounce_step(const TraceParams& P, const Tables& 
   }
 
   // Russian roulette and the next direction, about the FACE normal.
-  const bool cont = u[3] < P.p_rr;
+  s.cont = u[3] < P.p_rr;
   const float phi = P.two_pi * u[4];
-  bool is_spec = false;
-  float cos_t;
+  s.is_spec = false;
   if (P.no_spec) {
-    cos_t = sqrtf(u[5]);
+    s.cos_t = sqrtf(u[5]);
   } else {
-    is_spec = (spec.x != 0.f || spec.y != 0.f || spec.z != 0.f) && shin != 0.f;
-    cos_t = powf(u[5], is_spec ? 1.f / (shin + 1.f) : 0.5f);
+    s.is_spec = (spec.x != 0.f || spec.y != 0.f || spec.z != 0.f) && shin != 0.f;
+    s.cos_t = powf(u[5], s.is_spec ? 1.f / (shin + 1.f) : 0.5f);
   }
+  const float cos_t = s.cos_t;
   const float sin_t = sqrtf(fmaxf(1.f - cos_t * cos_t, 0.f));
-  const V3 next_dir = normalize3(rotate_z_to(face_n, v3(sin_t * cosf(phi), sin_t * sinf(phi), cos_t)));
-  const float cosine = dot3(next_dir, shade_n);
+  s.next_dir = normalize3(rotate_z_to(face_n, v3(sin_t * cosf(phi), sin_t * sinf(phi), cos_t)));
+  s.cosine = dot3(s.next_dir, s.shade_n);
 
   // Next-event estimation; the shadow ray and the next ray share `point`.
-  // l_d = bsdf_direct * nee, and d l_d / d kd = nee (no 1/pi: the
-  // reference's direct BSDF is kd + spec * phong).
-  V3 nee = zero3();
-  V3 l_d_fresh = zero3();
-  [[maybe_unused]] Hit nxt;  // unused under kDefer
-  if (P.n_emissive > 0) {
+  s.shadow = P.n_emissive > 0;
+  if (s.shadow) {
     L.shadows += 1.f;
     int e = P.n_emissive - 1;  // u past cdf[-1] clamps to the last emitter
     for (int k = 0; k < P.n_emissive; ++k) {
@@ -846,6 +1075,7 @@ __device__ __forceinline__ bool bounce_step(const TraceParams& P, const Tables& 
         break;
       }
     }
+    s.e = e;
     const float* er = T.etab + P.etab_stride * e;
     const float sq = sqrtf(u[1]);
     const float r2 = u[2];
@@ -853,32 +1083,50 @@ __device__ __forceinline__ bool bounce_step(const TraceParams& P, const Tables& 
     const V3 emm = v3((1.f - sq) * v0.x + sq * (1.f - r2) * v1.x + r2 * sq * v2.x,
                       (1.f - sq) * v0.y + sq * (1.f - r2) * v1.y + r2 * sq * v2.y,
                       (1.f - sq) * v0.z + sq * (1.f - r2) * v1.z + r2 * sq * v2.z);
-    const V3 to_light = normalize3(emm - point);
-    const float cos_theta = dot3(shade_n, to_light);
-    const Hit sh = intersect<kSweep>(P, T, point, to_light);
-    if constexpr (!kDefer) nxt = intersect<kSweep>(P, T, point, next_dir);
-    bool ok = cos_theta >= 0.f && is_hit(sh);
+    s.to_light = normalize3(emm - point);
+    s.cos_theta = dot3(s.shade_n, s.to_light);
+  }
+  return true;
+}
+
+// The rest of the bounce, given the shadow ray's hit sh (read where
+// s.shadow).  Returns L.alive.
+template <class Sink>
+__device__ __forceinline__ bool bounce_end(const TraceParams& P, const Tables& T, Lane& L,
+                                           Sink& sink, int slot, const Bounce& s, Hit sh) {
+  // The material, read again rather than carried across the sweep.
+  const float* row = T.table + kTableStride * L.idx;
+  const V3 spec = ld3(row + 3);
+  const float shin = row[6];
+  const V3 kd = ld3(row + 10);
+  // l_d = bsdf_direct * nee, and d l_d / d kd = nee (no 1/pi: the
+  // reference's direct BSDF is kd + spec * phong).
+  V3 nee = zero3();
+  V3 l_d_fresh = zero3();
+  if (s.shadow) {
+    const float* er = T.etab + P.etab_stride * s.e;
+    bool ok = s.cos_theta >= 0.f && is_hit(sh);
     const V3 light_n = P.has_vn
-        ? smooth_at(hit_point(point, to_light, sh), er, er + 17, er[26])
+        ? smooth_at(hit_point(L.point, s.to_light, sh), er, er + 17, er[26])
         : ld3(er + 12);
-    const float cos_theta_p = -dot3(light_n, to_light);
+    const float cos_theta_p = -dot3(light_n, s.to_light);
     ok = ok && cos_theta_p >= 0.f && static_cast<float>(sh.idx) == er[15];
     if (ok) {
-      const float geo = cos_theta * cos_theta_p / (sh.t * sh.t) / er[16];
+      const float geo = s.cos_theta * cos_theta_p / (sh.t * sh.t) / er[16];
       V3 bsdf_direct = kd;
-      if (!P.no_spec) bsdf_direct = kd + spec * spec_coeff(P.inv_2pi, shin, shade_n, dir, to_light);
+      if (!P.no_spec)
+        bsdf_direct = kd + spec * spec_coeff(P.inv_2pi, shin, s.shade_n, L.dir, s.to_light);
       nee = ld3(er + 9) * geo;
       l_d_fresh = bsdf_direct * nee;
     }
-  } else if constexpr (!kDefer) {
-    nxt = intersect<kSweep>(P, T, point, next_dir);
   }
   L.l_d = l_d_fresh;
+  const V3 pm = L.pm;
   const V3 c = L.l_e + L.l_d;
   L.rad = L.rad + pm * c;
 
-  if (!cont) {
-    sink.put(slot, zero3(), c, nee, pm, 0.f, idx, true, false);
+  if (!s.cont) {
+    sink.put(slot, zero3(), c, nee, pm, 0.f, L.idx, true, false);
     L.alive = false;
     return false;
   }
@@ -886,22 +1134,39 @@ __device__ __forceinline__ bool bounce_step(const TraceParams& P, const Tables& 
   float coeff;
   if (P.no_spec) {
     bsdf = kd * P.inv_pi;
-    coeff = cosine * P.cos_scale;  // cosine / pdf(=1/pi) / p_RR
+    coeff = s.cosine * P.cos_scale;  // cosine / pdf(=1/pi) / p_RR
   } else {
-    const float pdf = is_spec ? powf((shin + 1.f) * cos_t, shin) : P.inv_pi;
-    bsdf = kd * P.inv_pi + spec * spec_coeff(P.inv_2pi, shin, shade_n, dir, next_dir);
-    coeff = pdf > 0.f ? cosine / pdf * P.inv_p_rr : 0.f;
+    const float pdf = s.is_spec ? powf((shin + 1.f) * s.cos_t, shin) : P.inv_pi;
+    bsdf = kd * P.inv_pi + spec * spec_coeff(P.inv_2pi, shin, s.shade_n, L.dir, s.next_dir);
+    coeff = pdf > 0.f ? s.cosine / pdf * P.inv_p_rr : 0.f;
   }
   const V3 f = bsdf * coeff;
-  sink.put(slot, f, c, nee, pm, coeff, idx, true, false);
+  sink.put(slot, f, c, nee, pm, coeff, L.idx, true, false);
   L.pm = pm * f;
-  L.dir = next_dir;
-  if constexpr (!kDefer) {
-    L.hit = is_hit(nxt);
-    L.idx = nxt.idx;
-    L.point = hit_point(point, next_dir, nxt);
-  }
+  L.dir = s.next_dir;
   return true;
+}
+
+// The bounce of the lanes where `live` (u read there); every lane of the
+// warp calls it together.  On clustered tables the shadow rays are swept
+// together (intersect_lanes); elsewhere each lane runs its bounce alone,
+// which keeps the dense and BVH instances in 80 registers (PERF.md §6,
+// PR 20).  Returns L.alive where `live`, else false.
+template <int kSweep, class Sink>
+__device__ __forceinline__ bool bounce_lanes(const TraceParams& P, const Tables& T, Lane& L,
+                                             bool live, int b, const float u[6], Sink& sink,
+                                             int slot) {
+  Bounce s{};
+  if constexpr (kSweep != kSweepClustered) {  // the lanes need not meet
+    if (!live || !bounce_begin(P, T, L, b, u, sink, slot, s)) return false;
+    return bounce_end(P, T, L, sink, slot, s,
+                      intersect_lanes<kSweep>(P, T, L.point, s.to_light, s.shadow));
+  } else {
+    const bool lit = live && bounce_begin(P, T, L, b, u, sink, slot, s);
+    __syncwarp();
+    const Hit sh = intersect_lanes<kSweep>(P, T, L.point, s.to_light, lit && s.shadow);
+    return lit && bounce_end(P, T, L, sink, slot, s, sh);
+  }
 }
 
 // --- The regenerating schedule (B1, B2, B3) ------------------------------

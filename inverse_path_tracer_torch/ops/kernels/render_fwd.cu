@@ -55,7 +55,7 @@
 //
 // B8, stage_kernel, replaces stage_tile_pallas / _kernel_stage (:1711,
 // :1141): from a carry, at most k bounces of each live lane starting at a
-// runtime global bounce `start`, with B1's bounce step (bounce_step); the
+// runtime global bounce `start`, with B1's bounce step (bounce_lanes); the
 // fused hash takes the global bounce, the external uniforms and the records
 // the local one.  A thread stops where its lane dies or its global bounce
 // reaches max_bounces, and zeroes the record slots it did not reach (the
@@ -64,7 +64,7 @@
 // persistent kernel whose warps take 32-lane chunks of that live prefix
 // from a global counter and then copy the dead lanes' carry and zero their
 // records with 16-byte stores (stage_kernel).  B10's
-// standalone kernel, intersect_kernel, runs intersect() for one ray per
+// standalone kernel, intersect_kernel, runs intersect_lanes() for one ray per
 // thread, so that the clustered sweep, or the BVH traversal, can be
 // checked and timed alone.
 //
@@ -104,7 +104,7 @@ __device__ __forceinline__ void store_out(float* rad, float* stats, int n, int i
 
 // B1 and B3: persistent blocks whose lanes regenerate (render_common.cuh
 // warp_rays).  Each round a lane that traces a ray runs one bounce
-// (bounce_step with the next sweep deferred) and, for B3, writes its
+// (bounce_lanes, every lane of the warp together) and, for B3, writes its
 // record; a lane whose path ends writes its radiance and counts and takes
 // the next ray of its warp's range; then every lane with a pending ray
 // sweeps it together, the next ray of a path or a new primary ray.  The
@@ -128,17 +128,17 @@ __global__ void __launch_bounds__(kThreads, min_blocks(kSweep))
   WarpRays w = warp_rays(n);
   std::conditional_t<kRecords, GlobalRecords, NoRecords> sink;
   if constexpr (kRecords) sink = GlobalRecords{rec, n, 0};  // sink.i: the lane's ray
-  Lane L;
+  Lane L{};
   uint32_t h_orig = 0;
   int i = 0;         // the lane's ray
   int b = 0;         // the bounce the lane enters next
   bool has = false;  // the lane traces a ray
   for (;;) {
     bool sweep = false;
+    float u[6];
+    if (has) draw6(P, i, h_orig, b, b, u);
+    const bool cont = bounce_lanes<kSweep>(P, T, L, has, b, u, sink, b);
     if (has) {
-      float u[6];
-      draw6(P, i, h_orig, b, b, u);
-      const bool cont = bounce_step<kSweep, true>(P, T, L, b, u, sink, b);
       ++b;
       if (cont && b < P.max_bounces) {
         sweep = true;
@@ -162,7 +162,7 @@ __global__ void __launch_bounds__(kThreads, min_blocks(kSweep))
       }
     }
     if (w.next >= w.end && !__any_sync(kAllLanes, has)) break;
-    if (sweep) sweep_from<kSweep>(P, T, L, L.point);
+    sweep_lanes<kSweep>(P, T, L, L.point, sweep);
   }
 }
 
@@ -173,9 +173,10 @@ constexpr int kInitWarps = kInitThreads / 32;
 // B7, persistent: as many blocks as fit on the card with the tables'
 // shared memory, each staging the tables once; warp w walks its fixed
 // range of 32-lane chunks (render_common.cuh warp_chunks) and writes each
-// lane's carry, a row at a time, lane-contiguous.  Each lane's arithmetic
-// is init_lane's whatever its place, so the carry is the one-thread-a-ray
-// kernel's, bit for bit.
+// lane's carry, a row at a time, lane-contiguous.  Every lane of a warp
+// sweeps together, a ray or not (intersect_lanes).  Each ray's arithmetic
+// is one thread's whatever its place, so the carry is the
+// one-thread-a-ray kernel's, bit for bit.
 template <bool kClustered>
 __global__ void __launch_bounds__(kInitThreads, min_blocks(kClustered))
     init_kernel(const TraceParams P, float* carry) {
@@ -184,37 +185,53 @@ __global__ void __launch_bounds__(kInitThreads, min_blocks(kClustered))
   const LaneRange r = warp_chunks(P.n, kInitWarps);
   for (long long base = r.lo; base < r.hi; base += 32) {
     const int i = static_cast<int>(base) + (threadIdx.x & 31);
-    if (i < r.hi) store_lane(carry, P.n, i, init_lane<kClustered>(P, T, i));
+    const bool live = i < r.hi && lane_alive(P, i);
+    V3 o = zero3(), d = zero3();
+    if (live) o = ray_origin(P, i), d = primary_dir(P, i);
+    __syncwarp();
+    const Hit h = intersect_lanes<kClustered, kInitWarps>(P, T, o, d, live);
+    if (i < r.hi) {
+      Lane L = fresh_lane(P, i);
+      if (live) L.hit = is_hit(h), L.idx = h.idx, L.point = hit_point(o, L.dir, h);
+      store_lane(carry, P.n, i, L);
+    }
   }
 }
 
-// Lane i of a stage: its carry in, at most k bounces, its carry out and,
-// with kRecords, its records (zero past its last bounce of the stage).
-template <bool kRecords, bool kClustered>
-__device__ __forceinline__ void stage_lane(const TraceParams& P, const Tables& T,
-                                           const float* carry_in, float* carry_out, float* rec,
-                                           int start, int k, int i) {
-  Lane L = load_lane(carry_in, P.n, i);
-  const uint32_t h_orig = hash_orig(P, i);
+// Lane i of a stage, where `in`: its carry in, at most k bounces, its carry
+// out and, with kRecords, its records (zero past its last bounce of the
+// stage).  Every lane of the warp calls it, and the bounces go in step, so
+// that the shadow and the next rays are swept together (bounce_lanes,
+// sweep_lanes).
+template <bool kRecords, int kSweep>
+__device__ __forceinline__ void stage_lanes(const TraceParams& P, const Tables& T,
+                                            const float* carry_in, float* carry_out, float* rec,
+                                            int start, int k, int i, bool in) {
+  Lane L{};
+  uint32_t h_orig = 0;
+  if (in) {
+    L = load_lane(carry_in, P.n, i);
+    h_orig = hash_orig(P, i);
+  }
+  std::conditional_t<kRecords, GlobalRecords, NoRecords> sink;
+  if constexpr (kRecords) sink = GlobalRecords{rec, P.n, i};
   int reached = 0;
-  if constexpr (kRecords) {
-    GlobalRecords sink{rec, P.n, i};
-    for (int b = 0; L.alive && b < k && start + b < P.max_bounces; ++b) {
-      float u[6];
+  for (int b = 0; b < k && start + b < P.max_bounces; ++b) {
+    if (!__any_sync(kAllLanes, L.alive)) break;
+    const bool live = L.alive;
+    float u[6];
+    if (live) {
       draw6(P, i, h_orig, start + b, b, u);
-      bounce_step<kClustered>(P, T, L, start + b, u, sink, b);
       reached = b + 1;
     }
-    sink.zero_from(reached, k);
-  } else {
-    NoRecords sink;
-    for (int b = 0; L.alive && b < k && start + b < P.max_bounces; ++b) {
-      float u[6];
-      draw6(P, i, h_orig, start + b, b, u);
-      bounce_step<kClustered>(P, T, L, start + b, u, sink, b);
-    }
+    const bool sweep = bounce_lanes<kSweep>(P, T, L, live, start + b, u, sink, b);
+    __syncwarp();
+    sweep_lanes<kSweep>(P, T, L, L.point, sweep);
   }
-  store_lane(carry_out, P.n, i, L);
+  if (in) {
+    if constexpr (kRecords) sink.zero_from(reached, k);
+    store_lane(carry_out, P.n, i, L);
+  }
 }
 
 // dst[lo:hi] = src[lo:hi] (or 0 where src is null), shared by `workers`
@@ -237,11 +254,11 @@ __device__ __forceinline__ void copy_span(const float* src, float* dst, size_t l
 // the scene tables once.  The host sorts the carry live lanes first and
 // passes the length of that prefix in *live (a device int; null: every
 // lane may be alive).  Warps take 32-lane chunks of the prefix from the
-// global counter *next (zero at launch) and run stage_lane on them; a warp
-// that finds the queue empty copies its share of the carry of the lanes
-// past the prefix, which are dead, and zeroes their records.  Each lane's
-// arithmetic is stage_lane's whatever its place, so the result is the
-// per-lane kernel's.
+// global counter *next (zero at launch) and run stage_lanes on them; a
+// warp that finds the queue empty copies its share of the carry of the
+// lanes past the prefix, which are dead, and zeroes their records.  Each
+// lane's arithmetic is one thread's whatever its place, so the result is
+// the per-lane kernel's.
 template <bool kRecords, bool kClustered>
 __global__ void __launch_bounds__(kThreads, min_blocks(kClustered))
     stage_kernel(const TraceParams P, const float* carry_in, float* carry_out, float* rec,
@@ -257,7 +274,7 @@ __global__ void __launch_bounds__(kThreads, min_blocks(kClustered))
     base = __shfl_sync(0xffffffffu, base, 0);
     if (base >= n_live) break;
     const int i = base + lane;
-    if (i < n_live) stage_lane<kRecords, kClustered>(P, T, carry_in, carry_out, rec, start, k, i);
+    stage_lanes<kRecords, kClustered>(P, T, carry_in, carry_out, rec, start, k, i, i < n_live);
   }
   const size_t worker = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   const size_t workers = static_cast<size_t>(gridDim.x) * blockDim.x;
@@ -273,9 +290,10 @@ __global__ void __launch_bounds__(kThreads, min_blocks(kClustered))
   }
 }
 
-// B10 (or the BVH traversal) alone, one ray a thread.  On the BVH route
-// with `counts` not null, the traversal also counts its work, summed per
-// warp and added to counts[0..3) (nodes popped, box tests, triangle tests).
+// B10 (or the BVH traversal) alone, one ray a thread.  With `counts` not
+// null, the search also counts its work, summed per warp and added to
+// counts: on the BVH route counts[0..3) (nodes popped, box tests, triangle
+// tests), on clustered tables counts[0..4) (cluster_hit's SweepWork).
 template <int kSweep>
 __global__ void __launch_bounds__(kThreads, min_blocks(kSweep))
     intersect_kernel(const TraceParams P, float* t_out, int* idx_out,
@@ -300,10 +318,28 @@ __global__ void __launch_bounds__(kThreads, min_blocks(kSweep))
       }
       return;
     }
+  } else if constexpr (kSweep == kSweepClustered) {
+    // Every lane sweeps, a ray or not (intersect_lanes).
+    V3 o = zero3(), d = zero3();
+    if (i < n) o = v3(P.p[i], P.p[n + i], P.p[2 * n + i]), d = v3(P.d[i], P.d[n + i], P.d[2 * n + i]);
+    __syncwarp();
+    SweepWork w{0, 0, 0, 0};
+    const Hit h = counts != nullptr ? cluster_hit<true>(P, T, o, d, i < n, &w)
+                                    : cluster_hit<false>(P, T, o, d, i < n, nullptr);
+    if (i < n) t_out[i] = h.t, idx_out[i] = h.idx;
+    if (counts != nullptr) {  // the same for the whole grid
+      const int c[4] = {w.group_tests, w.cluster_tests, w.pairs, w.slots};
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const unsigned sum = __reduce_add_sync(kAllLanes, static_cast<unsigned>(c[j]));
+        if ((threadIdx.x & 31) == 0) atomicAdd(counts + j, static_cast<unsigned long long>(sum));
+      }
+    }
+    return;
   }
   if (i >= n) return;
-  const Hit h = intersect<kSweep>(P, T, v3(P.p[i], P.p[n + i], P.p[2 * n + i]),
-                                  v3(P.d[i], P.d[n + i], P.d[2 * n + i]));
+  const Hit h = intersect_lanes<kSweep>(P, T, v3(P.p[i], P.p[n + i], P.p[2 * n + i]),
+                                        v3(P.d[i], P.d[n + i], P.d[2 * n + i]), true);
   t_out[i] = h.t;
   idx_out[i] = h.idx;
 }
@@ -314,7 +350,7 @@ Capacity g_render_capacity[2][3][kMaxDevices] = {};
 Capacity g_init_capacity[2][kMaxDevices] = {};
 
 cudaError_t init_capacity(TraceParams& P, int* blocks) {
-  const size_t dyn = smem_tables(P, 0);
+  const size_t dyn = smem_tables(P, 0, kInitWarps);
   Capacity* c = g_init_capacity[P.cluster_k ? 1 : 0];
   return P.cluster_k ? capacity(init_kernel<true>, c, dyn, blocks, kInitThreads)
                      : capacity(init_kernel<false>, c, dyn, blocks, kInitThreads);
@@ -444,7 +480,7 @@ int ipt_init_tile(const TraceParams* Pin, float* carry, int blocks, void* stream
   const cudaError_t err = init_capacity(P, &cap);  // opts the kernel into its smem
   if (err != cudaSuccess) return static_cast<int>(err);
   if (blocks < 1 || blocks > cap) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t dyn = smem_tables(P, 0);
+  const size_t dyn = smem_tables(P, 0, kInitWarps);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (P.cluster_k) {
     init_kernel<true><<<blocks, kInitThreads, dyn, s>>>(P, carry);
@@ -476,9 +512,9 @@ int ipt_stage_tile(const TraceParams* Pin, const float* carry_in, float* carry_o
 }
 
 // B10, or the BVH traversal on BVH tables: t (n,) and the internal triangle
-// index (n,) of the closest hit of each ray of *Pin; on BVH tables with
-// `counts` (3 zeroed device uint64s) not null, the traversal's work added
-// to them.  Returns the cudaError_t.
+// index (n,) of the closest hit of each ray of *Pin; with `counts` not
+// null (zeroed device uint64s: 3 on BVH tables, 4 on clustered tables), the
+// search's work added to them (intersect_kernel).  Returns the cudaError_t.
 int ipt_intersect_tile(const TraceParams* Pin, float* t, int* idx, unsigned long long* counts,
                        void* stream) {
   TraceParams P = *Pin;

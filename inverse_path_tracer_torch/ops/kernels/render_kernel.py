@@ -79,6 +79,7 @@ from inverse_path_tracer_torch.ops.intersect import (
     smooth_normal,
 )
 from inverse_path_tracer_torch.ops.kernels.clusters import (
+    MAX_CLUSTER_GROUP,
     KernelView,
     kernel_view,
     to_kernel_order,
@@ -439,19 +440,22 @@ def intersect_tile(
     """B10 on its own: the closest hit of each ray (3, n) through the
     kernels' sweep (clustered where cfg clusters the scene), or through the
     BVH traversal on the BVH route.  Returns t (n,) float32 (+inf on a miss)
-    and the internal triangle index (n,) int32 (0 on a miss).  On the BVH
-    route `counts`, a (3,) int64 tensor on the rays' device, gains the
-    traversal's nodes popped, (ray, box) tests and (ray, triangle) tests."""
+    and the internal triangle index (n,) int32 (0 on a miss).  `counts`, an
+    int64 tensor on the rays' device, gains the search's work: on the BVH
+    route (3,), the traversal's nodes popped, (ray, box) tests and (ray,
+    triangle) tests; on clustered tables (4,), the (ray, group) box tests,
+    the (ray, cluster) box tests, the (ray, triangle) pairs and the pair
+    loop's lane-slots, 32 a row of each pass of a warp (render_common.cuh
+    SweepWork).  The dense sweep counts nothing."""
     n = p.shape[1]
     _check(p, {"p": (p, (3, n), torch.float32), "d": (d, (3, n), torch.float32)})
-    if counts is not None:
-        _check(p, {"counts": (counts, (3,), torch.int64)})
     if not _on_card(p, scene):
         return intersect_tile_plain(scene, cfg, p, d, counts=counts)
     lib = _library("render_fwd")
     params, tabs = _trace_params(scene.diffuse, scene, cfg, tables, p, d)
-    if counts is not None and tabs.nodes is None:
-        raise ValueError("counts are the BVH traversal's: pass BVH tables")
+    if counts is not None:
+        _check(p, {"counts": (counts, (_count_width(tabs.nodes is not None, tabs.cluster_k),),
+                              torch.int64)})
     t = torch.empty(n, dtype=torch.float32, device=p.device)
     idx = torch.empty(n, dtype=torch.int32, device=p.device)
     with torch.cuda.device(p.device):
@@ -635,6 +639,9 @@ def _trace_params(materials, scene, cfg, tabs, p, d=None, alive=None, uniforms=N
                          f"1e-30, got epsilon {cfg.epsilon}, min_dot {cfg.min_dot}")
     if tabs is None:
         tabs = pack_tables(scene, materials, cfg)
+    if tabs.cluster_k and tabs.group > MAX_CLUSTER_GROUP:
+        raise ValueError(f"the kernels take at most {MAX_CLUSTER_GROUP} clusters a group, got "
+                         f"{tabs.group}")
     dev = scene.device if p is None else p.device
     if tabs.planes.device != dev:
         raise ValueError(f"tables are on {tabs.planes.device}, rays on {dev}")
@@ -893,20 +900,33 @@ def grad_tile_plain(materials, scene, cfg, p=None, d=None, alive=None, g=None, u
     return reverse_tile_plain(scene.n_tri, cfg, rec, g, kernel_view(scene, cfg).perm)
 
 
+def _count_width(bvh: bool, cluster_k: int) -> int:
+    """The length of intersect_tile's `counts` for the search flavour."""
+    if not (bvh or cluster_k):
+        raise ValueError("counts are the BVH traversal's or the clustered sweep's: "
+                         "the dense sweep counts nothing")
+    return 3 if bvh else 4
+
+
 def intersect_tile_plain(scene: SceneData, cfg, p: torch.Tensor, d: torch.Tensor,
                          counts: Optional[torch.Tensor] = None):
     """B10's plain version: ops/intersect.py intersect_clustered on the
     kernels' view (the dense sweep on scenes cfg does not cluster; on the
-    BVH route ops/bvh.py intersect_bvh, whose nodes popped, box tests and
-    triangle tests are added to `counts`)."""
+    BVH route ops/bvh.py intersect_bvh).  `counts` gains intersect_tile's
+    counts on the BVH route; on clustered tables the per-lane loop's
+    (counting_sweeps: its box tests, pairs and `loop_slots`), the least
+    work of the sweep, of which the kernel's warp-cooperative schedule
+    tests and sweeps as much or more."""
     view = kernel_view(scene, cfg)
     o, dirs = p.T.contiguous(), d.T.contiguous()
     if counts is None:
         hit = sweep(view, cfg, o, dirs)
-    elif view.bvh is None:
-        raise ValueError("counts are the BVH traversal's: pass a config of the BVH route")
     else:
+        _check(p, {"counts": (counts, (_count_width(view.bvh is not None, view.cluster_k),),
+                              torch.int64)})
         with counting_sweeps() as c:
             hit = sweep(view, cfg, o, dirs)
-        counts += torch.tensor([c["nodes"], c["node_tests"], c["tri_tests"]], device=counts.device)
+        keys = (("nodes", "node_tests", "tri_tests") if view.bvh is not None
+                else ("group_tests", "tests", "pairs", "loop_slots"))
+        counts += torch.tensor([c[k] for k in keys], device=counts.device)
     return hit.t, hit.tri.to(torch.int32)

@@ -1171,3 +1171,100 @@ def test_reorder_kernel_matches_plain(card, cells):
         got2 = reorder_tile(got[0], got[1], bins, cells or 2, True, scratch=scratch)
         for a, b in zip(got2, want2):
             assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("kind", ["large", "large_vn", "doubled_file", "doubled_morton"])
+def test_cooperative_sweep_on_the_card(card, kind):
+    """B10's warp-cooperative sweep on the large scene, flat and with vertex
+    normals (the cells' shading), and on the doubled flat scene
+    (assets.doubled_scene: every hit ties exactly with its copy's, which
+    file order puts in other clusters and groups), with a third of the
+    lanes dead, so that lanes without a ray take part: B10 alone
+    (intersect_tile, a ragged last warp) equals its plain version, t and
+    index; its group box tests equal the per-lane loop's (counting_sweeps),
+    its cluster box tests and pairs are no fewer, and it issues at least a
+    lane-slot a pair; B7, B8 (stages 0-3, carry and
+    records), B1, B3 and B6's records sink equal their plain versions, hit
+    rows bit for bit; B2 twice bit-equal and within the gradient tolerance;
+    B6's global sink within the float64 grids' tolerance of its records
+    reduced."""
+    from inverse_path_tracer_torch import large_scene
+    from inverse_path_tracer_torch.assets import doubled_scene
+    from inverse_path_tracer_torch.ops.kernels.inverse_kernel import (
+        grids_from_edge_records,
+        inverse_tile_global,
+        inverse_tile_rec,
+        inverse_tile_rec_plain,
+        unperm_grid,
+    )
+    from inverse_path_tracer_torch.ops.kernels.render_kernel import (
+        intersect_tile,
+        intersect_tile_plain,
+        pack_tables,
+    )
+    from inverse_path_tracer_torch.ops.kernels.staged_kernel import (
+        init_tile,
+        init_tile_plain,
+        stage_tile,
+        stage_tile_plain,
+    )
+
+    base = large_scene(card, vertex_normals=kind == "large_vn")
+    scene = base if kind.startswith("large") else doubled_scene(base)
+    cfg = RenderConfig(width=32, height=32, spp=4, max_bounces=16, stage_bounces=4,
+                       tri_order="file" if kind == "doubled_file" else "morton")
+    args = tile_args(scene, cfg, card, "fused")
+    n, k = cfg.n_samples, 4
+    args["alive"] = (torch.rand((1, n), generator=torch.Generator().manual_seed(8)) >= 1 / 3).to(
+        card, torch.float32)
+    mats = scene.diffuse
+    tabs = pack_tables(scene, mats, cfg)
+    assert tabs.cluster_k == 16
+
+    m = n - 13  # a ragged last warp
+    p, d = args["p"][:, :m].contiguous(), args["d"][:, :m].contiguous()
+    g = torch.Generator().manual_seed(9)
+    p_box = (torch.rand((m, 3), generator=g) * 3.6 - 1.8 + torch.tensor([0.0, 0.0, 4.0]))
+    d_box = torch.nn.functional.normalize(torch.randn((m, 3), generator=g), dim=1)
+    for pt, dt in ((p, d), (p_box.T.contiguous().to(card), d_box.T.contiguous().to(card))):
+        c_k = torch.zeros(4, dtype=torch.int64, device=card)
+        c_p = torch.zeros(4, dtype=torch.int64, device=card)
+        t, i = intersect_tile(scene, cfg, pt, dt, tables=tabs, counts=c_k)
+        t_p, i_p = intersect_tile_plain(scene, cfg, pt, dt, counts=c_p)
+        assert torch.equal(t, t_p) and torch.equal(i, i_p)
+        assert c_k[0] == c_p[0] and c_k[1] >= c_p[1] and c_k[2] >= c_p[2] > 0
+        assert c_k[3] >= c_k[2]
+        t2, i2 = intersect_tile(scene, cfg, pt, dt, tables=tabs)
+        assert torch.equal(t2, t) and torch.equal(i2, i)
+
+    carry = init_tile(mats, scene, cfg, args["p"], args["d"], args["alive"], tables=tabs)
+    assert_carry_equal(carry, init_tile_plain(mats, scene, cfg, args["p"], args["d"],
+                                              args["alive"]))
+    for s in range(4):
+        st = (mats, scene, cfg, carry, args["orig"], s * k, k, None, args["keys"])
+        out, rec = stage_tile(*st, with_rec=True, tables=tabs)
+        out_p, rec_p = stage_tile_plain(*st, with_rec=True)
+        assert_carry_equal(out, out_p)
+        assert torch.equal(rec, rec_p)
+        carry = out
+
+    rk, sk = render_tile(mats, scene, cfg, tables=tabs, **args)
+    rp, sp = render_tile_plain(mats, scene, cfg, **args)
+    assert torch.equal(rk, rp) and torch.equal(sk, sp)
+    rr, sr, rec3 = render_tile_rec(mats, scene, cfg, tables=tabs, **args)
+    _, _, rec3_p = render_tile_rec_plain(mats, scene, cfg, **args)
+    assert torch.equal(rr, rk) and torch.equal(sr, sk) and torch.equal(rec3, rec3_p)
+    gg = torch.rand((3, n), generator=torch.Generator().manual_seed(2)).to(card)
+    d2 = grad_tile(mats, scene, cfg, g=gg, tables=tabs, **args)
+    assert torch.equal(grad_tile(mats, scene, cfg, g=gg, tables=tabs, **args), d2)
+    assert_grad_close(d2, grad_tile_plain(mats, scene, cfg, g=gg, **args))
+
+    rec6, st6 = inverse_tile_rec(scene, cfg, tables=tabs, **args)
+    rec6_p, st6_p = inverse_tile_rec_plain(scene, cfg, **args)
+    assert_records_match(rec6, rec6_p)
+    assert torch.equal(st6, st6_p)
+    pix = torch.rand((3, n), generator=torch.Generator().manual_seed(4)).to(card)
+    acc, st_g = inverse_tile_global(scene, cfg, pix=pix, tables=tabs, **args)
+    grid64_close(unperm_grid(acc, tabs.perm),
+                 grids_from_edge_records(rec6, pix.T, scene, cfg, tabs.perm))
+    assert torch.equal(st_g, st6_p)
