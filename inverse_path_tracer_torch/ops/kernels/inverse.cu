@@ -19,12 +19,14 @@
 // render_common.cuh) every triangle index of a record or of the grid is
 // internal; the wrappers and the records reduction map them back.  p_spec
 // must be 0 (the wrappers check), so the path is always diffuse and slot 0
-// is never read.  The loop is not the forward's bounce_lanes
-// (render_common.cuh): the slot map, the scalar weight and the edge order
-// differ; it shares its helpers (the primary ray too, which camera mode
-// makes in the kernel under the extraction's camera key), and -fmad=false,
-// so the plain PyTorch version (inverse_kernel.py) takes the same
-// branches.
+// is never read.  A segment is a path vertex of the forward's: it runs
+// through render_common.cuh's vertex step (vertex_lanes) and helpers (the
+// shading normal, the direction about the face normal, the light sample
+// and the shadow ray's acceptance; slots 1-6 are the forward's 0-5, draw6),
+// and only its weights and edges are its own.  The primary ray is the
+// forward's too (made in the kernel in camera mode, under the extraction's
+// camera key), and -fmad=false holds, so the plain PyTorch version
+// (inverse_kernel.py) takes the same branches.
 //
 // The sinks.  Each edge's quantities are [w, w*f0, w*f0*pix(3),
 // w*f0*light(3), 1], formed in float32.
@@ -54,6 +56,15 @@
 // persistent blocks whose lanes take a new ray as soon as their path ends
 // (trace_persistent): with roulette at p_rr = 0.9 a path averages about 8
 // of 16 bounces, and a warp of whole paths idles about half its lanes.
+// They take their rays from a counter shared by the launch, not from B1's
+// fixed per-warp ranges (render_common.cuh warp_rays): on fixed
+// ranges B5 took 1.269 ms against 1.170-1.179 at scene 0's first
+// extraction launch, and the global sink 3.343-3.369 against 3.066-3.091
+// at the 1298-triangle scene's (H100, PERF.md §6).  Neighbouring rays end
+// alike, so fixed ranges leave whole warps idle at the end; the counter
+// hands the last rays to whichever warp asks.  B1 keeps fixed ranges so
+// that B2 adds its sums in one order every run; the grid sinks' atomics
+// have no fixed order anyway.
 //
 // Bound.  All run closest-hit sweeps, one per segment (the primary ray, or
 // the next ray of a path that passed roulette) and one per shadow ray: f32
@@ -117,53 +128,38 @@ struct GridSink {
 
 // B6's records sink: writes each reached bounce's record rows to global
 // memory.
-struct RecordSink {
-  float* rec;
-  int n, i;
-  __device__ __forceinline__ void row(int b, int r, float v) const {
-    rec[static_cast<size_t>(b * kInvRows + r) * n + i] = v;
-  }
+struct RecordSink : RecordRows<kInvRows> {
   __device__ __forceinline__ void edge(bool, int, int, float, float, bool, V3) const {}
   __device__ __forceinline__ void record(int b, int dst, int src, bool hit, float w, bool ok,
                                          float nee_w, int e_tri) const {
-    const float v[kInvRows] = {static_cast<float>(dst), static_cast<float>(src), hit ? 1.f : 0.f,
-                               w, ok ? 1.f : 0.f, nee_w, static_cast<float>(e_tri), 0.f};
-#pragma unroll
-    for (int r = 0; r < kInvRows; ++r) row(b, r, v[r]);
-  }
-  __device__ __forceinline__ void zero_from(int b0, int max_bounces) const {
-    for (int b = b0; b < max_bounces; ++b) {
-#pragma unroll
-      for (int r = 0; r < kInvRows; ++r) row(b, r, 0.f);
-    }
+    rows(b, {static_cast<float>(dst), static_cast<float>(src), hit ? 1.f : 0.f, w, ok ? 1.f : 0.f,
+             nee_w, static_cast<float>(e_tri), 0.f});
   }
 };
 
-// One lane of the inverse bounce loop: the ray it traces and where its path
-// stands.
-struct InvLane {
+// A lane of the inverse loop: the path lane (render_common.cuh PathLane),
+// what the edge estimator adds to it, and its ray and hash, as the segment
+// draws its own uniforms (drawn before it, as B1 draws them, they cost B5
+// and B6 2-8 registers: PERF.md §6).
+struct InvLane : PathLane {
   int i;            // the ray (column of the inputs)
   uint32_t h_orig;  // the fused RNG's per-sample hash
   int b;            // the bounce of the pending segment
   int dst;          // the node the pending segment left (nT: the eye)
   float w;          // the path weight entering it
-  Hit cur;          // its closest hit
-  V3 point;         // and the hit point
-  float segs, shadows;
 };
 
-// The lane of ray i before its primary sweep; *o and *dir are the primary
-// ray (render_common.cuh fresh_lane: read, or made in camera mode).
-__device__ __forceinline__ InvLane start_lane(const TraceParams& P, int i, V3* o, V3* dir) {
-  *o = ray_origin(P, i);
+// Ray i's lane before its primary sweep: the eye, weight 1, at the
+// primary ray's origin; *dir is its direction (render_common.cuh
+// fresh_lane: read, or made in camera mode).
+__device__ __forceinline__ InvLane start_lane(const TraceParams& P, int i, V3* dir) {
   *dir = primary_dir(P, i);
-  InvLane L;
+  InvLane L{};
+  L.point = ray_origin(P, i);
   L.i = i;
   L.h_orig = hash_orig(P, i);
-  L.b = 0;
   L.dst = P.n_tri;
   L.w = 1.f;
-  L.segs = L.shadows = 0.f;
   return L;
 }
 
@@ -171,12 +167,10 @@ __device__ __forceinline__ InvLane start_lane(const TraceParams& P, int i, V3* o
 // in two parts on either side of the shadow ray's sweep (segment_lanes runs
 // them): its edges to sink.edge, its record to sink.record.  What a segment
 // carries across the sweep:
-struct Segment {
-  V3 shade_n, next_dir, to_light;
-  float w_next, cos_theta;
-  int e;
+struct Segment : ShadowRay {
+  V3 next_dir;
+  float w_next;
   bool cont;
-  bool shadow;  // a shadow ray from point along to_light (emitter e) is to be swept
 };
 
 // The part of the segment before the shadow ray's sweep: the escape,
@@ -185,63 +179,27 @@ struct Segment {
 template <class Sink>
 __device__ __forceinline__ bool segment_begin(const TraceParams& P, const Tables& T, InvLane& L,
                                               const Sink& sink, Segment& s) {
-  const int b = L.b;
-  float u[7];
-#pragma unroll
-  for (int k = 0; k < 7; ++k) {
-    if (P.fused) {
-      const uint32_t ctr = static_cast<uint32_t>(b * 8 + k);
-      u[k] = unit_from_bits(fmix32((L.h_orig + ctr * kGolden) ^ P.k1));
-    } else {
-      u[k] = P.uniforms[static_cast<size_t>(b * 8 + k) * P.n + L.i];
-    }
-  }
+  float u[6];  // slots 1-6
+  draw6(P, L.i, L.h_orig, L.b, L.b, u, 1);
   L.segs += 1.f;
   const float w = L.w;
   const int dst = L.dst;
-  const V3 point = L.point;
-  if (!is_hit(L.cur)) {
-    sink.record(b, dst, 0, false, w, false, 0.f, 0);
+  if (!L.hit) {
+    sink.record(L.b, dst, 0, false, w, false, 0.f, 0);
     return false;
   }
-  const int src = L.cur.idx;
+  const int src = L.idx;
   const V3 face_n = ld3(T.table + kTableStride * src + 7);
-  s.shade_n = P.has_vn
-      ? smooth_at(point, T.vtab + kVtabStride * src, T.vtab + kVtabStride * src + 9,
-                  T.vtab[kVtabStride * src + 18])
-      : face_n;
+  const V3 shade_n = shading_normal(P, T, src, L.point, face_n);
   // The indirect edge, before the roulette test (inv_path_trace.cu:128).
   sink.edge(true, dst, src, w, w, false, zero3());
 
-  s.cont = u[4] < P.p_rr;
-  const float phi = P.two_pi * u[5];
-  const float cos_t = sqrtf(u[6]);
-  const float sin_t = sqrtf(fmaxf(1.f - cos_t * cos_t, 0.f));
-  s.next_dir = normalize3(rotate_z_to(face_n, v3(sin_t * cosf(phi), sin_t * sinf(phi), cos_t)));
-  const float cosine = dot3(s.next_dir, s.shade_n);
+  s.cont = u[3] < P.p_rr;
+  s.next_dir = dir_about(face_n, P.two_pi * u[4], sqrtf(u[5]));
+  const float cosine = dot3(s.next_dir, shade_n);
   s.w_next = w * cosine * P.cos_scale;  // / pdf (1/pi) / p_rr
 
-  s.shadow = P.n_emissive > 0;
-  if (s.shadow) {
-    L.shadows += 1.f;
-    int e = P.n_emissive - 1;  // u past cdf[-1] clamps to the last emitter
-    for (int k = 0; k < P.n_emissive; ++k) {
-      if (T.cdf[k] >= u[1]) {
-        e = k;
-        break;
-      }
-    }
-    s.e = e;
-    const float* er = T.etab + P.etab_stride * e;
-    const float sq = sqrtf(u[2]);
-    const float r2 = u[3];
-    const V3 v0 = ld3(er), v1 = ld3(er + 3), v2 = ld3(er + 6);
-    const V3 emm = v3((1.f - sq) * v0.x + sq * (1.f - r2) * v1.x + r2 * sq * v2.x,
-                      (1.f - sq) * v0.y + sq * (1.f - r2) * v1.y + r2 * sq * v2.y,
-                      (1.f - sq) * v0.z + sq * (1.f - r2) * v1.z + r2 * sq * v2.z);
-    s.to_light = normalize3(emm - point);
-    s.cos_theta = dot3(s.shade_n, s.to_light);
-  }
+  if (sample_light(P, T, L.point, shade_n, u, s)) L.shadows += 1.f;
   return true;
 }
 
@@ -253,19 +211,15 @@ template <class Sink>
 __device__ __forceinline__ bool segment_end(const TraceParams& P, const Tables& T, InvLane& L,
                                             const Sink& sink, const Segment& s, Hit sh,
                                             V3* next_dir_out) {
-  const int src = L.cur.idx;
+  const int src = L.idx;
   bool ok = false;
   float nee_w = 0.f;
   int e_tri = 0;
   if (s.shadow) {
     const float* er = T.etab + P.etab_stride * s.e;
     e_tri = static_cast<int>(er[15]);
-    ok = s.cos_theta >= 0.f && is_hit(sh);
-    const V3 light_n = P.has_vn
-        ? smooth_at(hit_point(L.point, s.to_light, sh), er, er + 17, er[26])
-        : ld3(er + 12);
-    const float cos_theta_p = -dot3(light_n, s.to_light);
-    ok = ok && cos_theta_p >= 0.f && sh.idx == e_tri;
+    float cos_theta_p;
+    ok = light_reached(P, er, L.point, s, sh, &cos_theta_p);
     if (ok) nee_w = L.w * s.cos_theta * cos_theta_p / (sh.t * sh.t) / er[16];
     sink.edge(ok, src, e_tri, nee_w, nee_w * P.inv_pi, true, ld3(er + 9));
   }
@@ -280,37 +234,14 @@ __device__ __forceinline__ bool segment_end(const TraceParams& P, const Tables& 
 }
 
 // The segment of the lanes where `live`; every lane of the warp calls it
-// together.  On clustered tables the shadow rays are swept together
-// (render_common.cuh intersect_lanes); elsewhere each lane runs its
-// segment alone, as bounce_lanes does.  Returns segment_end's answer where
-// `live`, else false.
+// together (render_common.cuh vertex_lanes).  Returns segment_end's answer
+// where `live`, else false.
 template <bool kClustered, class Sink>
 __device__ __forceinline__ bool segment_lanes(const TraceParams& P, const Tables& T, InvLane& L,
                                               bool live, const Sink& sink, V3* next_dir_out) {
-  Segment s{};
-  if constexpr (!kClustered) {  // the lanes need not meet
-    if (!live || !segment_begin(P, T, L, sink, s)) return false;
-    return segment_end(P, T, L, sink, s,
-                       intersect_lanes<kClustered>(P, T, L.point, s.to_light, s.shadow),
-                       next_dir_out);
-  } else {
-    const bool lit = live && segment_begin(P, T, L, sink, s);
-    __syncwarp();
-    const Hit sh = intersect_lanes<kClustered>(P, T, L.point, s.to_light, lit && s.shadow);
-    return lit && segment_end(P, T, L, sink, s, sh, next_dir_out);
-  }
-}
-
-// The closest hit of the pending segment of the lanes where `active`,
-// along dir from o; every lane of the warp calls it together.
-template <bool kClustered>
-__device__ __forceinline__ void sweep_segments(const TraceParams& P, const Tables& T, InvLane& L,
-                                               V3 o, V3 dir, bool active) {
-  const Hit h = intersect_lanes<kClustered>(P, T, o, dir, active);
-  if (active) {
-    L.cur = h;
-    L.point = hit_point(o, dir, h);
-  }
+  return vertex_lanes<kClustered, Segment>(
+      P, T, L.point, live, [&](Segment& s) { return segment_begin(P, T, L, sink, s); },
+      [&](const Segment& s, Hit sh) { return segment_end(P, T, L, sink, s, sh, next_dir_out); });
 }
 
 // The whole path of ray i where `in` (B6's records sink): every lane of the
@@ -322,16 +253,16 @@ __device__ __forceinline__ int trace_inverse(const TraceParams& P, const Tables&
                                              const Sink& sink, float* stats) {
   const bool live = in && lane_alive(P, i);
   if (in && !live) stats[i] = stats[P.n + i] = 0.f;
-  V3 o = zero3(), dir = zero3();
   InvLane L{};
-  if (live) L = start_lane(P, i, &o, &dir);
+  V3 dir = zero3();
+  if (live) L = start_lane(P, i, &dir);
   __syncwarp();
-  sweep_segments<kClustered>(P, T, L, o, dir, live);
+  sweep_lanes<kClustered>(P, T, L, L.point, dir, live);
   bool go = live;
   while (__any_sync(kAllLanes, go)) {
     go = segment_lanes<kClustered>(P, T, L, go, sink, &dir);
     __syncwarp();
-    sweep_segments<kClustered>(P, T, L, L.point, dir, go);
+    sweep_lanes<kClustered>(P, T, L, L.point, dir, go);
   }
   if (!live) return 0;
   stats[i] = L.segs;
@@ -353,17 +284,17 @@ __device__ __forceinline__ V3 lane_pix(const TraceParams& P, const float* pix, i
 // each lane traces rays until the launch has none left, and a lane whose
 // path ends takes the next unstarted ray, so that a warp's lanes stay busy
 // under roulette.  A warp takes rays 32 at a time from the launch's counter
-// `next_ray` (one atomicAdd per 32 rays) and hands them out in lane order
-// to the lanes that ask (__ballot_sync).  Each round is one segment of
-// every lane: its edges and shadow sweep, then one sweep, of its next
-// segment or of its new ray's primary ray.  A ray's arithmetic and its
-// counts are those of trace_inverse.  `sink` is copied per lane and takes
-// the pixel colour of the lane's ray.
+// `next_ray` (one atomicAdd per 32 rays; the header says why not
+// warp_rays) and hands them out in lane order to the lanes that ask
+// (__ballot_sync).  Each round is one segment of every lane: its edges and
+// shadow sweep, then one sweep, of its next segment or of its new ray's
+// primary ray.  A ray's arithmetic and its counts are those of
+// trace_inverse.  `sink` is copied per lane and takes the pixel colour of
+// the lane's ray.
 template <bool kClustered, class Sink>
 __device__ __forceinline__ void trace_persistent(const TraceParams& P, const Tables& T,
                                                  const float* pix, float* stats, int* next_ray,
                                                  Sink sink) {
-  constexpr unsigned kAll = 0xffffffffu;
   const int n = P.n;
   const int lane = threadIdx.x & 31;
   const unsigned below = (1u << lane) - 1u;
@@ -383,14 +314,14 @@ __device__ __forceinline__ void trace_persistent(const TraceParams& P, const Tab
         has = false;
       }
     }
-    const unsigned need = __ballot_sync(kAll, !has && more);
+    const unsigned need = __ballot_sync(kAllLanes, !has && more);
     if (need != 0u) {
       const int k = __popc(need);
       int fresh = 0;
       if (k > pool_left) {
         const int leader = __ffs(need) - 1;
         if (lane == leader) fresh = atomicAdd(next_ray, 32);
-        fresh = __shfl_sync(kAll, fresh, leader);
+        fresh = __shfl_sync(kAllLanes, fresh, leader);
       }
       if (!has && more) {
         const int r = __popc(need & below);
@@ -400,7 +331,8 @@ __device__ __forceinline__ void trace_persistent(const TraceParams& P, const Tab
         } else if (!lane_alive(P, i)) {
           stats[i] = stats[n + i] = 0.f;
         } else {
-          L = start_lane(P, i, &o, &dir);
+          L = start_lane(P, i, &dir);
+          o = L.point;
           sink.pix = lane_pix(P, pix, i);
           has = sweep = true;
         }
@@ -413,8 +345,8 @@ __device__ __forceinline__ void trace_persistent(const TraceParams& P, const Tab
         pool_left -= k;
       }
     }
-    if (!__any_sync(kAll, has || more)) break;
-    sweep_segments<kClustered>(P, T, L, o, dir, sweep);
+    if (!__any_sync(kAllLanes, has || more)) break;
+    sweep_lanes<kClustered>(P, T, L, o, dir, sweep);
   }
 }
 

@@ -325,7 +325,12 @@ def inverse_tile_rec_plain(scene, cfg, p=None, d=None, alive=None, uniforms=None
     camera mode the rays are the plain camera_rays'."""
     _check_inverse(cfg, scene, p, d, alive, uniforms, orig, keys, camera)
     p, d, alive, orig = _ray_inputs(scene, cfg, p, d, alive, orig, camera)
-    view = kernel_view(scene, cfg)
+    return _records_plain(kernel_view(scene, cfg), cfg, p, d, alive, uniforms, orig, keys)
+
+
+def _records_plain(view, cfg, p, d, alive, uniforms, orig, keys):
+    """inverse_tile_rec_plain's loop on the rays (p, d, alive, orig) and the
+    kernels' view of the scene."""
     scene = view.scene
     n, nt = p.shape[1], scene.n_tri
     h_orig = rng.hash_orig(keys, orig[0]) if keys is not None else None
@@ -399,8 +404,8 @@ def inverse_tile_plain(scene, cfg, p=None, d=None, alive=None, pix=None, uniform
     _pixels(cfg, scene, n, pix, image, camera)
     p, d, alive, orig = _ray_inputs(scene, cfg, p, d, alive, orig, camera)
     pix = _plain_pixels(cfg, camera, pix, image)
-    rec, stats = inverse_tile_rec_plain(scene, cfg, p, d, alive, uniforms, orig, keys)
     view = kernel_view(scene, cfg)
+    rec, stats = _records_plain(view, cfg, p, d, alive, uniforms, orig, keys)
     if kernel_order:
         return grids_from_edge_records(rec, pix.T, view.scene, cfg), stats
     return grids_from_edge_records(rec, pix.T, scene, cfg, view.perm).float(), stats

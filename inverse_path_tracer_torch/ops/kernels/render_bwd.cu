@@ -323,7 +323,7 @@ __global__ void __launch_bounds__(kThreads, kSweep == kSweepDense ? 0 : 2)
       }
     }
     if (w.next >= w.end && !__any_sync(kAllLanes, has)) break;
-    sweep_lanes<kSweep>(P, T, L, L.point, sweep);
+    sweep_lanes<kSweep>(P, T, L, L.point, L.dir, sweep);
   }
   __syncthreads();
   write_partial(acc, P.n_tri, partials);

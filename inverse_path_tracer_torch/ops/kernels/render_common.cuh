@@ -1,19 +1,19 @@
 // Device code shared by render_fwd.cu (B1, B3, B7, B8, B10),
 // render_bwd.cu (B2, B4, B9) and inverse.cu (B5, B6): the vector helpers,
 // the counter-hash RNG, the closest-hit sweep with its clustered form
-// (B10), the shading helpers and the bounce loop of one ray as a lane state
-// (Lane), a sweep step (sweep_lanes) and a bounce step (bounce_lanes), and
-// the persistent schedules: regenerating lanes (warp_rays: B1, B2, B3) and
-// fixed chunk ranges (warp_chunks: B7, B9).
+// (B10), the shading helpers, the lane state of a path (PathLane, Lane), a
+// sweep step (sweep_lanes), a path-vertex step (vertex_lanes) with B1's
+// bounce (bounce_lanes), and the persistent schedules: regenerating lanes
+// (warp_rays: B1, B2, B3) and fixed chunk ranges (warp_chunks: B7, B9).
 //
 // The regenerating loops of B1, B2 and B3 (warp_rays below) and the stage
 // kernel run the same steps, templated on a record sink, so that B1 (no
 // records), B3 and B8 (records to global memory) and B2 (records in a
-// per-thread ring) run one copy of the arithmetic.  Every
-// file that includes this header is built with -fmad=false (build.py), so
-// B2's replay takes exactly the branches of B1's forward, a staged render
-// equals a mega one lane for lane, and all of them round exactly as the
-// plain PyTorch versions do.
+// per-thread ring) run one copy of the arithmetic (inverse.cu's loops too,
+// with their own weights).  Every file that includes this header is built
+// with -fmad=false (build.py), so B2's replay takes exactly the branches of
+// B1's forward, a staged render equals a mega one lane for lane, and all of
+// them round exactly as the plain PyTorch versions do.
 //
 // Records: kRecRows rows per bounce, row-major (slots * kRecRows, n),
 // lane-contiguous so that stores and loads coalesce.  The rows of bounce b
@@ -822,36 +822,48 @@ struct NoRecords {
   __device__ __forceinline__ void put(int, V3, V3, V3, V3, float, int, bool, bool) {}
 };
 
-// Writes records to global memory in the (max_bounces * kRecRows, n) layout.
-struct GlobalRecords {
+// Lane i's column of per-bounce records of kRows rows in global memory,
+// (max_bounces * kRows, n): rows() stores bounce b's, zero_from() zeroes
+// the slots of the bounces the ray never reached.
+template <int kRows>
+struct RecordRows {
   float* rec;
   int n, i;
   __device__ __forceinline__ void row(int b, int r, float v) const {
-    rec[static_cast<size_t>(b * kRecRows + r) * n + i] = v;
+    rec[static_cast<size_t>(b * kRows + r) * n + i] = v;
   }
-  __device__ __forceinline__ void put(int b, V3 f, V3 c, V3 nee, V3 pm, float coeff, int tri,
-                                      bool hit, bool esc) const {
-    const float v[kRecRows] = {f.x,  f.y,  f.z,  c.x,   c.y,                     c.z,
-                               nee.x, nee.y, nee.z, pm.x, pm.y,                    pm.z,
-                               coeff, static_cast<float>(tri), hit ? 1.f : 0.f, esc ? 1.f : 0.f};
+  __device__ __forceinline__ void rows(int b, const float (&v)[kRows]) const {
 #pragma unroll
-    for (int r = 0; r < kRecRows; ++r) row(b, r, v[r]);
+    for (int r = 0; r < kRows; ++r) row(b, r, v[r]);
   }
-  // Zeroes the slots of the bounces the ray never reached.
   __device__ __forceinline__ void zero_from(int b0, int max_bounces) const {
     for (int b = b0; b < max_bounces; ++b) {
 #pragma unroll
-      for (int r = 0; r < kRecRows; ++r) row(b, r, 0.f);
+      for (int r = 0; r < kRows; ++r) row(b, r, 0.f);
     }
   }
 };
 
-// The state of one lane of the bounce loop (the carry's rows).
-struct Lane {
-  V3 dir, point, l_e, l_d, pm, rad;
+// Writes records to global memory in the (max_bounces * kRecRows, n) layout.
+struct GlobalRecords : RecordRows<kRecRows> {
+  __device__ __forceinline__ void put(int b, V3 f, V3 c, V3 nee, V3 pm, float coeff, int tri,
+                                      bool hit, bool esc) const {
+    rows(b, {f.x, f.y, f.z, c.x, c.y, c.z, nee.x, nee.y, nee.z, pm.x, pm.y, pm.z, coeff,
+             static_cast<float>(tri), hit ? 1.f : 0.f, esc ? 1.f : 0.f});
+  }
+};
+
+// What every path loop keeps of a lane.
+struct PathLane {
+  V3 point;  // the pending ray's origin, then its hit point
   float segs, shadows;
-  int idx;     // the pending ray's hit triangle (0 on a miss)
-  bool hit;    // the pending ray hit
+  int idx;   // the pending ray's hit triangle (0 on a miss)
+  bool hit;  // the pending ray hit
+};
+
+// The state of one lane of the forward's bounce loop (the carry's rows).
+struct Lane : PathLane {
+  V3 dir, l_e, l_d, pm, rad;
   bool alive;
 };
 
@@ -959,17 +971,17 @@ __device__ __forceinline__ V3 ray_origin(const TraceParams& P, int i) {
   return P.camera ? zero3() : v3(P.p[i], P.p[P.n + i], P.p[2 * P.n + i]);
 }
 
-// The pending ray's closest hit, from origin o along L.dir, of the lanes
+// The pending ray's closest hit, from origin o along dir, of the lanes
 // where `active`; every lane of the warp calls it together
 // (intersect_lanes).
 template <int kSweep>
-__device__ __forceinline__ void sweep_lanes(const TraceParams& P, const Tables& T, Lane& L, V3 o,
-                                            bool active) {
-  const Hit h = intersect_lanes<kSweep>(P, T, o, L.dir, active);
+__device__ __forceinline__ void sweep_lanes(const TraceParams& P, const Tables& T, PathLane& L,
+                                            V3 o, V3 dir, bool active) {
+  const Hit h = intersect_lanes<kSweep>(P, T, o, dir, active);
   if (active) {
     L.hit = is_hit(h);
     L.idx = h.idx;
-    L.point = hit_point(o, L.dir, h);
+    L.point = hit_point(o, dir, h);
   }
 }
 
@@ -980,18 +992,105 @@ __device__ __forceinline__ uint32_t hash_orig(const TraceParams& P, int i) {
   return fmix32(g ^ P.k0);
 }
 
-// Slots 0-5 of the uniforms of global bounce b_global: the fused hash of
-// (sample, b_global, slot), or row b_local*8 + slot of P.uniforms.
+// Slots first..first+5 of the uniforms of global bounce b_global: the
+// fused hash of (sample, b_global, slot), or row b_local*8 + slot of
+// P.uniforms: [light pick, r1, r2, roulette, phi, theta] from 0 in the
+// forward, from 1 in the extraction (whose slot 0 is never read).
 __device__ __forceinline__ void draw6(const TraceParams& P, int i, uint32_t h_orig, int b_global,
-                                      int b_local, float u[6]) {
+                                      int b_local, float u[6], int first = 0) {
 #pragma unroll
   for (int s = 0; s < 6; ++s) {
     if (P.fused) {
-      const uint32_t ctr = static_cast<uint32_t>(b_global * 8 + s);
+      const uint32_t ctr = static_cast<uint32_t>(b_global * 8 + first + s);
       u[s] = unit_from_bits(fmix32((h_orig + ctr * kGolden) ^ P.k1));
     } else {
-      u[s] = P.uniforms[static_cast<size_t>(b_local * 8 + s) * P.n + i];
+      u[s] = P.uniforms[static_cast<size_t>(b_local * 8 + first + s) * P.n + i];
     }
+  }
+}
+
+// The shading normal of triangle idx at `point`: the barycentric one on
+// vertex-normal tables, the face normal face_n otherwise.
+__device__ __forceinline__ V3 shading_normal(const TraceParams& P, const Tables& T, int idx,
+                                             V3 point, V3 face_n) {
+  return P.has_vn ? smooth_at(point, T.vtab + kVtabStride * idx, T.vtab + kVtabStride * idx + 9,
+                              T.vtab[kVtabStride * idx + 18])
+                  : face_n;
+}
+
+// The unit direction at azimuth phi and polar cosine cos_t about the face
+// normal n.
+__device__ __forceinline__ V3 dir_about(V3 n, float phi, float cos_t) {
+  const float sin_t = sqrtf(fmaxf(1.f - cos_t * cos_t, 0.f));
+  return normalize3(rotate_z_to(n, v3(sin_t * cosf(phi), sin_t * sinf(phi), cos_t)));
+}
+
+// NEE's shadow ray, as a vertex carries it across the ray's sweep.
+struct ShadowRay {
+  V3 to_light;
+  float cos_theta;  // of to_light against the shading normal
+  int e;            // the emitter
+  bool shadow;      // a shadow ray from the vertex along to_light is to be swept
+};
+
+// NEE's light sample from `point` where the scene has emitters (returns
+// s.shadow): the emitter picked on the CDF by u[0], the point (sqrt(u[1]),
+// u[2]) on it, the direction to it and its cosine against shade_n.
+__device__ __forceinline__ bool sample_light(const TraceParams& P, const Tables& T, V3 point,
+                                             V3 shade_n, const float u[3], ShadowRay& s) {
+  s.shadow = P.n_emissive > 0;
+  if (!s.shadow) return false;
+  int e = P.n_emissive - 1;  // u past cdf[-1] clamps to the last emitter
+  for (int k = 0; k < P.n_emissive; ++k) {
+    if (T.cdf[k] >= u[0]) {
+      e = k;
+      break;
+    }
+  }
+  s.e = e;
+  const float* er = T.etab + P.etab_stride * e;
+  const float sq = sqrtf(u[1]);
+  const float r2 = u[2];
+  const V3 v0 = ld3(er), v1 = ld3(er + 3), v2 = ld3(er + 6);
+  const V3 emm = v3((1.f - sq) * v0.x + sq * (1.f - r2) * v1.x + r2 * sq * v2.x,
+                    (1.f - sq) * v0.y + sq * (1.f - r2) * v1.y + r2 * sq * v2.y,
+                    (1.f - sq) * v0.z + sq * (1.f - r2) * v1.z + r2 * sq * v2.z);
+  s.to_light = normalize3(emm - point);
+  s.cos_theta = dot3(shade_n, s.to_light);
+  return true;
+}
+
+// Whether the shadow ray s from `point`, of closest hit sh, reached its
+// emitter (row er): the light in front, a hit, the light's normal there
+// (smooth or flat) facing back (*cos_theta_p >= 0), the sampled emitter.
+__device__ __forceinline__ bool light_reached(const TraceParams& P, const float* er, V3 point,
+                                              const ShadowRay& s, Hit sh, float* cos_theta_p) {
+  const bool ok = s.cos_theta >= 0.f && is_hit(sh);
+  const V3 light_n = P.has_vn
+      ? smooth_at(hit_point(point, s.to_light, sh), er, er + 17, er[26])
+      : ld3(er + 12);
+  *cos_theta_p = -dot3(light_n, s.to_light);
+  return ok && *cos_theta_p >= 0.f && sh.idx == static_cast<int>(er[15]);
+}
+
+// A path vertex of the lanes where `live`: begin(s), false where the path
+// ends there, then end(s, the hit of its shadow ray from `point`, swept
+// where s.shadow); every lane of the warp calls it.  On clustered tables
+// the shadow rays are swept together (intersect_lanes); elsewhere each lane
+// runs alone, which keeps the dense and BVH B1 in 80 registers (PERF.md
+// §6).  Returns end's answer where `live`, else false.
+template <int kSweep, class S, class Begin, class End>
+__device__ __forceinline__ bool vertex_lanes(const TraceParams& P, const Tables& T, const V3& point,
+                                             bool live, Begin begin, End end) {
+  S s{};
+  if constexpr (kSweep != kSweepClustered) {  // the lanes need not meet
+    if (!live || !begin(s)) return false;
+    return end(s, intersect_lanes<kSweep>(P, T, point, s.to_light, s.shadow));
+  } else {
+    const bool lit = live && begin(s);
+    __syncwarp();
+    const Hit sh = intersect_lanes<kSweep>(P, T, point, s.to_light, lit && s.shadow);
+    return lit && end(s, sh);
   }
 }
 
@@ -1004,12 +1103,10 @@ __device__ __forceinline__ void draw6(const TraceParams& P, int i, uint32_t h_or
 // goes on keeps its hit point in L.point as the next ray's origin, and the
 // caller sweeps the next ray (sweep_lanes) where it needs the hit.  What a
 // bounce carries across the shadow ray's sweep:
-struct Bounce {
-  V3 shade_n, next_dir, to_light;
-  float cos_t, cosine, cos_theta;
-  int e;
+struct Bounce : ShadowRay {
+  V3 shade_n, next_dir;
+  float cos_t, cosine;
   bool cont, is_spec;
-  bool shadow;  // a shadow ray from point along to_light (emitter e) is to be swept
 };
 
 // The part of the bounce before the shadow ray's sweep: the escape, which
@@ -1038,10 +1135,7 @@ __device__ __forceinline__ bool bounce_begin(const TraceParams& P, const Tables&
   const V3 spec = ld3(row + 3);
   const float shin = row[6];
   const V3 face_n = ld3(row + 7);
-  s.shade_n = P.has_vn
-      ? smooth_at(point, T.vtab + kVtabStride * idx, T.vtab + kVtabStride * idx + 9,
-                  T.vtab[kVtabStride * idx + 18])
-      : face_n;
+  s.shade_n = shading_normal(P, T, idx, point, face_n);
   // Q1: first-hit emission is kept and re-added every bounce.
   if (b == 0) {
     L.l_e = emission;
@@ -1059,33 +1153,11 @@ __device__ __forceinline__ bool bounce_begin(const TraceParams& P, const Tables&
     s.is_spec = (spec.x != 0.f || spec.y != 0.f || spec.z != 0.f) && shin != 0.f;
     s.cos_t = powf(u[5], s.is_spec ? 1.f / (shin + 1.f) : 0.5f);
   }
-  const float cos_t = s.cos_t;
-  const float sin_t = sqrtf(fmaxf(1.f - cos_t * cos_t, 0.f));
-  s.next_dir = normalize3(rotate_z_to(face_n, v3(sin_t * cosf(phi), sin_t * sinf(phi), cos_t)));
+  s.next_dir = dir_about(face_n, phi, s.cos_t);
   s.cosine = dot3(s.next_dir, s.shade_n);
 
   // Next-event estimation; the shadow ray and the next ray share `point`.
-  s.shadow = P.n_emissive > 0;
-  if (s.shadow) {
-    L.shadows += 1.f;
-    int e = P.n_emissive - 1;  // u past cdf[-1] clamps to the last emitter
-    for (int k = 0; k < P.n_emissive; ++k) {
-      if (T.cdf[k] >= u[0]) {
-        e = k;
-        break;
-      }
-    }
-    s.e = e;
-    const float* er = T.etab + P.etab_stride * e;
-    const float sq = sqrtf(u[1]);
-    const float r2 = u[2];
-    const V3 v0 = ld3(er), v1 = ld3(er + 3), v2 = ld3(er + 6);
-    const V3 emm = v3((1.f - sq) * v0.x + sq * (1.f - r2) * v1.x + r2 * sq * v2.x,
-                      (1.f - sq) * v0.y + sq * (1.f - r2) * v1.y + r2 * sq * v2.y,
-                      (1.f - sq) * v0.z + sq * (1.f - r2) * v1.z + r2 * sq * v2.z);
-    s.to_light = normalize3(emm - point);
-    s.cos_theta = dot3(s.shade_n, s.to_light);
-  }
+  if (sample_light(P, T, point, s.shade_n, u, s)) L.shadows += 1.f;
   return true;
 }
 
@@ -1105,13 +1177,8 @@ __device__ __forceinline__ bool bounce_end(const TraceParams& P, const Tables& T
   V3 l_d_fresh = zero3();
   if (s.shadow) {
     const float* er = T.etab + P.etab_stride * s.e;
-    bool ok = s.cos_theta >= 0.f && is_hit(sh);
-    const V3 light_n = P.has_vn
-        ? smooth_at(hit_point(L.point, s.to_light, sh), er, er + 17, er[26])
-        : ld3(er + 12);
-    const float cos_theta_p = -dot3(light_n, s.to_light);
-    ok = ok && cos_theta_p >= 0.f && static_cast<float>(sh.idx) == er[15];
-    if (ok) {
+    float cos_theta_p;
+    if (light_reached(P, er, L.point, s, sh, &cos_theta_p)) {
       const float geo = s.cos_theta * cos_theta_p / (sh.t * sh.t) / er[16];
       V3 bsdf_direct = kd;
       if (!P.no_spec)
@@ -1148,25 +1215,17 @@ __device__ __forceinline__ bool bounce_end(const TraceParams& P, const Tables& T
 }
 
 // The bounce of the lanes where `live` (u read there); every lane of the
-// warp calls it together.  On clustered tables the shadow rays are swept
-// together (intersect_lanes); elsewhere each lane runs its bounce alone,
-// which keeps the dense and BVH instances in 80 registers (PERF.md §6,
-// PR 20).  Returns L.alive where `live`, else false.
+// warp calls it together (vertex_lanes).  Returns L.alive where `live`,
+// else false.  b and slot are captured by value: by reference, B3's
+// clustered instance took one register more (PERF.md §6).
 template <int kSweep, class Sink>
 __device__ __forceinline__ bool bounce_lanes(const TraceParams& P, const Tables& T, Lane& L,
                                              bool live, int b, const float u[6], Sink& sink,
                                              int slot) {
-  Bounce s{};
-  if constexpr (kSweep != kSweepClustered) {  // the lanes need not meet
-    if (!live || !bounce_begin(P, T, L, b, u, sink, slot, s)) return false;
-    return bounce_end(P, T, L, sink, slot, s,
-                      intersect_lanes<kSweep>(P, T, L.point, s.to_light, s.shadow));
-  } else {
-    const bool lit = live && bounce_begin(P, T, L, b, u, sink, slot, s);
-    __syncwarp();
-    const Hit sh = intersect_lanes<kSweep>(P, T, L.point, s.to_light, lit && s.shadow);
-    return lit && bounce_end(P, T, L, sink, slot, s, sh);
-  }
+  return vertex_lanes<kSweep, Bounce>(
+      P, T, L.point, live,
+      [&, b, slot](Bounce& s) { return bounce_begin(P, T, L, b, u, sink, slot, s); },
+      [&, slot](const Bounce& s, Hit sh) { return bounce_end(P, T, L, sink, slot, s, sh); });
 }
 
 // --- The regenerating schedule (B1, B2, B3) ------------------------------

@@ -162,7 +162,7 @@ __global__ void __launch_bounds__(kThreads, min_blocks(kSweep))
       }
     }
     if (w.next >= w.end && !__any_sync(kAllLanes, has)) break;
-    sweep_lanes<kSweep>(P, T, L, L.point, sweep);
+    sweep_lanes<kSweep>(P, T, L, L.point, L.dir, sweep);
   }
 }
 
@@ -226,7 +226,7 @@ __device__ __forceinline__ void stage_lanes(const TraceParams& P, const Tables& 
     }
     const bool sweep = bounce_lanes<kSweep>(P, T, L, live, start + b, u, sink, b);
     __syncwarp();
-    sweep_lanes<kSweep>(P, T, L, L.point, sweep);
+    sweep_lanes<kSweep>(P, T, L, L.point, L.dir, sweep);
   }
   if (in) {
     if constexpr (kRecords) sink.zero_from(reached, k);

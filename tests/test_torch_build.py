@@ -9,6 +9,8 @@ import shutil
 
 import pytest
 
+import torch_threads  # noqa: F401
+
 from inverse_path_tracer_torch.ops.kernels import build
 
 

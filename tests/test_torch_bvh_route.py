@@ -36,6 +36,8 @@ from inverse_path_tracer_tpu.render import forward as jfwd
 from inverse_path_tracer_tpu.scene.build import build_scene as jax_build_scene
 from inverse_path_tracer_tpu.scene.dsl import ObjectParams as JaxObject
 
+import torch_threads  # noqa: F401
+
 from inverse_path_tracer_torch import (
     ASSET_ROOT,
     RenderConfig,

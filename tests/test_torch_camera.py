@@ -14,6 +14,8 @@ import numpy as np
 import pytest
 import torch
 
+import torch_threads  # noqa: F401
+
 from inverse_path_tracer_torch import (
     ASSET_ROOT,
     RenderConfig,

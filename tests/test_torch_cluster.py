@@ -39,6 +39,8 @@ from inverse_path_tracer_tpu.ops.pallas import render_kernel as jrk
 from inverse_path_tracer_tpu.scene.build import build_scene as jax_build_scene
 from inverse_path_tracer_tpu.scene.dsl import ObjectParams as JaxObject
 
+import torch_threads  # noqa: F401
+
 from inverse_path_tracer_torch import ASSET_ROOT, RenderConfig, scene_from_numpy
 from inverse_path_tracer_torch.assets import SPHERE_RINGS, SPHERE_SEGMENTS, large_scene
 from inverse_path_tracer_torch.assets.make_fixture import sphere_obj_text

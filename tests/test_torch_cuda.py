@@ -24,6 +24,8 @@ import os
 import pytest
 import torch
 
+import torch_threads  # noqa: F401
+
 from inverse_path_tracer_torch import ASSET_ROOT, RenderConfig, load_scene, render_samples
 from inverse_path_tracer_torch.ops import rng
 from inverse_path_tracer_torch.ops.kernels.render_kernel import (

@@ -46,6 +46,8 @@ from inverse_path_tracer_tpu.render.forward import camera_rays as jax_camera_ray
 from inverse_path_tracer_tpu.render.forward import render_image as jax_render_image
 from inverse_path_tracer_tpu.render.inverse import extract_graph as jax_extract_graph
 
+import torch_threads  # noqa: F401
+
 import inverse_path_tracer_torch.models.recover as recover_mod
 from inverse_path_tracer_torch import ASSET_ROOT, RenderConfig, extract_graph, load_scene, \
     recover_materials_batched, render_image

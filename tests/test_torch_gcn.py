@@ -23,6 +23,8 @@ import torch
 
 from inverse_path_tracer_tpu.models import gcn as jgcn
 
+import torch_threads  # noqa: F401
+
 from inverse_path_tracer_torch import (
     ASSET_ROOT,
     GCN,

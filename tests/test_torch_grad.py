@@ -23,6 +23,8 @@ import torch
 import inverse_path_tracer_tpu as jipt
 from inverse_path_tracer_tpu.render import forward as jfwd
 
+import torch_threads  # noqa: F401
+
 from inverse_path_tracer_torch import (
     ASSET_ROOT,
     RenderConfig,

@@ -32,6 +32,8 @@ from inverse_path_tracer_tpu.ops.pallas.render_kernel import (
 )
 from inverse_path_tracer_tpu.render.forward import _pallas_keys
 
+import torch_threads  # noqa: F401
+
 from inverse_path_tracer_torch import RenderConfig, scene_from_numpy
 from inverse_path_tracer_torch.ops import rng
 from inverse_path_tracer_torch.ops.kernels.render_kernel import (

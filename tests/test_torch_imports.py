@@ -10,6 +10,8 @@ import sys
 
 import pytest
 
+import torch_threads  # noqa: F401
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(REPO, "inverse_path_tracer_torch")
 FORBIDDEN = ("jax", "jaxlib", "inverse_path_tracer_tpu", "PIL")

@@ -30,6 +30,8 @@ import inverse_path_tracer_tpu as jipt
 from inverse_path_tracer_tpu.render import inverse as jinv
 from inverse_path_tracer_tpu.render.forward import camera_rays as jax_camera_rays
 
+import torch_threads  # noqa: F401
+
 from inverse_path_tracer_torch import ASSET_ROOT, RenderConfig, scene_from_numpy
 from inverse_path_tracer_torch.assets.make_fixture import sphere_obj_text
 from inverse_path_tracer_torch.ops import rng

@@ -36,6 +36,8 @@ from inverse_path_tracer_tpu.ops.pallas import inverse_kernel as jik
 from inverse_path_tracer_tpu.render.forward import _pallas_keys
 from inverse_path_tracer_tpu.render.inverse import _grids_from_edge_records
 
+import torch_threads  # noqa: F401
+
 from inverse_path_tracer_torch import ASSET_ROOT, RenderConfig, scene_from_numpy
 from inverse_path_tracer_torch.ops import rng
 from inverse_path_tracer_torch.ops.kernels.inverse_kernel import (

@@ -11,6 +11,8 @@ import inspect
 
 import numpy as np
 
+import torch_threads  # noqa: F401
+
 from inverse_path_tracer_torch import ASSET_ROOT, RenderConfig, generate_files, load_scene
 from inverse_path_tracer_torch.data import pipeline
 from inverse_path_tracer_torch.data.pipeline import target_key

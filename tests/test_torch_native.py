@@ -21,6 +21,8 @@ import torch
 from inverse_path_tracer_tpu.ops import bvh as jbvh
 from inverse_path_tracer_tpu.scene.build import load_scene as jax_load_scene
 
+import torch_threads  # noqa: F401
+
 from inverse_path_tracer_torch import ASSET_ROOT, large_scene, load_scene
 from inverse_path_tracer_torch.assets import SPHERE_RINGS, SPHERE_SEGMENTS
 from inverse_path_tracer_torch.assets.make_fixture import sphere_obj_text

@@ -26,6 +26,8 @@ from inverse_path_tracer_tpu.ops.pallas.render_kernel import (
 )
 from inverse_path_tracer_tpu.render.forward import _pallas_keys
 
+import torch_threads  # noqa: F401
+
 from inverse_path_tracer_torch import ASSET_ROOT, load_scene
 from inverse_path_tracer_torch.assets.make_fixture import sphere_obj_text
 from inverse_path_tracer_torch.ops import bsdf, intersect, rng, sampling, tonemap

@@ -13,6 +13,8 @@ import inverse_path_tracer_tpu as jipt
 from inverse_path_tracer_tpu.scene.dsl import load_params as j_load_params
 from inverse_path_tracer_tpu.utils import plyviz as jply
 
+import torch_threads  # noqa: F401
+
 from inverse_path_tracer_torch import ASSET_ROOT, build_scene, load_scene
 from inverse_path_tracer_torch.scene.dsl import load_params
 from inverse_path_tracer_torch.utils.plyviz import read_ply_counts, write_graph_ply, write_mesh_ply

@@ -23,6 +23,8 @@ import torch
 import inverse_path_tracer_tpu as jipt
 from inverse_path_tracer_tpu.models import recover as jrec
 
+import torch_threads  # noqa: F401
+
 from inverse_path_tracer_torch import (
     ASSET_ROOT,
     RenderConfig,

@@ -17,6 +17,8 @@ import numpy as np
 import pytest
 import torch
 
+import torch_threads  # noqa: F401
+
 from inverse_path_tracer_torch import ASSET_ROOT, RenderConfig, load_scene
 from inverse_path_tracer_torch.ops import rng
 from inverse_path_tracer_torch.ops.kernels.render_kernel import (

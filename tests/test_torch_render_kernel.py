@@ -21,6 +21,8 @@ import inverse_path_tracer_tpu as jipt
 from inverse_path_tracer_tpu.ops.pallas.render_kernel import render_tile_pallas
 from inverse_path_tracer_tpu.render.forward import _pallas_keys
 
+import torch_threads  # noqa: F401
+
 from inverse_path_tracer_torch import ASSET_ROOT, RenderConfig, scene_from_numpy
 from inverse_path_tracer_torch.ops import rng
 from inverse_path_tracer_torch.ops.kernels.render_kernel import (

@@ -15,6 +15,8 @@ import inverse_path_tracer_tpu.scene.dsl as jdsl
 from inverse_path_tracer_tpu.scene.dsl import ObjectParams as JObjectParams
 from inverse_path_tracer_tpu.scene.dsl import object_from_string as j_object_from_string
 
+import torch_threads  # noqa: F401
+
 import inverse_path_tracer_torch.scene.dsl as tdsl
 from inverse_path_tracer_torch import ASSET_ROOT, SceneData, build_scene, load_scene
 from inverse_path_tracer_torch.assets.make_fixture import sphere_obj_text

@@ -36,6 +36,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 if REPO not in sys.path:
     sys.path.insert(0, REPO)
 
+import torch_threads  # noqa: F401
+
 from inverse_path_tracer_torch import ASSET_ROOT, RenderConfig, load_scene  # noqa: E402
 from inverse_path_tracer_torch.parallel.multihost import init_distributed  # noqa: E402
 from inverse_path_tracer_torch.parallel.shard import (  # noqa: E402

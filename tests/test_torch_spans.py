@@ -20,6 +20,8 @@ import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
 
+import torch_threads  # noqa: F401
+
 from inverse_path_tracer_torch import ASSET_ROOT, RenderConfig, load_scene
 from inverse_path_tracer_torch.models.recover import batched_step, make_optimizer
 from inverse_path_tracer_torch.ops.kernels import clusters

@@ -32,6 +32,8 @@ import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
 
+import torch_threads  # noqa: F401
+
 from inverse_path_tracer_torch import ASSET_ROOT, RenderConfig, load_scene
 from inverse_path_tracer_torch.assets import large_scene
 from inverse_path_tracer_torch.ops import bvh as pbvh

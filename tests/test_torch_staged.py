@@ -45,6 +45,8 @@ from inverse_path_tracer_tpu.ops.pallas import render_kernel as jrk
 from inverse_path_tracer_tpu.render import forward as jfwd
 from inverse_path_tracer_tpu.render.inverse import _grids_from_edge_records
 
+import torch_threads  # noqa: F401
+
 from inverse_path_tracer_torch import (
     ASSET_ROOT,
     RenderConfig,

@@ -29,6 +29,8 @@ import torch
 
 from inverse_path_tracer_tpu import cli as jcli
 
+import torch_threads  # noqa: F401
+
 from inverse_path_tracer_torch import ASSET_ROOT, cli, load_scene
 from inverse_path_tracer_torch.utils.plyviz import read_ply_counts
 from inverse_path_tracer_torch.utils.profiling import profile_trace, span
