@@ -203,7 +203,9 @@ Phases, each failing loudly (any failure exits nonzero):
      the 20,498-triangle scene (assets.bvh_scene): the traversal kernel on
      2^20 rays against the plain intersect_bvh and B10's clustered sweep
      (hit and t bit for bit, triangles equal but for exact ties, the work
-     counts equal), timed with its bound; the route against the clustered
+     counts equal), timed with its bound; B1's BVH instance timed at the
+     1298-triangle scene's first 2^20-sample launch beside B1 clustered;
+     the route against the clustered
      mega route at 64x64/4 spp/8 bounces; B2, B4 and B9 past 2048 triangles
      (accumulators in global memory) against their plain versions and twice
      bit-equal; the FD gate; forward, fwd+bwd and loss_and_grad_range at
@@ -2982,8 +2984,13 @@ def bvh_route_phase(device):
     clustered sweep on the same rays: hit and t bit for bit, the triangle
     the plain traversal's, and B10's wherever B10's internal order does not
     break an exact tie the other way (then the BVH's global index is the
-    lower), the nodes popped and the box and triangle tests of kernel and
-    plain version equal, both times printed.  render_samples and
+    lower), the nodes visited, the box and triangle tests and the visits
+    culled by their stored entry distance of kernel and plain version
+    equal, the box tests one a ray and two an inner node entered, both
+    times printed.  B1's BVH instance timed at the 1298-triangle scene's
+    first 2^20-sample launch (MAIN, the `render_bvh` cell's scene) beside
+    B1 clustered there (lanes within the vertex-normal bound printed).
+    render_samples and
     loss_and_grad_range at 64x64/4 spp/8 bounces through the route against
     the clustered mega route: at least 97% of lanes within rtol 1e-4 /
     atol 1e-5 (the share bit-equal printed), counts equal and the gradients
@@ -3006,9 +3013,11 @@ def bvh_route_phase(device):
     from inverse_path_tracer_torch import (
         RenderConfig,
         bvh_scene,
+        large_scene,
         loss_and_grad_range,
         render_samples,
     )
+    from inverse_path_tracer_torch.ops.bvh import attach_bvh
     from inverse_path_tracer_torch.ops.camera import camera_rays
     from inverse_path_tracer_torch.ops.kernels.render_kernel import (
         grad_tile,
@@ -3016,6 +3025,7 @@ def bvh_route_phase(device):
         intersect_tile,
         intersect_tile_plain,
         pack_tables,
+        render_tile,
         render_tile_rec,
         reverse_tile,
         reverse_tile_plain,
@@ -3044,8 +3054,8 @@ def bvh_route_phase(device):
     entry = None
     for name, (p, d) in rays.items():
         pt, dt = p.T.contiguous(), d.T.contiguous()
-        c_k = torch.zeros(3, dtype=torch.int64, device=device)
-        c_p = torch.zeros(3, dtype=torch.int64, device=device)
+        c_k = torch.zeros(4, dtype=torch.int64, device=device)
+        c_p = torch.zeros(4, dtype=torch.int64, device=device)
         t_k, i_k = intersect_tile(scene, route, pt, dt, tables=tabs_b, counts=c_k)
         t_p, i_p = intersect_tile_plain(scene, route, pt, dt, counts=c_p)
         t_c, i_c = intersect_tile(scene, sweep_route, pt, dt, tables=tabs_c)
@@ -3057,15 +3067,18 @@ def bvh_route_phase(device):
                   and bool((g_k[tie] < g_c[tie]).all()))
         ms = median_ms(lambda: intersect_tile(scene, route, pt, dt, tables=tabs_b), 5)
         ms_c = median_ms(lambda: intersect_tile(scene, sweep_route, pt, dt, tables=tabs_c), 5)
-        nodes, boxes, tris = (int(v) for v in c_k.tolist())
+        nodes, boxes, tris, culled = (int(v) for v in c_k.tolist())
+        inner, odd = divmod(boxes - n, 2)
+        counts_ok = odd == 0 and nodes - n <= 2 * inner and inner + culled <= nodes
         log(f"traversal, {name} rays (2^20, {int(hit.sum())} hits): kernel = plain intersect_bvh "
             f"(t, triangle, counts) {plain_ok}; = B10 clustered (hit, t bit for bit, triangle "
             f"but {int(tie.sum())} exact ties broken by a lower global index) {b10_ok}; "
-            f"{nodes} nodes popped, {boxes} box tests, {tris} triangle tests "
-            f"({nodes / n:.2f}, {boxes / n:.2f}, {tris / n:.2f} a ray)")
+            f"{nodes} nodes visited, {boxes} box tests (rays + 2 x {inner} inner nodes entered "
+            f"{counts_ok}), {tris} triangle tests, {culled} visits culled "
+            f"({nodes / n:.2f}, {boxes / n:.2f}, {tris / n:.2f}, {culled / n:.2f} a ray)")
         log(f"  traversal kernel {fmt(ms)}; B10 clustered {fmt(ms_c)}")
-        if not (plain_ok and b10_ok):
-            raise AssertionError(f"the traversal kernel's hits differ on {name} rays")
+        if not (plain_ok and b10_ok and counts_ok):
+            raise AssertionError(f"the traversal kernel's hits or counts differ on {name} rays")
         if entry is None:
             plain_ms = cuda_ms(lambda: intersect_tile_plain(scene, route, pt, dt), 1)
             # A triangle test at the sweep's face-plane count, as B10's.
@@ -3082,6 +3095,24 @@ def bvh_route_phase(device):
             log(f"  traversal on the camera launch: plain {plain_ms:.3f} ms, bound {b_ms:.5f} ms "
                 f"({b_by}), {100 * b_ms / entry['ms']:.2f}% of bound")
     del rays
+
+    # B1's BVH instance at the 1298-triangle scene's first launch, beside B1
+    # clustered on the same launch.
+    large = attach_bvh(large_scene(device))
+    a1 = camera_launch(n, 1)
+    tabs_1b = pack_tables(large, large.diffuse, route)
+    tabs_1c = pack_tables(large, large.diffuse, sweep_route)
+    b1 = {"bvh": lambda: render_tile(large.diffuse, large, route, tables=tabs_1b, **a1),
+          "clustered": lambda: render_tile(large.diffuse, large, sweep_route, tables=tabs_1c, **a1)}
+    (rb, sb), (rc, sc) = b1["bvh"](), b1["clustered"]()
+    share, err = lanes_equal(rb, rc, True)
+    b1_ms = {key: median_ms(fn, 5) for key, fn in b1.items()}
+    log(f"B1 at the 1298-triangle scene's first launch ({shape(cfg)}, 2^20 samples): BVH "
+        f"{fmt(b1_ms['bvh'])}; clustered {fmt(b1_ms['clustered'])}; {share:.5f} of lanes within "
+        f"rtol 1e-4 (max |d| {err:.3e}), segments {int(sb[0].sum())} and {int(sc[0].sum())}")
+    if share < 0.97:
+        raise AssertionError("B1's BVH instance differs from B1 clustered on the 1298 scene")
+    del large, tabs_1b, tabs_1c, rb, sb, rc, sc
 
     # The route against the clustered mega route.
     ccfg = RenderConfig(**BVH_CHECK)

@@ -27,12 +27,15 @@ the working set.  Two choices keep its hits those of the dense sweep
 
 The renders traverse the BVH where RenderConfig.intersect is "bvh" and the
 scene carries one (the BVH route): the plain versions through
-intersect_bvh, the kernels through render_common.cuh traverse, the same
-steps ray by ray on the tables of node_rows.  check_bvh validates a tree
-where it enters the port (build_bvh, convert.py scene_from_numpy), so a
-render copies nothing to the host; the kernel traps on a stack overflow
-as the last guard.  Elsewhere
-they sweep every triangle, clustered on large scenes
+intersect_bvh, the kernels through render_common.cuh traverse, which
+visits the same nodes in the same order on the table of node_rows: one
+64-byte row per inner node holding both children's padded boxes and a
+reference to each, so that a visit is one row's load and each box is
+tested once, by the parent, whose entry distance the stack keeps for the
+pop's cull.  check_bvh validates a tree where it enters the port
+(build_bvh, convert.py scene_from_numpy), so a render copies nothing to
+the host; the kernel traps on a stack overflow as the last guard.
+Elsewhere they sweep every triangle, clustered on large scenes
 (ops/kernels/clusters.py), with the same hits.
 """
 
@@ -49,6 +52,7 @@ from inverse_path_tracer_torch.ops.intersect import Intersection, plane_rows
 from inverse_path_tracer_torch.scene.build import SceneData
 
 MAX_STACK = 64  # the reference's traversal_t todo[64] (bvh.h:43)
+LEAF_BITS = 5  # a leaf reference's triangle-count bits (node_rows; render_common.cuh kLeafBits)
 _NO_TRI = 1 << 30
 
 
@@ -157,13 +161,16 @@ def _padded_boxes(bvh: BVHData):
 def check_bvh(bvh: BVHData, n_tri: int) -> None:
     """Raises ValueError unless `bvh` is a tree over n_tri triangles that
     the kernels' traversal takes: tri_order a permutation of the
-    triangles, every leaf's slots inside it, every inner node's children
+    triangles, every leaf's slots inside it and within the node table's
+    leaf reference (node_rows: at most 2**LEAF_BITS - 1 triangles, the
+    first slot below 2**(31 - LEAF_BITS)), every inner node's children
     after it and inside the node table (left = i + 1, right = i +
-    right_offset > i + 1), and no path from the root longer than
-    MAX_STACK - 1 nodes, so that the traversal's stack (the farther child
-    pushed first, at most one node more per level) cannot overflow.  It
-    copies the tree to the host: the port calls it where a tree enters it
-    (build_bvh, convert.py scene_from_numpy), not per render."""
+    right_offset > i + 1), every node but the root the child of exactly
+    one inner node, and no path from the root longer than MAX_STACK - 1
+    nodes, so that the traversal's stack (one farther child pushed at most
+    per level) cannot overflow.  It copies the tree to the host: the port
+    calls it where a tree enters it (build_bvh, convert.py
+    scene_from_numpy), not per render."""
     start, n_prims, right = (t.detach().to("cpu", torch.int64).numpy()
                              for t in (bvh.start, bvh.n_prims, bvh.right_offset))
     order = bvh.tri_order.detach().to("cpu", torch.int64).numpy()
@@ -171,11 +178,18 @@ def check_bvh(bvh: BVHData, n_tri: int) -> None:
     if m == 0 or not np.array_equal(np.sort(order), np.arange(n_tri)):
         raise ValueError(f"the BVH's tri_order is not a permutation of {n_tri} triangles")
     leaf = n_prims > 0
+    if (leaf & ((n_prims >= 1 << LEAF_BITS) | (start >= 1 << (31 - LEAF_BITS)))).any():
+        raise ValueError(f"a BVH leaf does not fit the node table's leaf reference: more than "
+                         f"{(1 << LEAF_BITS) - 1} triangles or a first slot past "
+                         f"{(1 << (31 - LEAF_BITS)) - 1}")
     if (n_prims < 0).any() or (leaf & ((start < 0) | (start + n_prims > n_tri))).any():
         raise ValueError("a BVH leaf holds slots outside tri_order")
     inner = np.nonzero(~leaf)[0]
     if ((right[inner] < 2) | (inner + right[inner] >= m)).any():
         raise ValueError("a BVH inner node's children lie outside the node table")
+    parents = np.bincount(np.concatenate([inner + 1, inner + right[inner]]), minlength=m)
+    if parents[0] != 0 or (parents[1:] != 1).any():
+        raise ValueError("a BVH node below the root is not the child of exactly one inner node")
     depth = np.zeros(m, dtype=np.int64)  # children follow their parent
     for i in inner:
         for c in (i + 1, i + right[i]):
@@ -186,15 +200,35 @@ def check_bvh(bvh: BVHData, n_tri: int) -> None:
 
 
 def node_rows(bvh: BVHData) -> torch.Tensor:
-    """(M, 8) float32 node table of the kernels' traversal
-    (render_common.cuh traverse): the box padded as _padded_boxes pads it,
-    then, as int32 bits, a leaf's first slot or an inner node's right-child
-    offset, and n_prims."""
+    """(1 + I, 16) float32 node table of the kernels' traversal
+    (render_common.cuh traverse), I the tree's inner nodes ((M - 1) / 2 in
+    a tree that check_bvh passed), built on the tree's device.  Row 1 + j
+    is the j-th inner node in depth-first order, 64 bytes: its children's
+    boxes, padded as _padded_boxes pads them, and references, in the
+    columns 0:3 left lo, 3:6 left hi, 6 left reference, 7 right
+    reference, 8:11 right lo, 11:14 right hi, 14:16 zero.  Row 0 holds the
+    root's box and reference in both children's places (the traversal
+    reads the left).  A reference is, as int32 bits, an inner child's row,
+    or a leaf's -2**31 + (first slot << LEAF_BITS | n_prims)."""
     lo, hi = _padded_boxes(bvh)
-    link = torch.where(bvh.n_prims > 0, bvh.start, bvh.right_offset)
-    rows = torch.cat([lo.float().view(torch.int32), hi.float().view(torch.int32),
-                      link.to(torch.int32)[:, None], bvh.n_prims.to(torch.int32)[:, None]], dim=1)
-    return rows.contiguous().view(torch.float32)
+    m, inner = bvh.n_nodes, bvh.n_prims == 0
+    rank = inner.cumsum(0)  # an inner node's row
+    leaf = torch.add(bvh.n_prims, bvh.start, alpha=1 << LEAF_BITS) | -(1 << 31)
+    ref = torch.where(inner, rank.int(), leaf)
+    # Each node's box and reference as int32 bits, and a zero.
+    src = torch.cat([lo.float().view(torch.int32), hi.float().view(torch.int32), ref[:, None]],
+                    dim=1)
+    src = torch.nn.functional.pad(src, (0, 1))
+    # Each row's (left, right) node: (root, root) in row 0, an inner node's
+    # children in its row; the leaves' land in a last row, left out.
+    n_rows = (m + 1) // 2
+    i = torch.arange(m, device=src.device)
+    kids = torch.stack([i + 1, i + bvh.right_offset], dim=1)
+    pairs = kids.new_zeros((n_rows + 1, 2)).index_copy_(0, torch.where(inner, rank, n_rows), kids)
+    rows = src[pairs[:n_rows]]
+    left, right = rows[:, 0], rows[:, 1]
+    return torch.cat([left[:, :7], right[:, 6:7], right[:, :6], right[:, 7:], right[:, 7:]],
+                     dim=1).view(torch.float32)
 
 
 def _slab(lo, hi, p, inv_d, best_t):
@@ -236,8 +270,12 @@ def intersect_bvh(
     one node per ray, tests a leaf's slots together (as many as the
     fullest leaf holds, whatever leaf size built the tree) and both
     children's boxes together.  Inside ops/intersect.py counting_sweeps it
-    counts the nodes popped, the (ray, box) tests and the (ray, triangle)
-    tests."""
+    counts the kernel's work: the nodes visited (popped here), the (ray,
+    box) tests (the root's, then both children's of each inner node
+    entered: the kernel tests a box once, where this loop tests it again
+    when it pops the node), the (ray, triangle) tests, and the visits
+    culled because the ray enters the node's box past its closest hit (the
+    pop's test here; the kernel's stored entry distance)."""
     n, dev = p.shape[0], p.device
     counts = _intersect._counts
     leaf_size = max(int(bvh.n_prims.max()), 1) if bvh.n_nodes else 1
@@ -258,6 +296,9 @@ def intersect_bvh(
     sp = torch.ones(n, dtype=torch.int64, device=dev)
     best_t = t_out.clone()
     best_tri = torch.full((n,), _NO_TRI, dtype=torch.int64, device=dev)
+    if counts is not None:
+        counts["node_tests"] += n  # the root's box
+    root = True
     while lane.numel():
         sp = sp - 1
         node = stack.gather(1, sp[:, None])[:, 0].long()
@@ -280,8 +321,11 @@ def intersect_bvh(
         push = hit_box & (count == 0)
         if counts is not None:
             counts["nodes"] += lane.numel()
-            counts["node_tests"] += lane.numel() + 2 * int(push.sum())
+            counts["node_tests"] += 2 * int(push.sum())
             counts["tri_tests"] += int(take.sum())
+            if not root:  # a pushed box failed only on t_min > best_t
+                counts["culled"] += int((~hit_box).sum())
+        root = False
         kids = torch.stack([torch.clamp(node + 1, max=last_node), node + right[node]], dim=1)
         hit_k, t_k = _slab(lo_box[kids], hi_box[kids], pa[:, None, :], ia[:, None, :],
                            best_t[:, None])

@@ -207,11 +207,12 @@ def counting_sweeps():
     issues on a card (`loop_slots`, B10's schedule before its
     warp-cooperative sweep: 32 for each row of each cluster that any ray of
     a warp, 32 rays of a call in a row, sweeps); and ops/bvh.py
-    intersect_bvh's nodes popped, (ray, node box) tests and (ray, triangle)
-    tests: yields the dict of running totals."""
+    intersect_bvh's nodes visited, (ray, node box) tests, (ray, triangle)
+    tests and visits culled by the entry distance: yields the dict of
+    running totals."""
     global _counts
     _counts = {"group_tests": 0, "group_entered": 0, "tests": 0, "entered": 0, "pairs": 0,
-               "loop_slots": 0, "nodes": 0, "node_tests": 0, "tri_tests": 0}
+               "loop_slots": 0, "nodes": 0, "node_tests": 0, "tri_tests": 0, "culled": 0}
     try:
         yield _counts
     finally:

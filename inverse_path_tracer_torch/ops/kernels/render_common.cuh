@@ -77,23 +77,30 @@
 // with a BVH; no Pallas counterpart: the JAX package's route is XLA code,
 // its ops/bvh.py intersect_bvh).  The tables are in the tree's leaf order
 // (ops/kernels/clusters.py kernel_view), so a leaf's triangles are the
-// contiguous plane rows [start, start + n_prims); P.nodes holds one 32-byte
-// row per node: the box padded as the cluster boxes are, then, as int bits,
-// a leaf's first row or an inner node's right-child offset (its left child
-// is the next row), and the leaf's triangle count (0 for an inner node).
-// traverse() pops one node at a time from a per-thread stack of kMaxStack
-// nodes (local memory), tests its box against the closest hit so far, and
-// either tests a leaf's triangles with the sweep's arithmetic or tests both
-// children's boxes and pushes those the ray enters, the farther first:
-// ops/bvh.py intersect_bvh's steps, ray by ray.  A node is culled only
-// where the ray enters its box strictly after the closest hit, and a hit
-// replaces the running one when it is closer or, at an equal t, has a lower
-// global triangle index (P.tri_index), so the result is the dense sweep's
-// in global order, bit for bit.  The host refuses a tree deeper than the
-// stack (ops/bvh.py check_bvh), so the stack cannot overflow; the kernel
-// traps if it would.  The node table stays in global memory, read through
-// L1.  Bound: the (ray, box) tests and the (ray, triangle) tests of this
-// run's rays, f32 ALU as B10's.
+// contiguous plane rows [start, start + n_prims).  P.nodes (ops/bvh.py
+// node_rows) holds one 64-byte row per inner node: both children's boxes,
+// padded as the cluster boxes are, and a reference to each, as int bits an
+// inner child's row or, with the sign bit set, a leaf's first plane row
+// << kLeafBits | its triangle count; row 0 holds the root's box and
+// reference.  traverse() tests the root's box, then visits a node with one
+// row of four 16-byte loads: it tests both children's boxes against the
+// closest hit so far, goes on to the nearer one the ray enters and pushes
+// the farther with the distance at which the ray enters it on a
+// per-thread stack of kMaxStack entries (local memory), and at a leaf
+// tests its triangles with the sweep's arithmetic.  A pop culls where
+// that distance lies past the closest hit, which is the whole of a second
+// test of the box (its other half cannot change).  The nodes are ops/bvh.py
+// intersect_bvh's, visited in its order, ray by ray; the lanes of a warp
+// take their inner nodes, and then their leaves, in passes together
+// (traverse's comment).  A node is culled only where the ray enters its
+// box strictly after the closest hit, and a hit replaces the running one
+// when it is closer or, at an equal t, has a lower global triangle index
+// (P.tri_index), so the result is the dense sweep's in global order, bit
+// for bit.  The host refuses a tree deeper than the stack (ops/bvh.py
+// check_bvh), so the stack cannot overflow; the kernel traps if it would.
+// The node table stays in global memory, read through L1.  Bound: the
+// (ray, box) tests and the (ray, triangle) tests of this run's rays, f32
+// ALU as B10's.
 
 #pragma once
 
@@ -117,6 +124,7 @@ constexpr int kSmemLimit = 48 * 1024;  // shared memory without an opt-in
 constexpr int kMaxSmem = 232448;       // a block's opt-in dynamic shared memory
 constexpr uint32_t kGolden = 0x9E3779B9u;
 constexpr int kMaxStack = 64;  // BVH traversal stack (ops/bvh.py MAX_STACK)
+constexpr int kLeafBits = 5;   // a leaf reference's count bits (ops/bvh.py LEAF_BITS)
 
 // The flavours of the closest-hit search, a template parameter of every
 // kernel that searches (a bool kClustered converts to the first two).
@@ -167,7 +175,7 @@ struct TraceParams {
   // The BVH route (n_nodes > 0; the tables in the tree's leaf order): the
   // node rows (header comment) and the global triangle index of each plane
   // row, which breaks ties.
-  const float* nodes;         // (n_nodes, 8)
+  const float* nodes;         // (n_nodes, 16)
   const int32_t* tri_index;   // (n_tri,)
   int n_nodes;
 };
@@ -457,13 +465,14 @@ __device__ __forceinline__ bool slab(float4 a, float4 b, V3 o, V3 inv, float t_b
 }
 
 // sweep() over a BVH leaf's rows [lo, hi) with the global tie rule: a hit
-// replaces the running one (t_best, best, best_g) where it is closer or, at
-// an equal t, has a lower global index tri_index[k].  The same arithmetic
-// and pre-test as sweep(), whose `<=` margin keeps the equal-t pairs.
+// replaces the running one (t_best, best) where it is closer or, at an
+// equal t, has a lower global index tri_index[k] than tri_index[best].
+// The same arithmetic and pre-test as sweep(), whose `<=` margin keeps the
+// equal-t pairs.
 __device__ __forceinline__ void leaf_sweep(const float* __restrict__ planes,
                                            const int32_t* __restrict__ tri_index, int lo, int hi,
                                            float min_dot, float eps, V3 o, V3 dir, float& t_best,
-                                           int& best, int& best_g) {
+                                           int& best) {
   const float eps_lo = eps * kPretestLo;
   for (int k = lo; k < hi; ++k) {
     const float4* q = reinterpret_cast<const float4*>(planes + kPlaneStride * k);
@@ -483,56 +492,72 @@ __device__ __forceinline__ void leaf_sweep(const float* __restrict__ planes,
         const float b = dir.x * e.x + dir.y * e.y + dir.z * e.z;
         inside = inside && (a + t * b <= 0.f);
       }
-      if (inside) {
-        const int g = tri_index[k];
-        if (t < t_best || g < best_g) {
-          t_best = t;
-          best = k;
-          best_g = g;
-        }
+      if (inside && (t < t_best || tri_index[k] < tri_index[best])) {
+        t_best = t;
+        best = k;
       }
     }
   }
 }
 
 // The BVH traversal (header comment) of the ray o + t*dir.  With kCount,
-// counts[0..3) gain the nodes popped, the (ray, box) tests and the (ray,
-// triangle) tests.
+// counts[0..4) gain the nodes visited, the (ray, box) tests, the (ray,
+// triangle) tests and the visits culled by their stored entry distance.
+// The lanes go through the tree in passes that they take together, each
+// ended by a vote of the lanes that reach it (__activemask(), a set that
+// holds the voter, so that no lane leaves a loop that it still has work
+// in): passes over inner nodes until no lane is at one, then one pass in
+// which each lane at a leaf tests its triangles and pops.  A lane's own
+// order of visits is the one-node-at-a-time order, so its hits and counts
+// are too.  Without the votes a lane that runs a pass ahead splits the
+// warp for the rest of the traversal (B1's BVH instance then ran 1.2-1.5x
+// slower than a loop of one node a pass, PERF.md §6); waiting at inner
+// nodes for the other lanes lets the warp test its leaves together.  An
+// inner node whose children the ray misses, and a culled pop, leave kPop,
+// which the leaf pass takes as a leaf of no triangles.
 template <bool kCount>
 __device__ __forceinline__ Hit traverse(const TraceParams& P, const Tables& T, V3 o, V3 dir,
                                         int* counts) {
+  constexpr int kPop = INT_MIN;  // a leaf reference of 0 triangles
   const V3 inv = v3(inv_component(dir.x), inv_component(dir.y), inv_component(dir.z));
   float t_best = INFINITY;
-  int best = 0, best_g = INT_MAX;
-  int stack[kMaxStack];
-  int sp = 1;
-  stack[0] = 0;  // the root
-  while (sp > 0) {
-    const int node = stack[--sp];
-    const float4* row = reinterpret_cast<const float4*>(T.nodes + 8 * node);
-    const float4 b = row[1];
-    float t_in;
-    if constexpr (kCount) counts[0] += 1, counts[1] += 1;
-    if (!slab(row[0], b, o, inv, t_best, t_in)) continue;
-    const int link = __float_as_int(b.z), count = __float_as_int(b.w);
-    if (count > 0) {
-      if constexpr (kCount) counts[2] += count;
-      leaf_sweep(T.planes, T.tri_index, link, link + count, P.min_dot, P.epsilon, o, dir, t_best,
-                 best, best_g);
-      continue;
+  int best = 0;
+  const float4* rows = reinterpret_cast<const float4*>(T.nodes);
+  const float4 root = rows[1];
+  float t_in;
+  if constexpr (kCount) counts[0] += 1, counts[1] += 1;
+  bool going = slab(rows[0], root, o, inv, t_best, t_in);
+  int ref = __float_as_int(root.z);
+  float2 stack[kMaxStack];  // (reference bits, entry distance) of the farther children
+  int sp = 0;
+  while (__any_sync(__activemask(), going)) {
+    while (__any_sync(__activemask(), going && ref >= 0)) {
+      if (!(going && ref >= 0)) continue;
+      const float4* row = rows + 4 * ref;  // an inner node: both children in its row
+      const float4 l1 = row[1], r1 = row[3];
+      float t_l, t_r;
+      const bool h_l = slab(row[0], l1, o, inv, t_best, t_l);
+      const bool h_r = slab(row[2], r1, o, inv, t_best, t_r);
+      if constexpr (kCount) counts[0] += h_l + h_r, counts[1] += 2;
+      const bool near_left = t_l <= t_r;
+      if (h_l && h_r) {  // the farther child waits on the stack
+        if (sp == kMaxStack) __trap();
+        stack[sp++] = make_float2(near_left ? l1.w : l1.z, fmaxf(t_l, t_r));
+      }
+      ref = !(h_l || h_r) ? kPop : __float_as_int((h_l && h_r ? near_left : h_l) ? l1.z : l1.w);
     }
-    const int left = node + 1, right = node + link;
-    const float4* lr = reinterpret_cast<const float4*>(T.nodes + 8 * left);
-    const float4* rr = reinterpret_cast<const float4*>(T.nodes + 8 * right);
-    float t_l, t_r;
-    const bool h_l = slab(lr[0], lr[1], o, inv, t_best, t_l);
-    const bool h_r = slab(rr[0], rr[1], o, inv, t_best, t_r);
-    if constexpr (kCount) counts[1] += 2;
-    const bool near_left = t_l <= t_r;
-    const bool h_near = near_left ? h_l : h_r, h_far = near_left ? h_r : h_l;
-    if (sp + static_cast<int>(h_near) + static_cast<int>(h_far) > kMaxStack) __trap();
-    if (h_far) stack[sp++] = near_left ? right : left;
-    if (h_near) stack[sp++] = near_left ? left : right;
+    if (!going) continue;
+    const int lo = (ref & INT_MAX) >> kLeafBits, count = ref & ((1 << kLeafBits) - 1);
+    if constexpr (kCount) counts[2] += count;
+    leaf_sweep(T.planes, T.tri_index, lo, lo + count, P.min_dot, P.epsilon, o, dir, t_best, best);
+    ref = kPop;
+    if (sp == 0) {
+      going = false;
+    } else {  // the farther child last pushed, unless the ray enters it past t_best
+      const float2 e = stack[--sp];
+      if (e.y <= t_best) ref = __float_as_int(e.x);
+      else if constexpr (kCount) counts[3] += 1;
+    }
   }
   return Hit{t_best, best};
 }

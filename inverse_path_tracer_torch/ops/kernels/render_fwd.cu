@@ -292,8 +292,9 @@ __global__ void __launch_bounds__(kThreads, min_blocks(kClustered))
 
 // B10 (or the BVH traversal) alone, one ray a thread.  With `counts` not
 // null, the search also counts its work, summed per warp and added to
-// counts: on the BVH route counts[0..3) (nodes popped, box tests, triangle
-// tests), on clustered tables counts[0..4) (cluster_hit's SweepWork).
+// counts: on the BVH route counts[0..4) (nodes visited, box tests, triangle
+// tests, visits culled), on clustered tables counts[0..4) (cluster_hit's
+// SweepWork).
 template <int kSweep>
 __global__ void __launch_bounds__(kThreads, min_blocks(kSweep))
     intersect_kernel(const TraceParams P, float* t_out, int* idx_out,
@@ -304,7 +305,7 @@ __global__ void __launch_bounds__(kThreads, min_blocks(kSweep))
   const int n = P.n;
   if constexpr (kSweep == kSweepBvh) {
     if (counts != nullptr) {  // the same for the whole grid
-      int c[3] = {0, 0, 0};
+      int c[4] = {0, 0, 0, 0};
       if (i < n) {
         const Hit h = traverse<true>(P, T, v3(P.p[i], P.p[n + i], P.p[2 * n + i]),
                                      v3(P.d[i], P.d[n + i], P.d[2 * n + i]), c);
@@ -312,7 +313,7 @@ __global__ void __launch_bounds__(kThreads, min_blocks(kSweep))
         idx_out[i] = h.idx;
       }
 #pragma unroll
-      for (int j = 0; j < 3; ++j) {
+      for (int j = 0; j < 4; ++j) {
         const unsigned sum = __reduce_add_sync(kAllLanes, static_cast<unsigned>(c[j]));
         if ((threadIdx.x & 31) == 0) atomicAdd(counts + j, static_cast<unsigned long long>(sum));
       }
@@ -513,8 +514,8 @@ int ipt_stage_tile(const TraceParams* Pin, const float* carry_in, float* carry_o
 
 // B10, or the BVH traversal on BVH tables: t (n,) and the internal triangle
 // index (n,) of the closest hit of each ray of *Pin; with `counts` not
-// null (zeroed device uint64s: 3 on BVH tables, 4 on clustered tables), the
-// search's work added to them (intersect_kernel).  Returns the cudaError_t.
+// null (4 zeroed device uint64s), the search's work added to them
+// (intersect_kernel).  Returns the cudaError_t.
 int ipt_intersect_tile(const TraceParams* Pin, float* t, int* idx, unsigned long long* counts,
                        void* stream) {
   TraceParams P = *Pin;

@@ -133,7 +133,7 @@ class KernelTables:
     cluster_k: int = 0  # 0 = dense sweep
     group: int = 0  # clusters per group box
     cam: Optional[torch.Tensor] = None  # (3, 3) camera matrix (camera mode's rays)
-    nodes: Optional[torch.Tensor] = None  # (M, 8) BVH node rows (ops/bvh.py node_rows)
+    nodes: Optional[torch.Tensor] = None  # (1 + inner nodes, 16) BVH rows (ops/bvh.py node_rows)
     tri_index: Optional[torch.Tensor] = None  # (nT,) int32 global index of each row
 
     @property
@@ -442,8 +442,10 @@ def intersect_tile(
     BVH traversal on the BVH route.  Returns t (n,) float32 (+inf on a miss)
     and the internal triangle index (n,) int32 (0 on a miss).  `counts`, an
     int64 tensor on the rays' device, gains the search's work: on the BVH
-    route (3,), the traversal's nodes popped, (ray, box) tests and (ray,
-    triangle) tests; on clustered tables (4,), the (ray, group) box tests,
+    route (4,), the traversal's nodes visited, (ray, box) tests, (ray,
+    triangle) tests and visits culled by their stored entry distance (each
+    a row load and a box test that the pop skips); on clustered tables
+    (4,), the (ray, group) box tests,
     the (ray, cluster) box tests, the (ray, triangle) pairs and the pair
     loop's lane-slots, 32 a row of each pass of a warp (render_common.cuh
     SweepWork).  The dense sweep counts nothing."""
@@ -901,11 +903,12 @@ def grad_tile_plain(materials, scene, cfg, p=None, d=None, alive=None, g=None, u
 
 
 def _count_width(bvh: bool, cluster_k: int) -> int:
-    """The length of intersect_tile's `counts` for the search flavour."""
+    """The length of intersect_tile's `counts`: 4 for the BVH traversal and
+    for the clustered sweep."""
     if not (bvh or cluster_k):
         raise ValueError("counts are the BVH traversal's or the clustered sweep's: "
                          "the dense sweep counts nothing")
-    return 3 if bvh else 4
+    return 4
 
 
 def intersect_tile_plain(scene: SceneData, cfg, p: torch.Tensor, d: torch.Tensor,
@@ -926,7 +929,7 @@ def intersect_tile_plain(scene: SceneData, cfg, p: torch.Tensor, d: torch.Tensor
                               torch.int64)})
         with counting_sweeps() as c:
             hit = sweep(view, cfg, o, dirs)
-        keys = (("nodes", "node_tests", "tri_tests") if view.bvh is not None
+        keys = (("nodes", "node_tests", "tri_tests", "culled") if view.bvh is not None
                 else ("group_tests", "tests", "pairs", "loop_slots"))
         counts += torch.tensor([c[k] for k in keys], device=counts.device)
     return hit.t, hit.tri.to(torch.int32)

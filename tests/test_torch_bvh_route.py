@@ -232,13 +232,17 @@ def test_the_route_view_and_tables(scenes):
     tabs = pack_tables(ts, ts.diffuse, cfg)
     assert torch.equal(tabs.tri_index, ts.bvh.tri_order)
     assert torch.equal(tabs.planes, pack_tables(ts, ts.diffuse).planes[view.perm])
-    rows = tabs.nodes.view(torch.int32)
-    leaf = ts.bvh.n_prims > 0
-    assert torch.equal(rows[:, 7], ts.bvh.n_prims)
-    assert torch.equal(rows[leaf, 6], ts.bvh.start[leaf])
-    assert torch.equal(rows[~leaf, 6], ts.bvh.right_offset[~leaf])
-    lo, hi = tabs.nodes[:, 0:3], tabs.nodes[:, 3:6]
-    assert bool((lo < ts.bvh.bbox_min).all()) and bool((hi > ts.bvh.bbox_max).all())
+    inner = (ts.bvh.n_prims == 0).nonzero().flatten()
+    assert torch.equal(tabs.nodes, node_rows(ts.bvh)) and tabs.nodes.shape == (1 + len(inner), 16)
+    bits = tabs.nodes.view(torch.int32)
+    left, right = inner + 1, inner + ts.bvh.right_offset[inner]
+    assert torch.equal(bits[1:, 6] >= 0, ts.bvh.n_prims[left] == 0)
+    assert torch.equal(bits[1:, 7] >= 0, ts.bvh.n_prims[right] == 0)
+    for cols, kids in (((0, 3, 6), torch.cat([left.new_zeros(1), left])),
+                       ((8, 11, 14), right)):
+        rows = tabs.nodes if cols[0] == 0 else tabs.nodes[1:]
+        lo, hi = rows[:, cols[0]:cols[1]], rows[:, cols[1]:cols[2]]
+        assert bool((lo < ts.bvh.bbox_min[kids]).all()) and bool((hi > ts.bvh.bbox_max[kids]).all())
     assert not forward._use_staged(cfg, ts) and forward._use_staged(RenderConfig(), ts)
     plain = large_scene()
     assert clusters.kernel_view(plain, cfg).cluster_k > 0  # no BVH: the sweep
@@ -256,7 +260,11 @@ def test_trees_the_traversal_cannot_take_are_refused():
     bad_leaf[int((bvh.n_prims > 0).nonzero()[0])] = scene.n_tri
     order = bvh.tri_order.clone()
     order[0] = order[1]
+    assert int(bvh.n_prims[1]) == 0
+    shared = bvh.right_offset.clone()
+    shared[0] = 2  # node 2, node 1's left child, also the root's right
     for tree, what in ((bvh._replace(right_offset=bad_link), "children"),
+                       (bvh._replace(right_offset=shared), "exactly one"),
                        (bvh._replace(start=bad_leaf), "leaf"),
                        (bvh._replace(tri_order=order), "permutation")):
         with pytest.raises(ValueError, match=what):
@@ -287,7 +295,7 @@ def test_trees_the_traversal_cannot_take_are_refused():
     with pytest.raises(ValueError, match="orders"):
         pack_tables(scene.replace(bvh=bvh._replace(tri_order=bvh.tri_order[:-1])), scene.diffuse,
                     RenderConfig(intersect="bvh"))
-    assert node_rows(bvh).shape == (bvh.n_nodes, 8)
+    assert node_rows(bvh).shape == (1 + bvh.n_nodes // 2, 16)
 
 
 def test_cli_render_intersect_bvh_writes_the_sweeps_image(tmp_path, monkeypatch):

@@ -1002,8 +1002,11 @@ def bvh_big():
 def test_bvh_traversal_kernel_matches_intersect_bvh(card, bvh_big, kind):
     """The traversal kernel (intersect_tile on the route's tables) against
     the plain intersect_bvh on the same rays: t, triangle (internal: the
-    leaf order) and the work counts equal; its triangle in global order that
-    of B10's clustered sweep or, at an exact tie, a lower global index."""
+    leaf order) and the four work counts equal, the box tests one a ray and
+    two for each inner node entered, every visit after the root a child
+    that an entered inner node's test let through, and no more culled and
+    entered than visited; its triangle in global order that of B10's
+    clustered sweep or, at an exact tie, a lower global index."""
     from inverse_path_tracer_torch import large_scene
     from inverse_path_tracer_torch.ops.bvh import attach_bvh
     from inverse_path_tracer_torch.ops.kernels.render_kernel import (
@@ -1025,13 +1028,17 @@ def test_bvh_traversal_kernel_matches_intersect_bvh(card, bvh_big, kind):
     assert tabs.nodes is not None and tabs_c.cluster_k > 0
     for p, d in ((p_box, d_box), (p_cam, d_cam)):
         pt, dt = p.T.contiguous(), d.T.contiguous()
-        c_k = torch.zeros(3, dtype=torch.int64, device=card)
-        c_p = torch.zeros(3, dtype=torch.int64, device=card)
+        c_k = torch.zeros(4, dtype=torch.int64, device=card)
+        c_p = torch.zeros(4, dtype=torch.int64, device=card)
         before = bvh_traversal.launches
         t, i = intersect_tile(scene, cfg, pt, dt, tables=tabs, counts=c_k)
         assert bvh_traversal.launches == before + 1
         t_p, i_p = intersect_tile_plain(scene, cfg, pt, dt, counts=c_p)
         assert torch.equal(t, t_p) and torch.equal(i, i_p) and torch.equal(c_k, c_p)
+        nodes, boxes, tris, culled = c_k.tolist()
+        inner, odd = divmod(boxes - n, 2)
+        assert odd == 0 and nodes - n <= 2 * inner and inner + culled <= nodes
+        assert 0 < tris and 0 <= culled
         t2, i2 = intersect_tile(scene, cfg, pt, dt, tables=tabs)
         assert torch.equal(t, t2) and torch.equal(i, i2)
         t_c, i_c = intersect_tile(scene, cfg.with_(intersect="auto"), pt, dt, tables=tabs_c)
