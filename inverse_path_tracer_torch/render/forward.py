@@ -87,6 +87,8 @@ from inverse_path_tracer_torch.ops.kernels.staged_kernel import (
 from inverse_path_tracer_torch.ops.tonemap import tonemap_mean, tonemap_to_uint8
 from inverse_path_tracer_torch.scene.build import SceneData
 from inverse_path_tracer_torch.utils.png import write_png
+# count as tally: `count` is a sample count throughout this module.
+from inverse_path_tracer_torch.utils.profiling import count as tally
 from inverse_path_tracer_torch.utils.profiling import span, spanned
 
 
@@ -221,12 +223,15 @@ def _staged_launch(kern, materials, scene, cfg, a, base: int, bins, with_rec: bo
     return rad, carry[CAR_STATS], stages
 
 
+@spanned("ipt.staged.reverse")
 def _staged_reverse(kern, n_tri: int, cfg, g: torch.Tensor, stages) -> torch.Tensor:
     """The staged recursion of one launch (JAX render/forward.py:815): B9
     per stage, last stage first, the (suf, esc) carry moved back to the
     previous stage's lane order between launches.  g (3, n) is in sample
-    order; returns d materials (nT, 3) in the kernels' triangle order."""
+    order; returns d materials (nT, 3) in the kernels' triangle order.
+    Counts ipt.staged.reverse_lanes, the lanes of B9's launches."""
     k, _ = _stage_plan(cfg)
+    tally("ipt.staged.reverse_lanes", g.shape[1] * len(stages))
     suf = torch.zeros((4, g.shape[1]), dtype=torch.float32, device=g.device)
     d_mats = torch.zeros((n_tri, 3), dtype=torch.float32, device=g.device)
     for st in reversed(stages):
@@ -238,6 +243,17 @@ def _staged_reverse(kern, n_tri: int, cfg, g: torch.Tensor, stages) -> torch.Ten
             suf[:, st.order] = suf_out
         d_mats = d_mats + dm
     return d_mats
+
+
+def _replay(kern, materials, scene, cfg, a, base: int, bins):
+    """_staged_launch with records under the span ipt.staged.replay:
+    (radiance, per-lane counts, the stages' records).  Counts
+    ipt.staged.records, the record slots the lanes reached (their
+    segments), which B9 reads."""
+    with span("ipt.staged.replay"):
+        rad, stats, stages = _staged_launch(kern, materials, scene, cfg, a, base, bins, True)
+        tally("ipt.staged.records", stats[0])
+    return rad, stats, stages
 
 
 class _External(NamedTuple):
@@ -307,7 +323,7 @@ def _grad_launches(materials, scene, key, cfg, start, count, g_vals, ext) -> tor
     # rows are mapped back once for the range.
     bins = _scene_bins(scene, cfg)
     for lo, hi, a in _launches(scene, cfg, key, start, count, ext):
-        _, _, stages = _staged_launch(kern, materials, scene, cfg, a, start + lo, bins, True)
+        _, _, stages = _replay(kern, materials, scene, cfg, a, start + lo, bins)
         d_mats = d_mats + _staged_reverse(kern, n_tri, cfg, g_vals[lo:hi].T.contiguous(), stages)
     return unperm_rows(d_mats, kern.perm)
 
@@ -443,8 +459,7 @@ def loss_and_grad_range(
     totals = torch.zeros(2, dtype=torch.float64, device=dev)
     for lo, _hi, a in _launches(scene, cfg, key, start, count, ext):
         if staged:
-            rad, stats, stages = _staged_launch(kern, materials, scene, cfg, a, start + lo, bins,
-                                                True)
+            rad, stats, stages = _replay(kern, materials, scene, cfg, a, start + lo, bins)
         else:
             rad, stats, rec = kern.fwd_rec(materials, scene, cfg, **a)
         vals = rad.T.detach().requires_grad_()

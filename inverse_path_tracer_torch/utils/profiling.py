@@ -11,15 +11,24 @@ record_function(name), which the trace puts on the kernels' timeline;
 otherwise it is one check of a Python boolean and a shared no-op context,
 with no device operation, synchronisation or allocation.  spanned(name)
 wraps a whole function in span(name).
+
+count(name, value) adds the sum of a tensor (or an int) to a tally while a
+profiler session records, and marks the trace with the tally's entry
+(record_function("ipt.count.<name>#<entry>")); otherwise it is the same
+one check as span.  The sum stays on the device: nothing is read back
+while the session records.  counted(marks) reads, once, the entries whose
+marks a trace holds, so that a reader of one traced run takes that run's
+counts alone, however many runs one process traces.
 """
 
 from __future__ import annotations
 
 import contextlib
 import functools
+import itertools
 import os
 import time
-from typing import Callable, Iterator, Optional, TypeVar
+from typing import Callable, Dict, Iterable, Iterator, Optional, TypeVar, Union
 
 import torch
 from torch.autograd import profiler as _profiler
@@ -28,6 +37,10 @@ from torch.autograd.profiler import record_function
 F = TypeVar("F", bound=Callable)
 
 _OFF = contextlib.nullcontext()
+
+COUNT_MARK = "ipt.count."
+_tally: Dict[int, Union[torch.Tensor, int]] = {}  # entry -> its sum (int64 scalar or int)
+_entries = itertools.count()
 
 
 @contextlib.contextmanager
@@ -68,3 +81,30 @@ def spanned(name: str) -> Callable[[F], F]:
         return run  # type: ignore[return-value]
 
     return wrap
+
+
+def count(name: str, value: Union[torch.Tensor, int]) -> None:
+    """While a profiler records: value's sum (a tensor's, as an int64
+    scalar on its device) joins the tally as a new entry, and the trace gets
+    the mark ipt.count.<name>#<entry>.  Otherwise one check and nothing."""
+    if not _profiler._is_profiler_enabled:
+        return
+    entry = next(_entries)
+    _tally[entry] = (value.detach().sum(dtype=torch.int64) if isinstance(value, torch.Tensor)
+                     else int(value))
+    with record_function(f"{COUNT_MARK}{name}#{entry}"):
+        pass
+
+
+def counted(marks: Iterable[str]) -> Dict[str, int]:
+    """{name: sum} of the tally's entries that the trace events `marks`
+    (names of count's marks; other names are passed over) point to, read to
+    the host; each entry is read once and then dropped."""
+    out: Dict[str, int] = {}
+    for mark in marks:
+        if mark.startswith(COUNT_MARK):
+            name, _, entry = mark[len(COUNT_MARK):].rpartition("#")
+            value = _tally.pop(int(entry), None)
+            if value is not None:
+                out[name] = out.get(name, 0) + int(value)
+    return out

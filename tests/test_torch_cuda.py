@@ -522,6 +522,47 @@ def test_staged_render_and_gradients_on_the_card(card):
     torch.testing.assert_close(d_mats, grads["staged"], rtol=1e-5, atol=1e-9)
 
 
+def test_staged_gradient_of_the_vertex_normal_scene_at_a_full_launch(card):
+    """The staged gradient route of a recovery step on the 1298-triangle
+    vertex-normal scene (clustered, wavefront "auto"), at one launch of
+    2^20 lanes and 16 bounces in 4 stages: B7, B8 with records
+    (stage_kernel<true, true>) behind the re-sort, and B9 last stage first,
+    against its plain version on the same card.  Vertex-normal shading
+    rounds a few lanes differently in the kernels and the plain versions
+    (chip_smoke.py phase 16 holds >= 97% of their lanes equal), and a lane
+    that turns takes another path, so the gradient is held by the norm of
+    its difference, relative to its own norm: 1e-5, a hundred times the
+    9.0e-8 it read on the H100.
+    loss_and_grad_range's gradient equals autograd's."""
+    from inverse_path_tracer_torch import large_scene, loss_and_grad_range
+    from inverse_path_tracer_torch.ops.kernels.staged_kernel import stage_reverse_tile, stage_tile
+    from inverse_path_tracer_torch.ops.tonemap import tonemap_mean
+
+    scene = large_scene(card)
+    cfg = RenderConfig(width=128, height=128, spp=64, max_bounces=16)
+    n = cfg.n_samples
+    assert n == cfg.tile_size == 1 << 20
+    loss = lambda v: tonemap_mean(v, cfg.spp).mean()
+    grads = {}
+    for name, c in (("kernels", cfg), ("plain", cfg.with_(backend="plain"))):
+        m = scene.diffuse.clone().requires_grad_()
+        before = (stage_tile.launches, stage_reverse_tile.launches)
+        vals, _ = render_samples(m, scene, 11, c)
+        loss(vals).backward()
+        grads[name] = m.grad
+        if name == "kernels":  # 4 stages forward, 4 replayed with records, 4 of B9
+            ran = (stage_tile.launches - before[0], stage_reverse_tile.launches - before[1])
+            assert ran == (8, 4)
+    k, p = grads["kernels"], grads["plain"]
+    rel = float((k - p).norm() / p.norm())
+    print(f"staged gradient, kernels against plain: relative norm {rel:.3e}, rows "
+          f"{int((k != 0).any(1).sum())} and {int((p != 0).any(1).sum())} of {scene.n_tri}")
+    assert rel < 1e-5
+    post = lambda v, lo: tonemap_mean(v, cfg.spp).sum() / (n // cfg.spp * 3)
+    _, d_mats, _ = loss_and_grad_range(scene.diffuse, scene, 11, cfg, 0, n, post)
+    torch.testing.assert_close(d_mats, k, rtol=1e-5, atol=1e-9)
+
+
 def test_clustered_kernels_match_dense_plain(card, monkeypatch):
     """B1-B4 and B6 with clustered tables on the flat large scene against
     the plain versions of the dense sweep in global order; B5 with
