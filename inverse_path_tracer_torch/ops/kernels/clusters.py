@@ -30,7 +30,7 @@ from typing import TYPE_CHECKING, NamedTuple, Optional
 import torch
 
 from inverse_path_tracer_torch.scene.build import SceneData
-from inverse_path_tracer_torch.utils.profiling import span
+from inverse_path_tracer_torch.utils.profiling import count, span
 
 if TYPE_CHECKING:
     from inverse_path_tracer_torch.ops.bvh import BVHData
@@ -111,16 +111,23 @@ def morton_codes(cent: torch.Tensor, lo: torch.Tensor, inv_ext: torch.Tensor) ->
     """(nT,) int64 Morton codes of centroids: 10 quantised bits per axis,
     interleaved x|y|z."""
     q = torch.clamp(((cent - lo) * inv_ext * 1024.0).to(torch.int32), 0, 1023).to(torch.int64)
-    return _expand_bits(q[:, 0]) | (_expand_bits(q[:, 1]) << 1) | (_expand_bits(q[:, 2]) << 2)
+    e = _expand_bits(q)  # the three axes in one set of launches
+    return e[:, 0] | (e[:, 1] << 1) | (e[:, 2] << 2)
 
 
 def morton_order(vertices: torch.Tensor, hot: int = 0) -> torch.Tensor:
-    """(nT,) int64 internal -> global order: the `hot` largest triangles
-    first (descending size), the rest by centroid Morton code, stable.
-    Computed on the CPU in float32 with the JAX package's operation order,
-    so that both packages give the same order."""
-    v = vertices.detach().to("cpu", torch.float32)
-    cent = (v[:, 0] + v[:, 1] + v[:, 2]) / 3.0
+    """(nT,) int64 internal -> global order, computed on the vertices'
+    device (a copy to the host would wait for every queued kernel): the
+    `hot` largest triangles first (descending size), the rest by centroid
+    Morton code, stable.  In float32 with the JAX package's operations in
+    its order, so that both packages and both devices give the same order:
+    eager PyTorch rounds each elementwise operation on its own, and the
+    centroid is the vertex sum times float32(1/3), as XLA computes the
+    package's mean (its division by 3 becomes a product with the rounded
+    reciprocal).  Counted as ipt.prep.morton."""
+    count("ipt.prep.morton", 1)
+    v = vertices.detach().to(torch.float32)
+    cent = (v[:, 0] + v[:, 1] + v[:, 2]) * v.new_full((), 1.0 / 3.0)
     lo = cent.min(dim=0).values
     ext = cent.max(dim=0).values - lo
     inv_ext = 1.0 / torch.where(ext > 0, ext, torch.ones_like(ext))
@@ -144,15 +151,15 @@ def kernel_perm(scene: SceneData, cfg) -> Optional[torch.Tensor]:
     """The internal -> global triangle order of the kernels (on the
     scene's device): the BVH's leaf order on the BVH route, else the
     clustered order, or None where the scene keeps global order (dense
-    sweep, or cfg.tri_order == "file").  The Morton order, sorted on the
-    host, runs under the span ipt.prep.perm."""
+    sweep, or cfg.tri_order == "file").  The Morton order, computed on the
+    scene's device, runs under the span ipt.prep.perm."""
     if uses_bvh(scene, cfg):
         return scene.bvh.tri_order.to(scene.device, torch.int64)
     ck = cluster_k_for(scene.n_tri, cfg)
     if ck == 0 or cfg.tri_order != "morton":
         return None
     with span("ipt.prep.perm"):
-        return morton_order(scene.vertices, hot=ck).to(scene.device)
+        return morton_order(scene.vertices, hot=ck)
 
 
 def unperm_rows(d: torch.Tensor, perm: Optional[torch.Tensor]) -> torch.Tensor:

@@ -6,7 +6,8 @@ CPU, against the JAX package.
     emitter indices, cluster boxes) equal JAX's _pack_tables exactly, on
     the generated 1298-triangle large scene at cluster_k 768 (JAX's auto
     width) and 128 and on scene 0 with CLUSTER_MIN_TP set to 8 in both
-    packages and cluster_k=8.
+    packages and cluster_k=8; morton_order equals JAX's _morton_order on a
+    crafted vertex set (tests/morton_cases.py).
   * The plain clustered sweep, two-level (group boxes, then cluster
     boxes), equals the dense sweep over the same (permuted) planes bit for
     bit, on random rays with zero direction components and origins inside
@@ -28,8 +29,10 @@ CPU, against the JAX package.
 
 import os
 import re
+from types import SimpleNamespace
 from typing import NamedTuple
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -40,6 +43,7 @@ from inverse_path_tracer_tpu.scene.build import build_scene as jax_build_scene
 from inverse_path_tracer_tpu.scene.dsl import ObjectParams as JaxObject
 
 import torch_threads  # noqa: F401
+from morton_cases import crafted_vertices, reference_order
 
 from inverse_path_tracer_torch import ASSET_ROOT, RenderConfig, scene_from_numpy
 from inverse_path_tracer_torch.assets import SPHERE_RINGS, SPHERE_SEGMENTS, large_scene
@@ -129,6 +133,21 @@ def test_tables_match_jax_on_a_small_clustered_scene(small_clusters):
     perm = clusters.kernel_perm(ts, RenderConfig(cluster_k=8))
     assert not torch.equal(perm, torch.arange(ts.n_tri))  # a real permutation
     assert clusters.cluster_k_for(ts.n_tri, RenderConfig(cluster_k=5)) == 8  # rounded up
+
+
+@pytest.mark.parametrize("hot", [0, 16])
+def test_morton_order_matches_jax_on_crafted_vertices(hot):
+    """morton_order on crafted vertices (tests/morton_cases.py: ties, a zero
+    extent, vertex sums whose / 3 and * float32(1/3) fall in different
+    cells) returns its order on the vertices' device, equal to JAX's
+    _morton_order and to the numpy reference; the sum / 3 would not be."""
+    v = crafted_vertices()
+    order = clusters.morton_order(torch.from_numpy(v), hot)
+    assert order.device.type == "cpu" and order.dtype == torch.int64
+    want = np.asarray(jrk._morton_order(SimpleNamespace(vertices=jnp.asarray(v)), hot))
+    np.testing.assert_array_equal(order.numpy(), want)
+    np.testing.assert_array_equal(reference_order(v, hot), want)
+    assert not np.array_equal(reference_order(v, hot, divide=True), want)
 
 
 def test_cluster_policy():

@@ -1318,3 +1318,76 @@ def test_cooperative_sweep_on_the_card(card, kind):
     grid64_close(unperm_grid(acc, tabs.perm),
                  grids_from_edge_records(rec6, pix.T, scene, cfg, tabs.perm))
     assert torch.equal(st_g, st6_p)
+
+
+@pytest.mark.parametrize("hot", [0, 16])
+@pytest.mark.parametrize("kind", ["large", "bvh_scene", "crafted"])
+def test_morton_order_on_the_card_equals_the_host_reference(card, request, kind, hot):
+    """morton_order of vertices on the card stays there and equals, bit for
+    bit, the numpy float32 reference (tests/morton_cases.py) and the CPU's
+    order: on the 1298-triangle vertex-normal scene, the 20,498-triangle
+    one, and crafted vertices (ties, a zero extent, vertex sums whose / 3
+    and * float32(1/3) fall in different cells).  Its steps one by one on
+    the card: the centroid's product, the reciprocal (1.0 / x) and the
+    stable argsort on int64 keys with ties, small and past 4096 entries
+    (PyTorch's CUDA sort takes another path there)."""
+    from morton_cases import centroids, crafted_vertices, reference_order
+
+    from inverse_path_tracer_torch import large_scene
+    from inverse_path_tracer_torch.ops.kernels.clusters import morton_order
+
+    if kind == "crafted":
+        v = torch.from_numpy(crafted_vertices()).to(card)
+    else:
+        v = (large_scene(card) if kind == "large" else request.getfixturevalue("bvh_big")).vertices
+    order = morton_order(v, hot)
+    assert order.device == v.device and order.dtype == torch.int64
+    host = v.cpu()
+    assert torch.equal(order.cpu(), torch.from_numpy(reference_order(host.numpy(), hot)))
+    assert torch.equal(order.cpu(), morton_order(host, hot))
+
+    cent = (v[:, 0] + v[:, 1] + v[:, 2]) * v.new_full((), 1.0 / 3.0)
+    assert torch.equal(cent.cpu(), torch.from_numpy(centroids(host.numpy())))
+    x = cent.flatten() + 0.5
+    assert torch.equal((1.0 / x).cpu(), 1.0 / x.cpu())
+    g = torch.Generator().manual_seed(hot)
+    for n in (100, 1298, 20498):
+        keys = torch.randint(0, 40, (n,), generator=g, dtype=torch.int64)
+        assert torch.equal(torch.argsort(keys.to(card), stable=True).cpu(),
+                           torch.argsort(keys, stable=True))
+
+
+def test_a_clustered_recovery_step_reads_nothing_back(card):
+    """One batched_step on 2 scenes of the 1298-triangle scene (clustered,
+    so staged) under torch.cuda.set_sync_debug_mode("error"): no operation
+    of the step waits for the card (the loss is read after it), where a
+    read-back would raise.  Traced, the step computes 8 Morton orders: each
+    scene's forward and backward build the kernels once, and each build
+    orders in kernel_perm and again in pack_tables."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from inverse_path_tracer_torch import large_scene
+    from inverse_path_tracer_torch.models.recover import batched_step, make_optimizer
+    from inverse_path_tracer_torch.utils import profiling
+
+    scene = large_scene(card)
+    cfg = RenderConfig(width=64, height=64, spp=4, max_bounces=8)
+    gen = torch.Generator(device=card).manual_seed(1)
+    targets = torch.rand((2, cfg.height, cfg.width, 3), generator=gen, device=card)
+    theta = torch.zeros((2, scene.n_tri, 3), device=card, requires_grad=True)
+    opt = make_optimizer(theta, 0.05)
+    step = lambda i: batched_step(theta, opt, scene, [2 * i, 2 * i + 1], cfg, targets,
+                                  device=card)
+    step(0)  # builds the kernels
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        losses = step(1)
+        with pytest.raises(RuntimeError, match="synchroniz"):
+            losses.cpu()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert losses.shape == (2,) and bool(torch.isfinite(losses).all())
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        step(2)
+    assert profiling.counted(e.name for e in prof.events())["ipt.prep.morton"] == 8

@@ -22,7 +22,7 @@ nor the reference imports JAX here.
     records, its marks name their entries, counted reads each entry once;
     in the staged gradient ipt.staged.records equals the replay's segments
     (the forward's, the same samples) and ipt.staged.reverse_lanes the
-    lanes of B9's launches.
+    lanes of B9's launches; ipt.prep.morton counts one a Morton order.
   * The spans ipt.staged.replay (inside ipt.render.grad) and
     ipt.staged.reverse (around B9's launches) under a profiler; and
     benchmark/metrics/stage_reverse_roofline.py on a traced job, each of
@@ -41,7 +41,7 @@ import torch_threads  # noqa: F401
 
 from inverse_path_tracer_torch import RenderConfig
 from inverse_path_tracer_torch.models.recover import batched_step, make_optimizer
-from inverse_path_tracer_torch.ops.kernels.clusters import cluster_k_for
+from inverse_path_tracer_torch.ops.kernels import clusters
 from inverse_path_tracer_torch.render import forward
 from inverse_path_tracer_torch.utils import profiling
 
@@ -74,7 +74,7 @@ def scenes(config, tmp_path_factory):
 def test_the_scene_takes_the_staged_route(scenes):
     ps, _ = scenes
     assert ps.n_tri == 130 and ps.has_vertex_normals
-    assert cluster_k_for(ps.n_tri, CFG) > 0 and forward._use_staged(CFG, ps)
+    assert clusters.cluster_k_for(ps.n_tri, CFG) > 0 and forward._use_staged(CFG, ps)
     assert forward._stage_plan(CFG) == (4, 2)
 
 
@@ -139,6 +139,22 @@ def test_the_records_count_is_the_replays_segments(scenes):
     _, n_stages = forward._stage_plan(CFG)
     assert got["ipt.staged.records"] == int(stats.segments) > 0
     assert got["ipt.staged.reverse_lanes"] == CFG.n_samples * n_stages
+
+
+def test_the_morton_count_is_one_an_order(scenes):
+    """ipt.prep.morton counts each Morton order computed: kernel_perm's and
+    kernel_view's one each, none where the scene keeps its global order
+    (tri_order "file") or is swept dense (cfg None)."""
+    ps, _ = scenes
+
+    def orders(fn):
+        _, prof = _traced(fn)
+        return profiling.counted(e.name for e in prof.events()).get("ipt.prep.morton", 0)
+
+    assert orders(lambda: clusters.kernel_perm(ps, CFG)) == 1
+    assert orders(lambda: clusters.kernel_view(ps, CFG)) == 1
+    assert orders(lambda: clusters.kernel_perm(ps, CFG.with_(tri_order="file"))) == 0
+    assert orders(lambda: clusters.kernel_view(ps, None)) == 0
 
 
 def _spans(prof):

@@ -50,11 +50,13 @@ def small_clusters(monkeypatch):
 
 
 def traced(fn):
-    """fn's result and its ipt.* spans [(name, start, end, thread)]."""
+    """fn's result and its ipt.* spans [(name, start, end, thread)]; the
+    counters' marks (ipt.count.*, profiling.count) are not spans."""
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         out = fn()
     spans = [(e.name, e.time_range.start, e.time_range.end, e.thread) for e in prof.events()
-             if e.name.startswith("ipt.")]
+             if e.name.startswith("ipt.") and not e.name.startswith(profiling.COUNT_MARK)]
+    profiling.counted(e.name for e in prof.events())  # drop this run's counts
     return out, spans
 
 
