@@ -315,8 +315,13 @@ def _grad_launches(materials, scene, key, cfg, start, count, g_vals, ext) -> tor
     n_tri = scene.n_tri
     d_mats = torch.zeros((n_tri, 3), dtype=torch.float32, device=scene.device)
     if not _use_staged(cfg, scene):
+        launches = 0
         for lo, hi, a in _launches(scene, cfg, key, start, count, ext):
             d_mats = d_mats + kern.grad(materials, scene, cfg, g=g_vals[lo:hi].T.contiguous(), **a)
+            launches += 1
+        # Each B2 launch reads its lanes' g and writes the (nT, 3) gradient.
+        tally("ipt.grad.lanes", count)
+        tally("ipt.grad.rows", n_tri * launches)
         return d_mats
     # The staged gradient (JAX render/forward.py:857): per launch the
     # stages again with records, then the chained recursion; the kernels'
@@ -333,7 +338,10 @@ class _RenderRange(torch.autograd.Function):
     counterpart of _render_range_pallas and its defvjp, JAX
     render/forward.py:1091-1127): mega, the forward runs B1 per launch and
     the backward B2 per launch on the forward's rays; staged, B7 and B8,
-    then B7, B8 with records and B9."""
+    then B7, B8 with records and B9.  Mega, the backward counts
+    ipt.grad.replayed (the forward's segments and shadow rays, which B2
+    traces again) and ipt.grad.lanes and ipt.grad.rows (g's lanes read, the
+    gradient's rows written), which the BVH instance's roofline reads."""
 
     @staticmethod
     @spanned("ipt.render.range")
@@ -355,12 +363,17 @@ class _RenderRange(torch.autograd.Function):
         ctx.mark_non_differentiable(counts)
         ctx.save_for_backward(materials)
         ctx.range = (scene, key, cfg, start, count, ext)
+        ctx.totals = totals
         return out, counts
 
     @staticmethod
     def backward(ctx, g_vals, _g_counts):
         (materials,) = ctx.saved_tensors
         scene, key, cfg, start, count, ext = ctx.range
+        if not _use_staged(cfg, scene):
+            # B2 replays the forward's paths bit for bit: its segments and
+            # shadow rays are the forward's.
+            tally("ipt.grad.replayed", ctx.totals)
         d_mats = _grad_launches(materials, scene, key, cfg, start, count,
                                 g_vals.to(torch.float32), ext)
         return d_mats, None, None, None, None, None, None

@@ -1163,6 +1163,37 @@ def test_gradient_kernels_past_2048_triangles(card, bvh_big):
     torch.testing.assert_close(so, so_p, rtol=1e-6, atol=0)
 
 
+def test_bvh_gradient_of_the_vertex_normal_scene_at_a_full_launch(card):
+    """B2's BVH instance (grad_tile_kernel<16, false, 2>, accumulators in
+    shared memory) on the 1298-triangle vertex-normal scene with its tree,
+    at one launch of 2^20 samples and 16 bounces in camera mode, the
+    recovery cell's launch: against its plain version under the file's
+    vertex-normal bound, bit-equal across two calls, each call one B2
+    launch and one traversal."""
+    from inverse_path_tracer_torch import large_scene
+    from inverse_path_tracer_torch.ops.bvh import attach_bvh
+    from inverse_path_tracer_torch.ops.kernels.render_kernel import bvh_traversal, pack_tables
+
+    scene = attach_bvh(large_scene(card))
+    cfg = RenderConfig(width=128, height=128, spp=64, max_bounces=16, intersect="bvh")
+    n = cfg.n_samples
+    assert n == cfg.tile_size == 1 << 20
+    args, _ = camera_launch(scene, cfg, card, key=13)
+    g = torch.rand((3, n), generator=torch.Generator().manual_seed(12)).to(card)
+    mats = scene.diffuse
+    tabs = pack_tables(scene, mats, cfg)
+    assert tabs.nodes is not None
+    before = (grad_tile.launches, bvh_traversal.launches)
+    d1 = grad_tile(mats, scene, cfg, g=g, tables=tabs, **args)
+    d2 = grad_tile(mats, scene, cfg, g=g, tables=tabs, **args)
+    assert (grad_tile.launches - before[0], bvh_traversal.launches - before[1]) == (2, 2)
+    assert torch.equal(d1, d2)
+    dp = grad_tile_plain(mats, scene, cfg, g=g, **args)
+    print(f"B2 BVH against plain: relative norm {float((d1 - dp).norm() / dp.norm()):.3e}")
+    assert_vn_grad_close(d1, dp)
+    assert bool((d1 != 0).any())
+
+
 def test_kernels_without_a_bvh_flavour_refuse_bvh_tables(card, scene0):
     """B5, B6 (both sinks) and B7 have no BVH traversal: on the BVH route's
     tables they raise rather than sweep the leaf-order rows."""
