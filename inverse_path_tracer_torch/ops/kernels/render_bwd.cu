@@ -46,23 +46,31 @@
 // Reduction.  Within a warp, lanes that add to the same triangle are
 // grouped with __match_any_sync and summed in a fixed tree over lane order
 // (warp_add, warp_sum_by_key); the group's lowest lane adds the sum to the
-// warp's own (nT, 3) row of shared memory.  At the end the block sums its
+// warp's own (nT, 3) row of accumulators.  At the end the block sums its
 // warps' rows in warp order and writes one (nT, 3) partial; the wrapper
-// sums the partials over blocks in a fixed order.  No atomics are used, and B2's
-// hand-out of rays to lanes depends only on (n, the grid, the path
+// sums the partials over blocks in a fixed order.  No atomics are used, and
+// B2's hand-out of rays to lanes depends only on (n, the grid, the path
 // lengths), so every result is bit-reproducible from run to run on one card
 // (it does depend on how rays fall into warps and blocks, as any float sum
-// depends on its order).  Shared memory holds one (nT, 3) row of
-// accumulators per warp and, for B2, when they fit beside them, the scene
-// tables.  Where a block's rows do not fit in shared memory (past ~2,400
-// triangles for B2 and B4, ~4,800 for B9: acc_in_smem), the kGlobalAcc
-// instances keep them in a scratch buffer in global memory, (blocks,
-// warps, nT, 3) floats that the wrapper allocates, each warp's row its own,
-// so still no atomics: the block clears its rows, its warps add into them,
-// and it sums them in warp order into its partial, as in shared memory.
-// Those instances run at most kGlobalAccBlocksPerSm blocks per SM, which
-// bounds the scratch (B4's then walk their rays block by block), and the
-// shared-memory instances are unchanged.
+// depends on its order).  The rows sit in shared memory, with B2's scene
+// tables beside them where those fit too, or, in the kGlobalAcc instances,
+// in a scratch buffer in global memory, (blocks, warps, nT, 3) floats that
+// the wrapper allocates, each warp's row its own, so still no atomics: the
+// block clears its rows, its warps add into them, and it sums them in warp
+// order into its partial, as in shared memory.  B4 and B9, and the
+// clustered B2 (whose sweep tables share the SM's shared memory with the
+// rows), take the scratch only where a block's rows do not fit in shared
+// memory at all (past ~2,400 triangles for B2 and B4, ~4,800 for B9:
+// acc_in_smem).  The dense and BVH B2 take it wherever the rows would hold
+// the kernel below the blocks per SM that its registers allow (grad_kernel):
+// the BVH instance, held to two blocks an SM, from ~1,200 triangles, where
+// 8 rows of nT x 12 bytes leave room for one block, and its traversal's
+// latency went unhidden at 8 warps an SM.  Its adds then go through L1 and
+// L2 (the scratch of 264 blocks at 1,298 triangles is 33 MB, within the 50
+// MB L2), and an SM's shared memory is left to L1, which the traversal
+// reads its nodes and triangles through.  The kGlobalAcc instances run at
+// most kGlobalAccBlocksPerSm blocks per SM, which bounds the scratch (B4's
+// then walk their rays block by block).
 //
 // Bound.  B2 does B1's work again (the closest-hit searches, f32 ALU) plus
 // the recursion, ~40 f32 operations and a warp sum per reached bounce, and
@@ -275,8 +283,10 @@ __device__ __forceinline__ void recurse_ended(const LocalRecords<kCap>& recs, bo
 // (n, the grid, the path lengths), and every sum has a fixed order, so the
 // gradient is the same in every run on one card.  kSweep is the search
 // flavour (the BVH route's traversal included); kGlobalAcc keeps the
-// accumulators in `scratch` (header comment).  The BVH instance runs at two
-// blocks an SM, as the clustered ones: held to three, ptxas spilled it.
+// accumulators in `scratch` (header comment).  The BVH instance is held to
+// two blocks an SM, as the clustered ones (held to three, ptxas spilled
+// it), and runs two: its rows take the scratch wherever they would leave
+// room for one block only (grad_kernel).
 template <int kCap, bool kGlobalAcc, int kSweep>
 __global__ void __launch_bounds__(kThreads, kSweep == kSweepDense ? 0 : 2)
     grad_tile_kernel(const TraceParams P, const float* g, float* partials, float* scratch) {
@@ -533,18 +543,53 @@ cudaError_t stage_reverse_capacity(int n_tri, int k, StageReverseKernel* kernel,
   return acc_grid(global, cap, n_tri, kB9Warps, blocks, scratch);
 }
 
+// The dynamic shared memory a block of `kernel` can take while as many of
+// its blocks share an SM as its registers allow (its occupancy with no
+// dynamic shared memory): the SM's shared memory over those blocks, less
+// each block's reserved share and its static shared memory.  `cache`
+// holds one entry per device, as capacity's.
+template <class K>
+cudaError_t register_bound_smem(K kernel, Capacity* cache, size_t* bytes) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  Capacity& c = cache[dev];
+  if (c.blocks == 0) {
+    int per_sm = 0, sm_smem = 0, reserved = 0;
+    cudaFuncAttributes a{};
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, 0);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sm_smem, cudaDevAttrMaxSharedMemoryPerMultiprocessor, dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&reserved, cudaDevAttrReservedSharedMemoryPerBlock, dev);
+    if (err == cudaSuccess) err = cudaFuncGetAttributes(&a, kernel);
+    if (err != cudaSuccess) return err;
+    if (per_sm < 1) return cudaErrorInvalidConfiguration;
+    const long long room = static_cast<long long>(sm_smem / per_sm) - reserved -
+                           static_cast<long long>(a.sharedSizeBytes);
+    c = Capacity{room < 0 ? 0 : static_cast<size_t>(room < kMaxSmem ? room : kMaxSmem), per_sm};
+  }
+  *bytes = c.smem;
+  return cudaSuccess;
+}
+
 // B2's instance for *P (ring of 16 or 64 slots, accumulators in shared or
 // global memory, dense, clustered or BVH search), its capacity cache and
-// its dynamic shared memory (sets P.use_smem).
+// its dynamic shared memory (sets P.use_smem).  The dense and BVH
+// instances keep their rows in shared memory only where the rows and the
+// tables fit at the blocks per SM that the registers allow: where the rows
+// alone would cut the grid below that (the BVH instance from ~1,200
+// triangles), the kGlobalAcc instance runs the register-bound blocks.  The
+// clustered instance, whose sweep tables need the same shared memory,
+// keeps its rows there wherever a block's fit (acc_in_smem).
 using GradKernel = void (*)(const TraceParams, const float*, float*, float*);
 Capacity g_grad_capacity[2][2][3][kMaxDevices] = {};
+Capacity g_grad_room[2][3][kMaxDevices] = {};
 
 cudaError_t grad_kernel(TraceParams& P, GradKernel* kernel, Capacity** cache, size_t* dyn,
                         bool* global) {
   if (P.max_bounces > 64) return cudaErrorInvalidValue;
-  *global = !acc_in_smem(P.n_tri, kWarps);
-  const size_t acc = *global ? 0 : acc_floats(P.n_tri) * sizeof(float);
-  *dyn = acc + smem_tables(P, acc);
   const int ring = P.max_bounces <= 16 ? 0 : 1, sweep = sweep_of(P);
   const GradKernel kernels[2][2][3] = {
       {{grad_tile_kernel<16, false, kSweepDense>, grad_tile_kernel<16, false, kSweepClustered>,
@@ -555,6 +600,18 @@ cudaError_t grad_kernel(TraceParams& P, GradKernel* kernel, Capacity** cache, si
         grad_tile_kernel<64, false, kSweepBvh>},
        {grad_tile_kernel<64, true, kSweepDense>, grad_tile_kernel<64, true, kSweepClustered>,
         grad_tile_kernel<64, true, kSweepBvh>}}};
+  const size_t rows = acc_floats(P.n_tri) * sizeof(float);
+  *global = !acc_in_smem(P.n_tri, kWarps);
+  if (!*global && sweep != kSweepClustered) {
+    size_t room = 0;
+    const cudaError_t err = register_bound_smem(kernels[ring][0][sweep], g_grad_room[ring][sweep],
+                                                &room);
+    if (err != cudaSuccess) return err;
+    TraceParams with_rows = P;
+    *global = rows + smem_tables(with_rows, rows) > room;
+  }
+  const size_t acc = *global ? 0 : rows;
+  *dyn = acc + smem_tables(P, acc);
   *kernel = kernels[ring][*global][sweep];
   *cache = g_grad_capacity[ring][*global][sweep];
   return cudaSuccess;

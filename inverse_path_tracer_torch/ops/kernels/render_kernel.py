@@ -50,9 +50,14 @@ run persistent blocks whose lanes regenerate (render_common.cuh
 warp_rays); `render_tile.blocks`, `grad_tile.blocks`,
 `render_tile_rec.blocks` and `reverse_tile.blocks` hold the grid of their
 last launch.  The gradient kernels keep one (nT, 3) row of accumulators per
-warp, in shared memory where a block's rows fit and otherwise in a scratch
-buffer in global memory that the wrappers allocate (render_bwd.cu header;
-acc_scratch), so that they take any triangle count.
+warp, in shared memory or in a scratch buffer in global memory that the
+wrappers allocate (render_bwd.cu header; acc_scratch), so that they take
+any triangle count: B4, B9 and the clustered B2 where a block's rows do not
+fit in shared memory, the dense and BVH B2 wherever the rows would hold the
+kernel below the blocks per SM that its registers allow (the BVH instance
+from ~1,200 triangles).  Traced, grad_tile counts the floats each launch
+keeps there (ipt.grad.scratch_floats: blocks times the floats a block
+needs; 0 where the rows are in shared memory).
 """
 
 from __future__ import annotations
@@ -98,7 +103,7 @@ from inverse_path_tracer_torch.render.diff import (
     backward_from_records,
 )
 from inverse_path_tracer_torch.scene.build import SceneData
-from inverse_path_tracer_torch.utils.profiling import span, spanned
+from inverse_path_tracer_torch.utils.profiling import count, span, spanned
 
 Keys = Tuple[int, int]
 
@@ -393,6 +398,7 @@ def grad_tile(
     _raise_on(lib, err, "render_bwd grad_tile")
     grad_tile.launches += 1
     grad_tile.blocks = blocks
+    count("ipt.grad.scratch_floats", blocks * per_block.value)
     _count_sweep(tabs)
     return unperm_rows(partials.sum(dim=0), tabs.perm)
 

@@ -1164,12 +1164,13 @@ def test_gradient_kernels_past_2048_triangles(card, bvh_big):
 
 
 def test_bvh_gradient_of_the_vertex_normal_scene_at_a_full_launch(card):
-    """B2's BVH instance (grad_tile_kernel<16, false, 2>, accumulators in
-    shared memory) on the 1298-triangle vertex-normal scene with its tree,
-    at one launch of 2^20 samples and 16 bounces in camera mode, the
-    recovery cell's launch: against its plain version under the file's
-    vertex-normal bound, bit-equal across two calls, each call one B2
-    launch and one traversal."""
+    """B2's BVH instance (grad_tile_kernel<16, true, 2>: its accumulator
+    rows in the global scratch, at the two blocks an SM that its registers
+    allow) on the 1298-triangle vertex-normal scene with its tree, at one
+    launch of 2^20 samples and 16 bounces in camera mode, the recovery
+    cell's launch: against its plain version under the file's vertex-normal
+    bound, bit-equal across two calls, each call one B2 launch of two
+    blocks an SM and one traversal."""
     from inverse_path_tracer_torch import large_scene
     from inverse_path_tracer_torch.ops.bvh import attach_bvh
     from inverse_path_tracer_torch.ops.kernels.render_kernel import bvh_traversal, pack_tables
@@ -1187,11 +1188,96 @@ def test_bvh_gradient_of_the_vertex_normal_scene_at_a_full_launch(card):
     d1 = grad_tile(mats, scene, cfg, g=g, tables=tabs, **args)
     d2 = grad_tile(mats, scene, cfg, g=g, tables=tabs, **args)
     assert (grad_tile.launches - before[0], bvh_traversal.launches - before[1]) == (2, 2)
+    assert grad_tile.blocks == 2 * torch.cuda.get_device_properties(card).multi_processor_count
     assert torch.equal(d1, d2)
     dp = grad_tile_plain(mats, scene, cfg, g=g, **args)
     print(f"B2 BVH against plain: relative norm {float((d1 - dp).norm() / dp.norm()):.3e}")
     assert_vn_grad_close(d1, dp)
     assert bool((d1 != 0).any())
+
+
+def test_the_gradient_rows_follow_the_register_bound_grid(card, scene0, bvh_big):
+    """Where the gradient kernels keep their per-warp accumulator rows, and
+    their grids, at a launch of 2^20 samples (render_bwd.cu grad_kernel,
+    ipt_grad_tile_capacity; the scratch floats a block needs, 0 where the
+    rows are in shared memory): dense B2 on scene 0 (30 triangles) keeps
+    them in shared memory at 3 blocks an SM; B2's BVH instance, held to two
+    blocks an SM by its registers, keeps them in the scratch (8 warps x nT x
+    3 floats a block) and runs two, on the 1298-triangle scene as on the
+    20,498-triangle one; clustered B2 on the 1298 scene keeps them in shared
+    memory beside its sweep tables, one block an SM; and at 1298 triangles
+    B4 runs one block per 256 rays and B9 (4 warps, stage of 4 slots) 3
+    blocks an SM, both with their rows in shared memory."""
+    import ctypes
+
+    from inverse_path_tracer_torch import large_scene
+    from inverse_path_tracer_torch.ops.bvh import attach_bvh
+    from inverse_path_tracer_torch.ops.kernels.render_kernel import (
+        _library,
+        _trace_params,
+        pack_tables,
+    )
+
+    lib = _library("render_bwd")
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    cfg = RenderConfig(width=128, height=128, spp=64, max_bounces=16)
+    n = cfg.n_samples
+    blocks, per_block = ctypes.c_int(0), ctypes.c_longlong(0)
+
+    def grid(scene, c):
+        tabs = pack_tables(scene, scene.diffuse, c)
+        args, _ = camera_launch(scene, c, card, key=3)
+        params, _ = _trace_params(scene.diffuse, scene, c, tabs, None, **args)
+        assert lib.ipt_grad_tile_capacity(ctypes.byref(params), ctypes.byref(blocks),
+                                          ctypes.byref(per_block)) == 0
+        return blocks.value, per_block.value
+
+    large = attach_bvh(large_scene(card))
+    bvh = cfg.with_(intersect="bvh")
+    assert grid(scene0, cfg) == (3 * sms, 0)
+    assert grid(large, bvh) == (2 * sms, 8 * large.n_tri * 3)
+    assert grid(bvh_big, bvh) == (2 * sms, 8 * bvh_big.n_tri * 3)
+    assert grid(large, cfg) == (sms, 0)
+    assert lib.ipt_reverse_tile_blocks(n, large.n_tri, ctypes.byref(blocks),
+                                       ctypes.byref(per_block)) == 0
+    assert (blocks.value, per_block.value) == (n // 256, 0)
+    assert lib.ipt_stage_reverse_blocks(n, large.n_tri, 4, ctypes.byref(blocks),
+                                        ctypes.byref(per_block)) == 0
+    assert (blocks.value, per_block.value) == (3 * sms, 0)
+
+
+def test_the_bvh_gradient_counts_its_scratch_floats_when_traced(card):
+    """A traced render and backward on the BVH route of the 1298-triangle
+    scene (the recovery step's path: B1, then B2 per launch) marks
+    ipt.grad.scratch_floats with each B2 launch's blocks times the floats a
+    block keeps in the scratch (8 warps x nT x 3); untraced, nothing is
+    tallied."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from inverse_path_tracer_torch import large_scene
+    from inverse_path_tracer_torch.ops.bvh import attach_bvh
+    from inverse_path_tracer_torch.utils import profiling
+
+    scene = attach_bvh(large_scene(card))
+    cfg = RenderConfig(width=64, height=64, spp=8, max_bounces=8, intersect="bvh",
+                       tile_size=1 << 14)
+    launches = -(-cfg.n_samples // cfg.tile_size)
+    assert launches == 2
+
+    def step():
+        m = scene.diffuse.clone().requires_grad_()
+        vals, _ = render_samples(m, scene, 4, cfg, device=card)
+        vals.sum().backward()
+        return m.grad
+
+    before, b2 = dict(profiling._tally), grad_tile.launches
+    step()
+    assert grad_tile.launches == b2 + launches and profiling._tally == before
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        step()
+    got = profiling.counted(e.name for e in prof.events())
+    assert got["ipt.grad.scratch_floats"] == launches * grad_tile.blocks * 8 * scene.n_tri * 3
+    assert grad_tile.blocks > 0 and profiling._tally == before
 
 
 def test_kernels_without_a_bvh_flavour_refuse_bvh_tables(card, scene0):
